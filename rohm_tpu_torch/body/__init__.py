@@ -1,0 +1,17 @@
+"""SMPL-X joints in PyTorch."""
+
+from rohm_tpu_torch.body.model import (
+    NUM_BETAS,
+    NUM_BODY_JOINTS,
+    NUM_JOINTS,
+    SMPLX_PARENTS,
+    SmplxModel,
+    forward_joints,
+    load_smplx_npz,
+    synthetic_model,
+)
+
+__all__ = [
+    "NUM_BETAS", "NUM_BODY_JOINTS", "NUM_JOINTS", "SMPLX_PARENTS", "SmplxModel",
+    "forward_joints", "load_smplx_npz", "synthetic_model",
+]

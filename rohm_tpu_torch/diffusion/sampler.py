@@ -1,0 +1,112 @@
+"""The reverse diffusion chain with test-time guidance, in eager PyTorch.
+
+The port of rohm_tpu/diffusion/sampler.py::p_sample_loop. The JAX version
+runs the chain as two `lax.scan` segments split at the highest guidance
+threshold, with a `lax.cond` gate inside the lower one; here a Python loop
+does the same steps and the gate is `if t <= threshold`, so the steps above
+the highest threshold run no guidance code at all.
+
+Each `GuidanceSpec` adds `weight * posterior_variance[t] * (-grad loss(pred_x0))`
+to the posterior mean, the gradient taken with torch.autograd.grad on a
+detached copy of pred_x0.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from rohm_tpu_torch.diffusion.gaussian import p_mean_from_x0
+from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
+
+
+@dataclass(frozen=True)
+class GuidanceSpec:
+    """One test-time guidance term.
+
+    loss_fn(x [*shape]) -> scalar; differentiated wrt the model's pred_x0.
+    grad_mask zeroes protected dims (traj + contact labels in RoHM).
+    """
+
+    loss_fn: Callable[[torch.Tensor], torch.Tensor]
+    weight: float
+    t_threshold: int
+    grad_mask: torch.Tensor | None = None
+
+
+def _guidance_shift(guidance, pred_x0: torch.Tensor, t: int, var: torch.Tensor):
+    shift = None
+    for spec in guidance:
+        # thresholds compare the INTERNAL (spaced) step index, as the
+        # reference does; timestep_map remaps t for the model call only
+        if t > spec.t_threshold:
+            continue
+        x0 = pred_x0.detach().requires_grad_()
+        with torch.enable_grad():
+            (grad,) = torch.autograd.grad(spec.loss_fn(x0), x0)
+        g = -grad
+        if spec.grad_mask is not None:
+            g = g * spec.grad_mask
+        term = spec.weight * var * g
+        shift = term if shift is None else shift + term
+    return shift
+
+
+def p_sample_loop(
+    model_fn: Callable[[torch.Tensor, int], torch.Tensor],
+    sched: DiffusionSchedule,
+    shape: tuple,
+    generator: torch.Generator,
+    noise: torch.Tensor | None = None,
+    guidance: tuple[GuidanceSpec, ...] = (),
+    early_stop_steps: int = 0,
+    dtype=torch.float32,
+    step_noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Run the full reverse chain.
+
+    Args:
+      model_fn(x_t, t) -> pred_x0, where t is the (respacing-mapped) original
+        timestep as a Python int.
+      shape: sample shape (B, T, D).
+      generator: torch.Generator on the device the chain runs on; draws x_T
+        (unless `noise` is given) and then one normal sample per step.
+      noise: optional fixed x_T.
+      guidance: guidance terms (see GuidanceSpec).
+      early_stop_steps: truncate the chain this many steps before t=0 and
+        return the last pred_x0 instead of the stochastic sample.
+      step_noise: optional preset per-step noise [num_timesteps, *shape],
+        indexed by internal timestep t (deterministic replay).
+
+    Returns: final sample [B, T, D] (or final pred_x0 when early stopping).
+    """
+    device = generator.device
+    num_steps = sched.num_timesteps - early_stop_steps
+    t_hi = sched.num_timesteps - 1
+    t_lo = sched.num_timesteps - num_steps
+    tmap = sched.timestep_map.tolist()
+
+    if noise is None:
+        x = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    else:
+        x = noise.to(device=device, dtype=dtype)
+    pred_x0 = x
+    for t in range(t_hi, t_lo - 1, -1):
+        pred_x0 = model_fn(x, tmap[t])
+        mean, var, log_var = p_mean_from_x0(sched, pred_x0, x, t)
+        shift = _guidance_shift(guidance, pred_x0, t, var) if guidance else None
+        if shift is not None:
+            mean = mean + shift
+        if step_noise is not None:
+            noise_t = step_noise[t].to(device=device, dtype=dtype)
+        else:
+            noise_t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        if t != 0:
+            x = mean + torch.exp(0.5 * log_var) * noise_t
+        else:
+            x = mean
+    if early_stop_steps > 0:
+        return pred_x0
+    return x

@@ -1,0 +1,24 @@
+"""Batched, differentiable rotation conversions in PyTorch."""
+
+from rohm_tpu_torch.geometry.rotations import (
+    aa_to_quat,
+    aa_to_rotmat,
+    qbetween,
+    qinv,
+    qmul,
+    qnormalize,
+    qrot,
+    quat_to_aa,
+    quat_to_rotmat,
+    rot6d_to_rotmat,
+    rotmat_to_aa,
+    rotmat_to_quat,
+    rotmat_to_rot6d,
+    skew_angular_velocity,
+)
+
+__all__ = [
+    "aa_to_quat", "aa_to_rotmat", "qbetween", "qinv", "qmul", "qnormalize", "qrot",
+    "quat_to_aa", "quat_to_rotmat", "rot6d_to_rotmat", "rotmat_to_aa",
+    "rotmat_to_quat", "rotmat_to_rot6d", "skew_angular_velocity",
+]

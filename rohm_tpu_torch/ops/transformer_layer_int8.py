@@ -1,0 +1,186 @@
+"""int8 PoseNet encoder layer: the W8A8 throughput mode (`fused_posenet="int8"`).
+
+Replaces rohm_tpu/ops/transformer_layer_int8.py::_layer_kernel_int8 with
+qattn=False. Weights are symmetric int8 with one f32 scale per output
+column (set once by `prepare_layer_int8`); each GEMM input is quantized per
+row right before the product; int32 accumulation; dequant acc*row*col, then
+an f32 bias. Attention, LayerNorm and residuals are those of the bf16 layer.
+On the H100 the layer is a chain of eleven launches of five hand-written
+CUDA kernels:
+
+  qx   = quant_rows_int8(x)
+  qkv  = gemm_int8(qx, Wqkv, bqkv, "bf16")     cast to bf16 AFTER the bias
+  attn = attention_bf16(qkv)
+  a    = gemm_int8(quant_rows_int8(attn), Wo, bo, "f32")
+  y    = residual_layernorm(x, a)              f32
+  h1   = gemm_int8(quant_rows_int8(y), W1, b1, "gelu")   f32
+  h2   = gemm_int8(quant_rows_int8(h1), W2, b2, "f32")
+  out  = residual_layernorm(y, h2) -> bf16
+
+`quant_rows_int8` (csrc/quant_rows_int8.cu) and `gemm_int8`
+(csrc/gemm_int8.cu) live here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rohm_tpu_torch.ops._build import check_cuda, launch, ptr, stream
+from rohm_tpu_torch.ops.kernel_common import (
+    attention_bf16,
+    attention_bf16_plain,
+    fuse_qkv,
+    gelu_tanh,
+    posenet_prep_tail,
+    residual_layernorm,
+    residual_layernorm_plain,
+)
+
+GEMM_INT8_MODES = {"bf16": 0, "f32": 1, "gelu": 2}
+
+
+def _quant(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 along `dim`: amax/127 scales, round half to even."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(dim=dim, keepdim=True), min=1e-12)
+    # tensor / tensor: `127.0 / amax` would be reciprocal(amax) * 127 in
+    # torch, one rounding more than the JAX package's (and the kernel's) division
+    inv = torch.full_like(amax, 127.0) / amax
+    q = torch.clamp(torch.round(xf * inv), -127.0, 127.0).to(torch.int8)
+    return q, (amax * (1.0 / 127.0)).squeeze(dim)
+
+
+def quant_rows_int8_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[R, C] bf16/f32 -> (int8 [R, C], f32 row scales [R])."""
+    return _quant(x, -1)
+
+
+def quant_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantization of an activation [R, C] (bf16 or f32) ->
+    (int8 [R, C], f32 scales [R]).
+
+    Replaces `_quant_rows` inside _layer_kernel_int8. CUDA:
+    csrc/quant_rows_int8.cu, one block per row; memory-bound."""
+    if x.device.type == "cpu":
+        return quant_rows_int8_plain(x)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quant_rows_int8: x must be bf16 or f32, got {x.dtype}")
+    check_cuda(x, x.dtype, 2, "x")
+    rows, cols = x.shape
+    q = torch.empty(rows, cols, dtype=torch.int8, device=x.device)
+    scale = torch.empty(rows, dtype=torch.float32, device=x.device)
+    launch("rt_quant_rows_int8", ptr(x), int(x.dtype == torch.bfloat16), ptr(q), ptr(scale),
+           rows, cols, stream())
+    quant_rows_int8.launches += 1
+    return q, scale
+
+
+quant_rows_int8.launches = 0
+
+
+def _quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 [K, N] -> (int8 [K, N], f32 col scales [N])."""
+    return _quant(w, 0)
+
+
+def gemm_int8_plain(qa, row_scale, w_q, col_scale, bias, mode: str) -> torch.Tensor:
+    """The W8A8 product in plain PyTorch. The int8 values multiply as f32,
+    which is exact: every partial sum is an integer below K*127^2 <= 2^24."""
+    acc = qa.float() @ w_q.float()
+    v = acc * row_scale[:, None] * col_scale + bias
+    if mode == "bf16":
+        return v.to(torch.bfloat16)
+    if mode == "f32":
+        return v
+    if mode == "gelu":
+        return gelu_tanh(v)
+    raise ValueError(f"gemm_int8: unknown mode {mode!r}")
+
+
+def gemm_int8(qa: torch.Tensor, row_scale: torch.Tensor, w_q: torch.Tensor,
+              col_scale: torch.Tensor, bias: torch.Tensor, mode: str) -> torch.Tensor:
+    """(float(qa [M,K] i8 @ w_q [K,N] i8) * row_scale[m]) * col_scale[n] + bias[n],
+    int32 accumulation; "bf16" stores bf16, "f32" f32, "gelu" tanh-gelu f32.
+
+    Replaces `_dot_i8` + bias inside _layer_kernel_int8. CUDA:
+    csrc/gemm_int8.cu, WMMA s8 tensor-core tiles; tensor-core bound."""
+    if qa.device.type == "cpu":
+        return gemm_int8_plain(qa, row_scale, w_q, col_scale, bias, mode)
+    if mode not in GEMM_INT8_MODES:
+        raise ValueError(f"gemm_int8: unknown mode {mode!r}")
+    check_cuda(qa, torch.int8, 2, "qa")
+    check_cuda(w_q, torch.int8, 2, "w_q")
+    for t, name in ((row_scale, "row_scale"), (col_scale, "col_scale"), (bias, "bias")):
+        check_cuda(t, torch.float32, 1, name)
+    m, k = qa.shape
+    n = w_q.shape[1]
+    if (w_q.shape[0] != k or row_scale.shape[0] != m or col_scale.shape[0] != n
+            or bias.shape[0] != n or n % 64 or k % 32):
+        raise ValueError(f"gemm_int8: shapes {tuple(qa.shape)} @ {tuple(w_q.shape)} unsupported")
+    out_dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    out = torch.empty(m, n, dtype=out_dtype, device=qa.device)
+    launch("rt_gemm_int8", ptr(qa), ptr(row_scale), ptr(w_q), ptr(col_scale), ptr(bias),
+           ptr(out), m, n, k, GEMM_INT8_MODES[mode], stream())
+    gemm_int8.launches += 1
+    return out
+
+
+gemm_int8.launches = 0
+
+
+def _layer(x, prepared, num_heads, quant, gemm, attention, res_ln):
+    """One int8 layer through the given kernel functions (wrappers or plain)."""
+    (wqkv, sqkv, bqkv, wo, so, bo, ln1_s, ln1_b,
+     w1, s1, b1, w2, s2, b2, ln2_s, ln2_b) = prepared
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    qkv = gemm(*quant(x2), wqkv, sqkv, bqkv, "bf16")
+    attn = gemm(*quant(attention(qkv, s, num_heads)), wo, so, bo, "f32")
+    y, _ = res_ln(x2, attn, ln1_s, ln1_b, True, False)
+    h1 = gemm(*quant(y), w1, s1, b1, "gelu")
+    h2 = gemm(*quant(h1), w2, s2, b2, "f32")
+    _, out = res_ln(y, h2, ln2_s, ln2_b, False, True)
+    return out.reshape(b, s, d)
+
+
+def fused_encoder_layer_int8(x: torch.Tensor, prepared: tuple, num_heads: int = 4) -> torch.Tensor:
+    """One int8 encoder layer. x [B, S, D] bf16 -> [B, S, D] bf16."""
+    return _layer(x.to(torch.bfloat16).contiguous(), prepared, num_heads,
+                  quant_rows_int8, gemm_int8, attention_bf16, residual_layernorm)
+
+
+def fused_encoder_layer_int8_plain(x: torch.Tensor, prepared: tuple, num_heads: int = 4) -> torch.Tensor:
+    """The same layer through the plain PyTorch versions, on any device."""
+    return _layer(x.to(torch.bfloat16), prepared, num_heads, quant_rows_int8_plain,
+                  gemm_int8_plain, attention_bf16_plain, residual_layernorm_plain)
+
+
+def prepare_layer_int8(layer) -> tuple:
+    """Quantize one TransformerEncoderLayer for the int8 path (call once,
+    outside the sampling loop)."""
+    wqkv, bqkv = fuse_qkv(layer.self_attn)
+
+    def f32(t):
+        return t.detach().float().contiguous()
+
+    wqkv_q, sqkv = _quant_cols(wqkv)
+    wo_q, so = _quant_cols(f32(layer.self_attn.out_proj.weight.t()))
+    w1_q, s1 = _quant_cols(f32(layer.linear1.weight.t()))
+    w2_q, s2 = _quant_cols(f32(layer.linear2.weight.t()))
+    return (
+        wqkv_q.contiguous(), sqkv, f32(bqkv),
+        wo_q.contiguous(), so, f32(layer.self_attn.out_proj.bias),
+        f32(layer.norm1.weight), f32(layer.norm1.bias),
+        w1_q.contiguous(), s1, f32(layer.linear1.bias),
+        w2_q.contiguous(), s2, f32(layer.linear2.bias),
+        f32(layer.norm2.weight), f32(layer.norm2.bias),
+    )
+
+
+def prepare_posenet_int8(posenet) -> dict:
+    """One-time quantization of a PoseNet for the int8 path; the embedding,
+    head and timestep params stay f32."""
+    return {
+        "layers": tuple(prepare_layer_int8(layer) for layer in posenet.seqTransEncoder.layers),
+        **posenet_prep_tail(posenet),
+    }
