@@ -4,41 +4,54 @@
 
 Phases (each failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit; no CUDA device is an error.
-  2. build: nvcc builds rohm_tpu_torch/ops/csrc into rohm_tpu_torch/_build/.
+  2. build: nvcc builds rohm_tpu_torch/ops/csrc into rohm_tpu_torch/_build/,
+     one nvcc process per source, all at once.
   3. kernels: every CUDA kernel of the PoseNet encoder layers, and each whole
-     layer (bf16, int8), against its plain PyTorch version on the card, at
-     the main path's shapes (32 clips x 144 tokens, D=512, H=4, F=1024):
-     max/mean abs error within the stated tolerance, median CUDA-event times.
+     layer (bf16, int8, int8qa, f32), against its plain PyTorch version on
+     the card, at the main path's shapes (32 clips x 144 tokens, D=512, H=4,
+     F=1024): max/mean abs error within the stated tolerance, median
+     CUDA-event times.
   4. slice: the full-width AMASS inference pipeline (TrajNet + TrajControl
      mid_dim 512, PoseNet 512d x 8 layers, synthetic SMPL-X body, cosine
      100/1000-step schedules, skating guidance, 2 iterations, lower-body
      mask) on batches of 32 clips x 144 frames built with the port's own FK
      and encoder, through RohmPipeline.run_batch with fused_posenet "int8"
      and "bf16". Weights are random from --seed. Checks shapes, finiteness,
-     the kernels' launch counts, and the fused PoseNet against the plain
-     f32 PoseNet on one step.
+     the kernels' launch counts, and the fused PoseNet of every mode (bf16,
+     int8, int8qa, f32) against the plain f32 PoseNet on one step.
   5. breakdown: each piece of a batch (TrajNet step, bridge, guidance
      gradient, PoseNet step per mode) timed alone, the batch predicted
      from them, and the device's busy share over PoseNet steps.
-The second-to-last stdout line is the kernels' JSON; the last line is
-{"ok": true, "device": {...}}.
+  6. cli: `rohm_tpu_torch.cli.test_amass_full.main` at full width with the
+     shipped amass_occ_leg_noise_3.yaml, on a synthetic AMASS test tree
+     (3 x 11 sequences of 149 frames) and a real-size synthetic SMPL-X .npz,
+     one batch of 32 clips with fused_posenet "f32" and one with "int8qa",
+     then `eval_amass_full.main` on each pickle. Checks the launch counts,
+     the pickle's keys, shapes and finiteness.
+The second-to-last stdout line is the kernels' JSON (launches: the slice's
+and the CLI's runs); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import pickle
+import shutil
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from rohm_tpu_torch.body.model import forward_joints, synthetic_model
+from rohm_tpu_torch.body.model import SMPLX_PARENTS, forward_joints, synthetic_model
 from rohm_tpu_torch.diffusion.schedule import make_schedule
 from rohm_tpu_torch.models import PoseNet, TrajNet
 from rohm_tpu_torch.ops import _build, kernel_common as kc
+from rohm_tpu_torch.ops import transformer_layer as l32
 from rohm_tpu_torch.ops import transformer_layer_bf16 as l16
 from rohm_tpu_torch.ops import transformer_layer_int8 as l8
 from rohm_tpu_torch.pipeline import RohmPipeline, amass_eval_pose_mask, traj_to_pose_bridge
@@ -61,6 +74,13 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces a part of)
                         "rohm_tpu/ops/transformer_layer_int8.py:106"),
     "gemm_int8": (l8.gemm_int8, "rohm_tpu_torch/ops/csrc/gemm_int8.cu",
                   "rohm_tpu/ops/transformer_layer_int8.py:106"),
+    # the f32 layer (K1) also runs residual_layernorm, in its two-pass mode
+    "gemm_f32": (l32.gemm_f32, "rohm_tpu_torch/ops/csrc/gemm_f32.cu",
+                 "rohm_tpu/ops/transformer_layer.py:37"),
+    "attention_f32": (l32.attention_f32, "rohm_tpu_torch/ops/csrc/attention_f32.cu",
+                      "rohm_tpu/ops/transformer_layer.py:37"),
+    "attention_int8": (l8.attention_int8, "rohm_tpu_torch/ops/csrc/attention_int8.cu",
+                       "rohm_tpu/ops/transformer_layer_int8.py:68"),
 }
 BF16_ULP = 2.0 ** -7  # bf16 spacing relative to |x| is at most 2^-7
 
@@ -245,19 +265,86 @@ def kernel_phase(seed: int) -> dict:
         _time(name, lambda: l8.gemm_int8(a, s_a, w, s_w, bias, mode),
               lambda: l8.gemm_int8_plain(a, s_a, w, s_w, bias, mode), stats, "gemm_int8")
 
-    # whole layers: bf16 flips upstream propagate through LayerNorm, so the
-    # kernels' own envelope vs flax applies (tests/test_ops.py)
-    for name, fn, plain, prep, atol, mean_tol in (
-        ("layer bf16", l16.fused_encoder_layer_bf16, l16.fused_encoder_layer_bf16_plain, p16, 6e-2, 1e-2),
-        ("layer int8", l8.fused_encoder_layer_int8, l8.fused_encoder_layer_int8_plain, p8, 0.3, 5e-2),
+    # attention_int8 (K4) on the int8 layer's own QKV buffer
+    qkv8 = l8.gemm_int8(qa, rs, p8[0], p8[1], p8[2], "bf16")
+    got, ref = l8.attention_int8(qkv8, S, H), l8.attention_int8_plain(qkv8, S, H)
+    vmax = l8.attention_int8_codes(qkv8, S, H)[-1]  # [B, H, 1, dh] per-column amax of V
+    vmax = vmax.expand(B, H, S, D // H).transpose(1, 2).reshape(r, D)
+    # int32 sums are exact; a softmax expf difference may flip a prob code
+    # by one, moving an output by <= vmax/127 of its column, plus one bf16
+    # ulp of the output rounding
+    _check("attention_int8 [32 seq x 4 heads, S=144, dh=128]", got, ref,
+           vmax / 127.0 + BF16_ULP * ref.float().abs(),
+           "one prob code (vmax/127 of the column) + one bf16 ulp", stats, "attention_int8")
+    _time("attention_int8", lambda: l8.attention_int8(qkv8, S, H),
+          lambda: l8.attention_int8_plain(qkv8, S, H), stats, "attention_int8")
+
+    # the f32 layer (K1): its four products with their epilogues, on the
+    # module's raw weights (a random in_proj bias, so the q scale after the
+    # bias is seen)
+    with torch.no_grad():
+        layer.self_attn.in_proj_bias.copy_(0.1 * randn(3 * D))
+    sa = layer.self_attn
+    x32 = randn(r, D)
+    scale = 1.0 / (D // H) ** 0.5
+    for name, a, w, bias, mode in (
+        ("gemm_f32 qkv [4608,512]x[1536,512]^T", x32, sa.in_proj_weight, sa.in_proj_bias, "qkv"),
+        ("gemm_f32 out [4608,512]x[512,512]^T", attn_in.float(), sa.out_proj.weight, sa.out_proj.bias, "bias"),
+        ("gemm_f32 ff1+gelu [4608,512]x[1024,512]^T", y32, layer.linear1.weight, layer.linear1.bias, "gelu"),
+        ("gemm_f32 ff2 [4608,1024]x[512,1024]^T", h1_in.float(), layer.linear2.weight, layer.linear2.bias, "bias"),
     ):
-        got, ref = fn(x, prep, H), plain(x, prep, H)
+        w, bias = w.detach(), bias.detach()
+        got, ref = l32.gemm_f32(a, w, bias, mode, scale, D), l32.gemm_f32_plain(a, w, bias, mode, scale, D)
+        # f32 FFMA sums in another order than cuBLAS's f32 (TF32 off):
+        # ~sqrt(K) * 2^-24 of the row's magnitude; gelu's erff against the
+        # A-S polynomial adds <= 1.5e-7 * |x| / 2
+        _check(name, got, ref, 1e-5 * ref.abs().max().item() + 1e-6,
+               "f32 accumulation order, 1e-5 of max|ref|", stats, "gemm_f32")
+        _time(name, lambda: l32.gemm_f32(a, w, bias, mode, scale, D),
+              lambda: l32.gemm_f32_plain(a, w, bias, mode, scale, D), stats, "gemm_f32")
+
+    qkv32 = l32.gemm_f32(x32, sa.in_proj_weight.detach(), sa.in_proj_bias.detach(), "qkv", scale, D)
+    got, ref = l32.attention_f32(qkv32, S, H), l32.attention_f32_plain(qkv32, S, H)
+    # f32 both sides: scores, exp and P.V sums in another order
+    _check("attention_f32 [32 seq x 4 heads, S=144, dh=128]", got, ref,
+           1e-5 * qkv32[:, 2 * D:].abs().max().item(), "f32 sum order, 1e-5 of max|v|", stats,
+           "attention_f32")
+    _time("attention_f32", lambda: l32.attention_f32(qkv32, S, H),
+          lambda: l32.attention_f32_plain(qkv32, S, H), stats, "attention_f32")
+
+    stats["residual_layernorm two-pass"] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    ln_args = (x32, res, layer.norm1.weight.detach(), layer.norm1.bias.detach(), True, False, True)
+    got, ref = kc.residual_layernorm(*ln_args)[0], kc.residual_layernorm_plain(*ln_args)[0]
+    _check("residual_layernorm two-pass (f32+f32 -> f32)", got, ref, 1e-5 * ref.abs().max().item(),
+           "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm two-pass")
+    _time("residual_layernorm two-pass", lambda: kc.residual_layernorm(*ln_args),
+          lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass")
+    # the two variances are different functions: the two-pass mode must not
+    # silently run the one-pass one (equal only up to cancellation)
+    one_pass = kc.residual_layernorm(x32, res, ln_args[2], ln_args[3], True, False, False)[0]
+    log(f"[kernels] residual_layernorm one-pass vs two-pass: max diff "
+        f"{(one_pass - got).abs().max().item():.3e}")
+
+    # whole layers: bf16 flips upstream propagate through LayerNorm, so the
+    # kernels' own envelope vs flax applies (tests/test_ops.py); the f32
+    # layer is f32 throughout, its gate is summation order through four
+    # products of 512-1024 terms and two LayerNorms
+    layers = (
+        ("layer bf16", l16.fused_encoder_layer_bf16, l16.fused_encoder_layer_bf16_plain, p16, x, 6e-2, 1e-2),
+        ("layer int8", l8.fused_encoder_layer_int8, l8.fused_encoder_layer_int8_plain, p8, x, 0.3, 5e-2),
+        ("layer int8qa", functools.partial(l8.fused_encoder_layer_int8, qattn=True),
+         functools.partial(l8.fused_encoder_layer_int8_plain, qattn=True), p8, x, 0.3, 5e-2),
+        ("layer f32", l32.fused_encoder_layer, l32.fused_encoder_layer_plain, layer,
+         x32.reshape(B, S, D), 2e-4, 2e-5),
+    )
+    for name, fn, plain, prep, xin, atol, mean_tol in layers:
+        got, ref = fn(xin, prep, H), plain(xin, prep, H)
         err = (got.float() - ref.float()).abs()
         log(f"[kernels] {name}: max_abs_err {err.max().item():.3e} mean_abs_err {err.mean().item():.3e} "
-            f"(tolerance max {atol}, mean {mean_tol}: the kernel envelope of tests/test_ops.py)")
+            f"(tolerance max {atol}, mean {mean_tol})")
         if err.max().item() > atol or err.mean().item() > mean_tol:
             raise AssertionError(f"{name} disagrees with its plain version")
-        ms, plain_ms = median_ms(lambda: fn(x, prep, H)), median_ms(lambda: plain(x, prep, H))
+        ms, plain_ms = median_ms(lambda: fn(xin, prep, H)), median_ms(lambda: plain(xin, prep, H))
         log(f"[kernels] {name}: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms per layer (median of 20)")
         stats[name] = {"ms": ms, "plain_ms": plain_ms}
     torch.cuda.synchronize()
@@ -328,6 +415,22 @@ def make_batch(body, rng: np.random.Generator):
     return encode(body, clean), encode(body, noisy)
 
 
+def expected_launches(batches: dict) -> dict:
+    """Launches per kernel for full batches in each fused_posenet mode:
+    2 iterations x 1000 PoseNet steps x 8 layers, each layer's chain."""
+    per_layer = {  # mode -> kernel -> launches per layer
+        "bf16": {"gemm_bf16": 4, "attention_bf16": 1, "residual_layernorm": 2},
+        "int8": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_bf16": 1, "residual_layernorm": 2},
+        "int8qa": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_int8": 1, "residual_layernorm": 2},
+        "f32": {"gemm_f32": 4, "attention_f32": 1, "residual_layernorm": 2},
+    }
+    out = dict.fromkeys(KERNELS, 0)
+    for mode, n in batches.items():
+        for name, k in per_layer[mode].items():
+            out[name] += k * 2 * 1000 * LAYERS * n
+    return out
+
+
 def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
     dev = "cuda"
     torch.manual_seed(seed)
@@ -350,7 +453,7 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
             iter2_cond_noisy_pose=True, iter2_cond_noisy_traj=True, fused_posenet=mode,
         )
 
-    pipes = {"int8": pipeline("int8"), "bf16": pipeline("bf16")}
+    pipes = {mode: pipeline(mode) for mode in ("int8", "bf16", "int8qa", "f32")}
     pose_mask = amass_eval_pose_mask("lower", B, S - 1)
     traj_mask = np.ones((B, S), np.float32)
     abs_index = torch.as_tensor(TRAJ_ABS_INDEX, device=dev).long()
@@ -366,9 +469,12 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
     x_t = torch.randn(B, S - 1, 294, device=dev, generator=torch.Generator(dev).manual_seed(seed))
     ref = posenet(x_t, noisy_n, 500)
     # the per-layer envelope of tests/test_ops.py on the mean; the max may
-    # grow over eight layers, so it is held at four times the per-layer one
-    for mode, atol, mean_tol in (("bf16", 6e-2 * 4, 1e-2), ("int8", 0.3 * 4, 5e-2)):
-        out = l16.posenet_apply_prepared(pipes[mode]._ensure_prepared(), x_t, noisy_n, 500, num_heads=H)
+    # grow over eight layers, so it is held at
+    # four times the per-layer one; the f32 path is f32 throughout, so only
+    # summation order (and erff against torch's erf) separates it
+    for mode, atol, mean_tol in (("bf16", 6e-2 * 4, 1e-2), ("int8", 0.3 * 4, 5e-2),
+                                 ("int8qa", 0.3 * 4, 5e-2), ("f32", 2e-3, 1e-4)):
+        out = pipes[mode]._pose_model_fn(noisy_n)(x_t, 500)
         err = (out - ref).abs()
         log(f"[slice] PoseNet {mode} kernels vs f32 module, 8 layers, one step: "
             f"max {err.max().item():.3e} mean {err.mean().item():.3e}")
@@ -402,14 +508,7 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
             raise AssertionError("non-finite pipeline output")
     launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
-    layer_calls = 2 * 1000 * LAYERS  # per batch: iterations x steps x layers
-    expected = {
-        "gemm_bf16": 4 * layer_calls * n_bf16,
-        "attention_bf16": layer_calls * (n_int8 + n_bf16),
-        "residual_layernorm": 2 * layer_calls * (n_int8 + n_bf16),
-        "quant_rows_int8": 4 * layer_calls * n_int8,
-        "gemm_int8": 4 * layer_calls * n_int8,
-    }
+    expected = expected_launches({"int8": n_int8, "bf16": n_bf16})
     log(f"[slice] launches {launches}; expected {expected}")
     if launches != expected:
         raise AssertionError("kernel launch counts do not match the chain")
@@ -442,11 +541,10 @@ def breakdown_phase(pipes: dict, cond: torch.Tensor, x_pose: torch.Tensor) -> No
     }
     steps = {}
     for mode, p in pipes.items():
-        prep = p._ensure_prepared()
-        cond_emb = l16.embed_cond(prep, cond)
+        model_fn = p._pose_model_fn(cond)  # as the sampling loop calls it
 
-        def step(prep=prep, cond_emb=cond_emb):
-            return l16.posenet_apply_prepared(prep, x_pose, cond, 500, num_heads=H, cond_emb=cond_emb)
+        def step(model_fn=model_fn):
+            return model_fn(x_pose, 500)
 
         steps[mode] = step
         ms[f"posenet step {mode}"] = median_ms(step)
@@ -477,6 +575,92 @@ def breakdown_phase(pipes: dict, cond: torch.Tensor, x_pose: torch.Tensor) -> No
             log(f"[breakdown]   {us / busy:.3f}  {us / 20e3:.4f} ms/step  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the CLI
+# ---------------------------------------------------------------------------
+
+CLI_SEQS, CLI_SEQ_LEN = 11, 149  # per test dataset: 33 test clips of 145 frames
+
+
+def write_smplx_npz(path: Path, seed: int) -> None:
+    """A synthetic SMPL-X model file at the real size (10475 vertices), in
+    the layout of SMPLX_NEUTRAL.npz, so the CLI loads it with load_smplx_npz."""
+    m = synthetic_model(num_verts=10475, seed=seed)
+    v = m.num_verts
+    kintree = np.stack([np.maximum(SMPLX_PARENTS, 0), np.arange(len(SMPLX_PARENTS))])
+    np.savez(
+        path,
+        v_template=m.v_template.numpy(), shapedirs=m.shapedirs.numpy(),
+        posedirs=m.posedirs.numpy().T.reshape(v, 3, -1), J_regressor=m.j_regressor.numpy(),
+        weights=m.lbs_weights.numpy(), kintree_table=kintree,
+    )
+
+
+def cli_phase(seed: int, work: Path) -> dict:
+    """`test_amass_full.main` at full width on a synthetic AMASS test tree
+    (3 datasets x 11 sequences of 149 frames: 33 clips) with a real-size
+    synthetic SMPL-X file, one batch of 32 clips in each of "f32" and
+    "int8qa", then `eval_amass_full.main` on each pickle."""
+    from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
+    from rohm_tpu_torch.cli.common import AMASS_TEST_DATASETS
+    from rohm_tpu_torch.data import write_synthetic_amass
+
+    work.mkdir(parents=True, exist_ok=True)
+    body_path = work / "SMPLX_NEUTRAL.npz"
+    write_smplx_npz(body_path, seed)
+    t0 = time.perf_counter()
+    write_synthetic_amass(str(work / "amass"), synthetic_model(num_verts=10475, seed=seed, device="cuda"),
+                          datasets={n: CLI_SEQS for n in AMASS_TEST_DATASETS}, seq_len=CLI_SEQ_LEN, seed=seed)
+    log(f"[cli] synthetic tree: {len(AMASS_TEST_DATASETS)} x {CLI_SEQS} sequences of {CLI_SEQ_LEN} "
+        f"frames, {time.perf_counter() - t0:.2f} s")
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for mode in ("f32", "int8qa"):
+        for fn, _, _ in KERNELS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pkl = test_amass_full.main([
+            "--config=cfg_files/test_cfg/amass_occ_leg_noise_3.yaml", "--synthetic_data=True",
+            f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}",
+            "--batch_size=32", "--max_batches=1", "--load_noise=False", f"--fused_posenet={mode}",
+            "--model_path_trajnet=", "--model_path_trajnet_control=", "--model_path_posenet=",
+            f"--save_root={work / ('results_' + mode)}", f"--seed={seed}", "--device=0",
+        ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+        expected = expected_launches({mode: 1})
+        log(f"[cli] fused_posenet={mode}: launches {counts}; expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"the {mode} CLI run did not go through its kernels as the chain implies")
+        for name in launches:
+            launches[name] += counts[name]
+        timing = test_amass_full.main.timing
+        batch_s = timing["batch_dispatch"] + timing["device_wait_and_collect"]
+        log(f"[cli] fused_posenet={mode}: one batch of 32 clips {batch_s:.2f} s "
+            f"(batch_dispatch + device_wait_and_collect), main() {seconds:.2f} s in all")
+
+        with open(pkl, "rb") as f:
+            saved = pickle.load(f)
+        shapes = {k: tuple(v.shape) for k, v in saved.items() if isinstance(v, np.ndarray)}
+        want = {k: (32, CLIP_LEN - 2, 22, 3) for k in (
+            "rec_ric_data_clean_list", "rec_ric_data_noisy_list",
+            "rec_ric_data_rec_list_from_abs_traj", "rec_ric_data_rec_list_from_smpl")}
+        want.update({k: (32, CLIP_LEN - 2, 294) for k in (
+            "motion_repr_clean_list", "motion_repr_noisy_list", "motion_repr_rec_list")})
+        if shapes != want or set(saved) != set(want) | {"mask_scheme", "repr_name_list", "repr_dim_dict"}:
+            raise AssertionError(f"bad pickle: keys {sorted(saved)}, shapes {shapes}")
+        if not all(np.isfinite(saved[k]).all() for k in want):
+            raise AssertionError(f"non-finite values in the {mode} pickle")
+        metrics = eval_amass_full.main([f"--saved_data_path={pkl}"])
+        if not np.isfinite(metrics["mpjpe_global_mm"]):
+            raise AssertionError("non-finite MPJPE")
+        out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics}
+    shutil.rmtree(work)
+    return {"launches": launches, "runs": out}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -486,12 +670,18 @@ def main(argv=None) -> None:
     build_phase()
     stats = kernel_phase(args.seed)
     sl = slice_phase(args.seed, N_INT8, N_BF16)
+    cli = cli_phase(args.seed, Path(".chipscratch") / "cli_smoke")
+    # launches: the slice's and the CLI's main-path runs, each counted from 0
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sl["launches"][name], "max_abs_err": stats[name]["max_abs_err"],
+         "launches": sl["launches"][name] + cli["launches"][name],
+         "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
         for name, (_, src, rep) in KERNELS.items()
     ]
+    unused = [k["name"] for k in kernels if k["launches"] == 0]
+    if unused:
+        raise AssertionError(f"kernels never launched by the main path: {unused}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
 

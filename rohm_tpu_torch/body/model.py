@@ -52,6 +52,8 @@ class SmplxModel:
     j_template: torch.Tensor  # [NUM_JOINTS, 3]
     j_shapedirs: torch.Tensor  # [NUM_JOINTS, 3, NUM_BETAS]
     faces: np.ndarray | None = None  # [F, 3] int (None for synthetic models)
+    # content hash stamped at construction (dataset disk-cache keys)
+    fingerprint: str | None = None
 
     @property
     def num_verts(self) -> int:
@@ -59,7 +61,7 @@ class SmplxModel:
 
 
 def make_model(
-    arrays: dict, parents, device, dtype=torch.float32, faces=None,
+    arrays: dict, parents, device, dtype=torch.float32, faces=None, fingerprint=None,
 ) -> SmplxModel:
     """Build the container from numpy arrays (v_template, shapedirs, posedirs,
     j_regressor, lbs_weights; optional precomputed j_template/j_shapedirs)."""
@@ -68,7 +70,8 @@ def make_model(
         t["j_template"] = t["j_regressor"] @ t["v_template"]
     if "j_shapedirs" not in t:
         t["j_shapedirs"] = torch.einsum("jv,vck->jck", t["j_regressor"], t["shapedirs"])
-    return SmplxModel(parents=tuple(int(p) for p in parents), faces=faces, **t)
+    return SmplxModel(parents=tuple(int(p) for p in parents), faces=faces,
+                      fingerprint=fingerprint, **t)
 
 
 def load_smplx_npz(path: str, device, dtype=torch.float32) -> SmplxModel:
@@ -88,7 +91,18 @@ def load_smplx_npz(path: str, device, dtype=torch.float32) -> SmplxModel:
         parents = np.asarray(data["kintree_table"], np.int64)[0]
         parents[0] = -1
         faces = np.asarray(data["f"], np.int64) if "f" in data else None
-    return make_model(arrays, parents, device, dtype, faces=faces)
+    return make_model(arrays, parents, device, dtype, faces=faces,
+                      fingerprint=_file_fingerprint(path, dtype))
+
+
+def _file_fingerprint(path: str, dtype) -> str:
+    import hashlib
+
+    h = hashlib.sha1(str(dtype).encode())
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return "npz-" + h.hexdigest()[:16]
 
 
 def synthetic_model(num_verts: int = 512, seed: int = 0, device="cpu",
@@ -131,7 +145,8 @@ def synthetic_model(num_verts: int = 512, seed: int = 0, device="cpu",
         "v_template": v_template, "shapedirs": shapedirs, "posedirs": posedirs,
         "j_regressor": j_regressor, "lbs_weights": lbs_w,
     }
-    return make_model(arrays, SMPLX_PARENTS, device, dtype)
+    return make_model(arrays, SMPLX_PARENTS, device, dtype,
+                      fingerprint=f"synthetic-{num_verts}-{seed}-{dtype}")
 
 
 def forward_joints(

@@ -1,0 +1,209 @@
+"""Deterministic synthetic motion sequences for tests and benchmarks.
+
+The port of the AMASS part of rohm_tpu/data/synthetic.py: the same numpy
+generators (one seed, the same params in both packages), with forward
+kinematics through the port's torch body model on the model's device.
+Real AMASS data and SMPL-X weights are not shipped; these produce
+kinematically-consistent sequences (params + FK joints from the same body
+model) so every pipeline stage runs with realistic shapes and dynamics.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from rohm_tpu_torch.body.model import NUM_BODY_JOINTS, SmplxModel, forward_joints
+
+
+@torch.no_grad()
+def _fk_positions(model: SmplxModel, params: dict) -> np.ndarray:
+    """One FK call over params with a flat leading dim [N, ...], in f32 on
+    the body model's device."""
+    dev = model.v_template.device
+
+    def t(k):
+        return torch.as_tensor(np.asarray(params[k]), dtype=torch.float32, device=dev)
+
+    joints = forward_joints(model, t("betas"), t("global_orient"), t("body_pose"), t("transl"),
+                            num_joints=NUM_BODY_JOINTS)
+    return joints.cpu().numpy().astype(np.float64)
+
+
+def _stance_time_warp(num_frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """Speed profile + pelvis z-dip for periodic stance phases.
+
+    Returns (w [T] — per-frame motion-speed factor, dipping to ~0.02 during
+    8-frame holds via raised-cosine ramps; z_dip [T] — smooth 0.2 m pelvis
+    drop synchronized with the holds). Sampling the smooth base motion at
+    warped time cumsum(w) makes the whole body nearly still during a hold
+    (foot vel² < 5e-5, the foot_detect velocity gate, reference
+    motion_representation.py:23-44) while keeping velocities/accelerations
+    C¹-smooth. A hard freeze + z-teleport would create accel spikes the
+    shipped smoothness losses fight: a curriculum-trained TrajNet plateaus
+    ~4x WORSE than the noisy input on such data (measured with the JAX
+    package)."""
+    w = np.ones(num_frames)
+    z_dip = np.zeros(num_frames)
+    # period 17 == the tests' clip_len: every carved clip sees the stance at
+    # the same in-clip frames, so contact labels are frame-consistent across
+    # clips and a small model can actually learn them (with an unaligned
+    # period the stance phase drifts per clip and tiny-budget training
+    # hedges contact predictions at the base rate, never crossing the 0.5
+    # guidance threshold, as measured with the JAX package)
+    period, ramp, flat = 17, 3, 6
+    hold = 2 * ramp + flat
+    for start in range(4, num_frames - hold, period):
+        up = 0.5 - 0.5 * np.cos(np.linspace(0, np.pi, ramp + 1)[1:])  # 0 -> 1
+        prof = np.concatenate([up, np.ones(flat), up[::-1]])  # [hold]
+        w[start:start + hold] = 1.0 - 0.98 * prof
+        z_dip[start:start + hold] = 0.2 * prof
+    return w, z_dip
+
+
+def _synthetic_params(
+    num_frames: int, seed: int, walk_speed: float = 0.02, grounded: bool = False
+) -> dict:
+    """Host-only smooth-motion smplx params for one clip (no device work).
+
+    grounded=True inserts smooth stance phases (see _stance_time_warp) so
+    foot-contact labels and skating metrics are non-vacuous."""
+    rng = np.random.default_rng(seed)
+    if grounded:
+        w, z_dip = _stance_time_warp(num_frames)
+        t = (np.cumsum(w) - w[0])[:, None]  # warped time, starts at 0
+    else:
+        w, z_dip = np.ones(num_frames), np.zeros(num_frames)
+        t = np.arange(num_frames)[:, None]
+
+    # smooth body pose: sum of low-frequency sinusoids per dof
+    freqs = rng.uniform(0.02, 0.12, size=(1, 63))
+    phases = rng.uniform(0, 2 * np.pi, size=(1, 63))
+    amps = rng.uniform(0.05, 0.35, size=(1, 63))
+    if grounded:
+        # Damp the torso chain (spine1/2/3, neck, both collars — SMPL-X
+        # joints 3,6,9,12,13,14; body_pose dofs (j-1)*3..) so the
+        # hips+shoulders-derived forward direction (reference
+        # motion_representation.py:204-210) is stable, as it is for real
+        # humans. Full-amplitude random spine twists make the per-frame
+        # forward estimate wander tens of degrees, which puts a step
+        # discontinuity into the canonicalized root_rot_angle (frame 0 is
+        # pinned to 0 by cano, the rest of the clip sits at the wander
+        # offset) — unlearnable for the TrajNet and unlike any mocap.
+        amps = amps.copy()
+        for j in (3, 6, 9, 12, 13, 14):
+            amps[:, (j - 1) * 3:(j - 1) * 3 + 3] *= 0.15
+    body_pose = (amps * np.sin(2 * np.pi * freqs * t + phases)).astype(np.float64)
+
+    # heading slowly turning about z (z-up world), slight tilt wobble
+    heading = 0.5 * np.sin(2 * np.pi * 0.01 * t[:, 0]) + rng.uniform(-np.pi, np.pi)
+    tilt = 0.05 * np.sin(2 * np.pi * 0.03 * t[:, 0])
+    global_orient = np.stack(
+        [np.full(num_frames, np.pi / 2) + tilt, np.zeros(num_frames), heading], axis=-1
+    )
+
+    # walking path in xy, height bobbing; xy advance scales with the stance
+    # speed factor so the body stops walking while it stands
+    step = walk_speed * np.stack([np.cos(heading), np.sin(heading)], axis=-1)
+    step = step * w[:, None]
+    xy = np.cumsum(step, axis=0) + rng.normal(scale=1.0, size=(1, 2))
+    z = 0.95 + 0.02 * np.sin(2 * np.pi * 0.07 * t[:, 0]) - z_dip
+    transl = np.concatenate([xy, z[:, None]], axis=-1)
+
+    betas = np.tile(rng.normal(scale=0.5, size=(1, 10)), (num_frames, 1))
+
+    return {
+        "global_orient": global_orient,
+        "transl": transl,
+        "body_pose": body_pose,
+        "betas": betas,
+    }
+
+
+def synthetic_motion(
+    model: SmplxModel,
+    num_frames: int = 145,
+    seed: int = 0,
+    walk_speed: float = 0.02,
+    grounded: bool = False,
+) -> tuple[np.ndarray, dict]:
+    """Generate one smooth motion clip.
+
+    Returns (positions [T, 22, 3] z-up world joints, smplx_params dict with
+    global_orient [T,3] / transl [T,3] / body_pose [T,63] / betas [T,10]).
+    """
+    params = _synthetic_params(num_frames, seed, walk_speed, grounded=grounded)
+    return _fk_positions(model, params), params
+
+
+def synthetic_clip_batch(
+    model: SmplxModel, batch_size: int = 4, num_frames: int = 145, seed: int = 0,
+    grounded: bool = False,
+) -> tuple[np.ndarray, dict]:
+    """Batch of clips: (positions [B, T, 22, 3], params dict of [B, T, ...]).
+
+    All clips go through one FK call ([B*T] flat)."""
+    plist = [_synthetic_params(num_frames, seed + i, grounded=grounded)
+             for i in range(batch_size)]
+    params = {k: np.stack([p[k] for p in plist]) for k in plist[0]}
+    flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in params.items()}
+    positions = _fk_positions(model, flat).reshape(batch_size, num_frames, 22, 3)
+    return positions, params
+
+
+def params_to_flat178(params: dict) -> np.ndarray:
+    """Pack a params dict into the [T, 178] preprocessed-AMASS layout
+    (3 global_orient + 3 transl + 10 betas + 63 body_pose + 90 hands +
+    9 jaw/eyes, reference preprocessing_amass.py:74 / dataloader_amass.py:145-149)."""
+    t = len(params["transl"])
+    flat = np.zeros((t, 178), np.float64)
+    flat[:, 0:3] = params["global_orient"]
+    flat[:, 3:6] = params["transl"]
+    flat[:, 6:16] = params["betas"]
+    flat[:, 16:79] = params["body_pose"]
+    return flat
+
+
+def synthetic_amass_arrays(
+    model: SmplxModel, n_clips: int = 4, clip_len: int = 145, seed: int = 0,
+    grounded: bool = False,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(joints [N, T, 25, 3], params [N, T, 178]) ready for AmassClipDataset."""
+    positions, params = synthetic_clip_batch(model, n_clips, clip_len, seed, grounded=grounded)
+    joints25 = np.zeros((n_clips, clip_len, 25, 3))
+    joints25[:, :, :22] = positions
+    flat = np.stack([params_to_flat178({k: params[k][i] for k in params}) for i in range(n_clips)])
+    return joints25, flat
+
+
+def write_synthetic_amass(
+    root: str,
+    model: SmplxModel,
+    datasets: dict[str, int] | None = None,
+    seq_len: int = 300,
+    seed: int = 0,
+    grounded: bool = False,
+) -> None:
+    """Write a synthetic preprocessed-AMASS tree (pose_data_fps_30/ +
+    smpl_data_fps_30/) so the CLIs run end-to-end without real data."""
+    datasets = datasets or {"SynthA": 3, "SynthB": 2}
+    total = sum(datasets.values())
+    all_pos, all_params = synthetic_clip_batch(model, total, seq_len, seed, grounded=grounded)
+    i = 0
+    for dataset_name, n_seqs in datasets.items():
+        for s in range(n_seqs):
+            positions = all_pos[i]
+            params = {k: v[i] for k, v in all_params.items()}
+            i += 1
+            joints25 = np.zeros((seq_len, 25, 3))
+            joints25[:, :22] = positions
+            flat = params_to_flat178(params)
+            seq_dir = f"seq{s:03d}"
+            jdir = os.path.join(root, "pose_data_fps_30", dataset_name, seq_dir)
+            pdir = os.path.join(root, "smpl_data_fps_30", dataset_name, seq_dir)
+            os.makedirs(jdir, exist_ok=True)
+            os.makedirs(pdir, exist_ok=True)
+            np.save(os.path.join(jdir, "motion.npy"), joints25)
+            np.save(os.path.join(pdir, "motion.npy"), flat)

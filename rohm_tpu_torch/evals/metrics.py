@@ -1,0 +1,104 @@
+"""AMASS benchmark metrics, formula-exact vs the reference eval script.
+
+A copy of the functions of rohm_tpu/evals/metrics.py that eval_amass_full
+uses (reference eval_amass_full.py:72-147: MPJPE, contact accuracy,
+skating, acceleration, ground penetration). Pure numpy on
+[n_seq, T, 22, 3] joint arrays in meters, 30 fps.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+FPS = 30
+FOOT_JOINTS = [7, 10, 8, 11]  # l_ankle, l_toe, r_ankle, r_toe
+TOE_JOINTS = [10, 11]
+LOWER_BODY = np.array([1, 2, 4, 5, 7, 8, 10, 11])
+UPPER_BODY = np.array([3, 6, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20])
+
+
+def mpjpe_global(clean: np.ndarray, rec: np.ndarray) -> float:
+    """Mean per-joint global position error in meters."""
+    return float(np.linalg.norm(clean - rec, axis=-1).mean())
+
+
+def mpjpe_masked(
+    clean: np.ndarray,
+    rec: np.ndarray,
+    mask_scheme: str,
+    traj_mask_ratio: float = 0.0,
+    infill_start: int = 65,
+) -> tuple[float, float]:
+    """(visible, occluded) MPJPE under the eval mask scheme
+    (eval_amass_full.py:74-88). 'lower'/'upper' split by joints; 'full' splits
+    by the fixed infill window."""
+    err = np.linalg.norm(clean - rec, axis=-1)  # [n, T, 22]
+    if mask_scheme in ("lower", "upper"):
+        occ = LOWER_BODY if mask_scheme == "lower" else UPPER_BODY
+        vis = np.asarray(sorted(set(range(22)) - set(occ.tolist())))
+        return float(err[:, :, vis].mean()), float(err[:, :, occ].mean())
+    if mask_scheme == "full":
+        start = infill_start
+        end = start + int(traj_mask_ratio * 145)
+        vis = np.concatenate([err[:, :start], err[:, end:]], axis=1)
+        return float(vis.mean()), float(err[:, start:end].mean())
+    raise ValueError(f"bad mask_scheme {mask_scheme}")
+
+
+def contact_label_accuracy(repr_clean: np.ndarray, repr_rec: np.ndarray) -> float:
+    """Thresholded agreement of the 4 contact dims (eval_amass_full.py:91-96)."""
+    rec = (repr_rec[:, :, -4:] > 0.5).astype(np.float32)
+    gt = repr_clean[:, :, -4:]
+    return float((gt == rec).mean())
+
+
+def _skating_mask(joints: np.ndarray, min_height: np.ndarray, up_axis: int = 2,
+                  thresh_vel: float = 0.10, thresh_height: float = 0.10) -> np.ndarray:
+    """Per-frame skating indicator [n, T-1] (eval_amass_full.py:99-132).
+
+    A foot skates when BOTH its joints move horizontally > thresh_vel while
+    low (ankle < 0.15, toe < 0.10 above the sequence floor); the reference
+    reports the AND over both feet.
+    """
+    horiz = [a for a in range(3) if a != up_axis]
+    foot = joints[:, :, FOOT_JOINTS, :]  # [n, T, 4, 3]
+    disp = foot[:, 1:][..., horiz] - foot[:, :-1][..., horiz]
+    vel = np.linalg.norm(disp, axis=-1) * FPS  # [n, T-1, 4]
+    height = foot[:, :-1, :, up_axis] - min_height[:, None, None]
+    left = (vel[:, :, 0] > thresh_vel) & (vel[:, :, 1] > thresh_vel) & \
+           (height[:, :, 0] < thresh_height + 0.05) & (height[:, :, 1] < thresh_height)
+    right = (vel[:, :, 2] > thresh_vel) & (vel[:, :, 3] > thresh_vel) & \
+            (height[:, :, 2] < thresh_height + 0.05) & (height[:, :, 3] < thresh_height)
+    return left & right
+
+
+def skating_ratio(joints: np.ndarray, joints_for_floor: np.ndarray | None = None,
+                  up_axis: int = 2) -> float:
+    """Fraction of skating frames; floor height taken from joints_for_floor
+    (the reference uses the GT sequence's min height for both gt and rec)."""
+    ref = joints if joints_for_floor is None else joints_for_floor
+    min_h = ref[..., up_axis].min(axis=(1, 2))  # [n]
+    return float(_skating_mask(joints, min_h, up_axis).mean())
+
+
+def accel_error(clean: np.ndarray, rec: np.ndarray) -> float:
+    """Mean ||a_rec - a_gt|| in m/s^2, central finite difference x fps^2
+    (eval_amass_full.py:135-138)."""
+    acc = lambda j: (j[:, 2:] - 2 * j[:, 1:-1] + j[:, :-2]) * FPS**2
+    return float(np.linalg.norm(acc(rec) - acc(clean), axis=-1).mean())
+
+
+def ground_penetration(
+    rec: np.ndarray, floor_joints: np.ndarray | None = None, up_axis: int = 2,
+    thresh: float = 0.05,
+) -> tuple[float, float]:
+    """(freq, mean_dist) of toe joints below floor - thresh
+    (eval_amass_full.py:141-147). dist is averaged over ALL frames (non-
+    penetrating frames count as 0), matching the reference."""
+    ref = rec if floor_joints is None else floor_joints
+    min_h = ref[..., up_axis].min(axis=(1, 2))  # [n]
+    pene = rec[:, :, TOE_JOINTS, up_axis] - min_h[:, None, None]
+    freq = float((pene < -thresh).mean())
+    dist = pene.copy()
+    dist[dist >= 0] = 0.0
+    return freq, float(dist.mean())

@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels of rohm_tpu_torch/ops/csrc.
 
 The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
+interface, loaded with ctypes (no PyTorch headers, so a build takes seconds):
+one nvcc process per source, all started together, then one link.
 The build runs at the first launch of a kernel, never at import, into
 `rohm_tpu_torch/_build/<hash of the sources and flags>/`, so a change to a
 source rebuilds and an unchanged tree reuses the library.
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,8 +37,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rt_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_gemm_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rt_gemm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "rt_attention_bf16": [_P, _P, _I, _I, _I, _I, _P],
-    "rt_residual_layernorm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "rt_attention_f32": [_P, _P, _I, _I, _I, _I, _P],
+    "rt_attention_int8": [_P, _P, _I, _I, _I, _I, _P],
+    "rt_residual_layernorm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_quant_rows_int8": [_P, _I, _P, _P, _I, _I, _P],
 }
 
@@ -74,14 +78,34 @@ def build() -> tuple[Path, float]:
     if lib_path.exists():
         return lib_path, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"librohm_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in compiles:
+        output, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(output)
+    if not failed:
+        tmp = out_dir / f"librohm_kernels.{tag}.tmp.so"
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in compiles)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    for _, obj, _ in compiles:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, lib_path)
     return lib_path, seconds
 

@@ -1,8 +1,10 @@
-"""Shared pieces of the bf16 and int8 PoseNet encoder layers.
+"""Shared pieces of the PoseNet encoder layers.
 
 The port of rohm_tpu/ops/kernel_common.py. Two of the layer's CUDA kernels
-live here because both layers call them: `attention_bf16`
-(csrc/attention_bf16.cu) and `residual_layernorm` (csrc/residual_layernorm.cu).
+live here because several layers call them: `attention_bf16`
+(csrc/attention_bf16.cu; the bf16 and int8 layers) and `residual_layernorm`
+(csrc/residual_layernorm.cu; every layer, the f32 one with its two-pass
+variance).
 Each wrapper has its plain PyTorch version beside it (`*_plain`), which it
 takes only for a CPU tensor; on a CUDA tensor it launches the kernel, and
 counts the launch in its `launches` attribute.
@@ -23,10 +25,16 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
 
 
-def post_ln(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Post-LN in f32 with the one-pass var = E[y^2] - mu^2."""
+def post_ln(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            two_pass: bool = False) -> torch.Tensor:
+    """Post-LN in f32 with the one-pass var = E[y^2] - mu^2 of the bf16 and
+    int8 layers, or (two_pass) the var = E[(y - mu)^2] of the f32 layer
+    (rohm_tpu/ops/transformer_layer.py:71-73)."""
     mu = y.mean(-1, keepdim=True)
-    var = (y * y).mean(-1, keepdim=True) - mu * mu
+    if two_pass:
+        var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    else:
+        var = (y * y).mean(-1, keepdim=True) - mu * mu
     return (y - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
@@ -81,22 +89,25 @@ attention_bf16.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def residual_layernorm_plain(a, b, scale, bias, out_f32=True, out_bf16=False):
+def residual_layernorm_plain(a, b, scale, bias, out_f32=True, out_bf16=False, two_pass=False):
     """LN(a.float() + b) -> (f32 or None, bf16 or None)."""
-    o = post_ln(a.float() + b, scale, bias)
+    o = post_ln(a.float() + b, scale, bias, two_pass)
     return (o if out_f32 else None), (o.to(torch.bfloat16) if out_bf16 else None)
 
 
 def residual_layernorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
-                       bias: torch.Tensor, out_f32: bool = True, out_bf16: bool = False):
+                       bias: torch.Tensor, out_f32: bool = True, out_bf16: bool = False,
+                       two_pass: bool = False):
     """Post-LN residual block: LN(a + b) over rows of width D, with a bf16 or
-    f32 and b f32. Returns (f32 or None, bf16 or None).
+    f32 and b f32. Returns (f32 or None, bf16 or None). The variance is the
+    one-pass E[y^2] - mu^2, or with `two_pass` E[(y - mu)^2].
 
     Replaces the residual adds + post_ln of the TPU kernels
-    _layer_kernel_bf16 and _layer_kernel_int8. CUDA:
-    csrc/residual_layernorm.cu, one block per row; memory-bound."""
+    _layer_kernel_bf16 and _layer_kernel_int8, and (two_pass) the residual
+    LayerNorms of _layer_kernel. CUDA: csrc/residual_layernorm.cu, one block
+    per row; memory-bound."""
     if a.device.type == "cpu":
-        return residual_layernorm_plain(a, b, scale, bias, out_f32, out_bf16)
+        return residual_layernorm_plain(a, b, scale, bias, out_f32, out_bf16, two_pass)
     if a.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"residual_layernorm: a must be bf16 or f32, got {a.dtype}")
     check_cuda(a, a.dtype, 2, "a")
@@ -111,7 +122,7 @@ def residual_layernorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
     of = torch.empty(rows, d, dtype=torch.float32, device=a.device) if out_f32 else None
     ob = torch.empty(rows, d, dtype=torch.bfloat16, device=a.device) if out_bf16 else None
     launch("rt_residual_layernorm", ptr(a), int(a.dtype == torch.bfloat16), ptr(b), ptr(scale),
-           ptr(bias), ptr(of), ptr(ob), rows, d, LN_EPS, stream())
+           ptr(bias), ptr(of), ptr(ob), rows, d, LN_EPS, int(two_pass), stream())
     residual_layernorm.launches += 1
     return of, ob
 

@@ -141,8 +141,10 @@ def posenet_apply_prepared(
     prep: dict, x_t: torch.Tensor, cond: torch.Tensor, t, num_heads: int = 4,
     traj_feat_dim: int = 22, cond_emb: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """PoseNet forward on a prepared dict (bf16 or int8 layers, chosen by the
-    layer tuple's length: 12 for bf16, 16 for int8).
+    """PoseNet forward on a prepared dict: bf16 or int8 layers under
+    "layers" (by the tuple's length, 12 or 16), int8 layers with quantized
+    attention under "layers_qattn" (rohm_tpu/ops/transformer_layer_bf16.py
+    dispatches the same way).
 
     x_t/cond [B, T, 294] -> [B, T, 294] with the cond's traj dims passed
     through. Pass `cond_emb=embed_cond(prep, cond)` inside a sampling loop.
@@ -160,10 +162,14 @@ def posenet_apply_prepared(
     seq = torch.cat([emb[:, None, :], h], dim=1)
     seq = (seq + pe[None, : seq_len + 1, :]).to(torch.bfloat16)
 
-    layers = prep["layers"]
-    layer_fn = fused_encoder_layer_int8 if len(layers[0]) == 16 else fused_encoder_layer_bf16
-    for layer in layers:
-        seq = layer_fn(seq, layer, num_heads)
+    if "layers_qattn" in prep:
+        for layer in prep["layers_qattn"]:
+            seq = fused_encoder_layer_int8(seq, layer, num_heads, qattn=True)
+    else:
+        layers = prep["layers"]
+        layer_fn = fused_encoder_layer_int8 if len(layers[0]) == 16 else fused_encoder_layer_bf16
+        for layer in layers:
+            seq = layer_fn(seq, layer, num_heads)
 
     out = seq[:, 1:].float() @ prep["out_w"] + prep["out_b"]
     return torch.cat([cond[..., :traj_feat_dim], out], dim=-1)

@@ -1,7 +1,8 @@
-"""int8 PoseNet encoder layer: the W8A8 throughput mode (`fused_posenet="int8"`).
+"""int8 PoseNet encoder layer: the W8A8 throughput mode (`fused_posenet="int8"`,
+and `"int8qa"` with quantized attention).
 
 Replaces rohm_tpu/ops/transformer_layer_int8.py::_layer_kernel_int8 with
-qattn=False. Weights are symmetric int8 with one f32 scale per output
+qattn=False and qattn=True. Weights are symmetric int8 with one f32 scale per output
 column (set once by `prepare_layer_int8`); each GEMM input is quantized per
 row right before the product; int32 accumulation; dequant acc*row*col, then
 an f32 bias. Attention, LayerNorm and residuals are those of the bf16 layer.
@@ -17,8 +18,10 @@ CUDA kernels:
   h2   = gemm_int8(quant_rows_int8(h1), W2, b2, "f32")
   out  = residual_layernorm(y, h2) -> bf16
 
-`quant_rows_int8` (csrc/quant_rows_int8.cu) and `gemm_int8`
-(csrc/gemm_int8.cu) live here.
+With qattn=True ("int8qa") `attention_int8` (csrc/attention_int8.cu) takes
+the place of attention_bf16: both attention products on int8 codes.
+`quant_rows_int8` (csrc/quant_rows_int8.cu), `gemm_int8` (csrc/gemm_int8.cu)
+and `attention_int8` live here.
 """
 
 from __future__ import annotations
@@ -128,6 +131,66 @@ def gemm_int8(qa: torch.Tensor, row_scale: torch.Tensor, w_q: torch.Tensor,
 gemm_int8.launches = 0
 
 
+def attention_int8_codes(qkv: torch.Tensor, seq_len: int, num_heads: int):
+    """The quantized operands of attention_int8 in plain PyTorch, each
+    [B, H, ...]: (Q codes, Q row scales, K codes, K row scales, prob codes,
+    V codes, V column amax [B, H, 1, dh]). Codes are int8 values held in f32."""
+    rows, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    q, k, v = (
+        t.reshape(rows // seq_len, seq_len, num_heads, dh).transpose(1, 2).float()
+        for t in qkv.split(d, dim=-1)
+    )
+    qq, rq = _quant(q, -1)
+    kk, rk = _quant(k, -1)
+    # int8 x int8 sums multiply exactly in f32: every partial sum is an
+    # integer below dh * 127^2 < 2^24
+    scores = (qq.float() @ kk.float().transpose(-1, -2)) * rq[..., :, None] * rk[..., None, :]
+    probs = torch.round(torch.softmax(scores, dim=-1) * 127.0)
+    vq, _ = _quant(v, -2)
+    vmax = torch.clamp(v.abs().amax(dim=-2, keepdim=True), min=1e-12)
+    return qq.float(), rq, kk.float(), rk, probs, vq.float(), vmax
+
+
+def attention_int8_plain(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Tensor:
+    """qkv [B*S, 3D] bf16 -> [B*S, D] bf16, the arithmetic of
+    rohm_tpu/ops/transformer_layer_int8.py::attention_int8."""
+    rows, d3 = qkv.shape
+    *_, probs, vq, vmax = attention_int8_codes(qkv, seq_len, num_heads)
+    # exact in f32 (sums below seq_len * 127^2 < 2^24); tensor / tensor, a
+    # division as in the JAX package (a scalar divisor would be a reciprocal
+    # multiply on the card)
+    out = (probs @ vq) * (vmax / torch.full_like(vmax, 127.0 * 127.0))
+    return out.to(torch.bfloat16).transpose(1, 2).reshape(rows, d3 // 3)
+
+
+def attention_int8(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Tensor:
+    """Fully quantized self-attention of every (sequence, head) on the fused
+    QKV buffer [B*S, 3D] bf16 -> [B*S, D] bf16: Q and K int8 per row, int32
+    scores, f32 softmax, probs int8 at the fixed scale 127, V int8 per
+    column, int32 P.V.
+
+    Replaces `attention_int8` inside _layer_kernel_int8 (qattn=True). CUDA:
+    csrc/attention_int8.cu, one block per (48 queries, sequence, head) with
+    the head's K and V codes in shared memory, int8 WMMA for both products."""
+    if qkv.device.type == "cpu":
+        return attention_int8_plain(qkv, seq_len, num_heads)
+    check_cuda(qkv, torch.bfloat16, 2, "qkv")
+    rows, d3 = qkv.shape
+    d = d3 // 3
+    if rows % seq_len or d3 % 3 or d % num_heads or (d // num_heads) % 16:
+        raise ValueError(f"attention_int8: bad shape {tuple(qkv.shape)} for S={seq_len}, H={num_heads}")
+    out = torch.empty(rows, d, dtype=torch.bfloat16, device=qkv.device)
+    launch("rt_attention_int8", ptr(qkv), ptr(out), rows // seq_len, seq_len, num_heads,
+           d // num_heads, stream())
+    attention_int8.launches += 1
+    return out
+
+
+attention_int8.launches = 0
+
+
 def _layer(x, prepared, num_heads, quant, gemm, attention, res_ln):
     """One int8 layer through the given kernel functions (wrappers or plain)."""
     (wqkv, sqkv, bqkv, wo, so, bo, ln1_s, ln1_b,
@@ -143,16 +206,21 @@ def _layer(x, prepared, num_heads, quant, gemm, attention, res_ln):
     return out.reshape(b, s, d)
 
 
-def fused_encoder_layer_int8(x: torch.Tensor, prepared: tuple, num_heads: int = 4) -> torch.Tensor:
-    """One int8 encoder layer. x [B, S, D] bf16 -> [B, S, D] bf16."""
+def fused_encoder_layer_int8(x: torch.Tensor, prepared: tuple, num_heads: int = 4,
+                             qattn: bool = False) -> torch.Tensor:
+    """One int8 encoder layer. x [B, S, D] bf16 -> [B, S, D] bf16; with
+    `qattn` the attention runs on int8 codes too."""
     return _layer(x.to(torch.bfloat16).contiguous(), prepared, num_heads,
-                  quant_rows_int8, gemm_int8, attention_bf16, residual_layernorm)
+                  quant_rows_int8, gemm_int8, attention_int8 if qattn else attention_bf16,
+                  residual_layernorm)
 
 
-def fused_encoder_layer_int8_plain(x: torch.Tensor, prepared: tuple, num_heads: int = 4) -> torch.Tensor:
+def fused_encoder_layer_int8_plain(x: torch.Tensor, prepared: tuple, num_heads: int = 4,
+                                   qattn: bool = False) -> torch.Tensor:
     """The same layer through the plain PyTorch versions, on any device."""
     return _layer(x.to(torch.bfloat16), prepared, num_heads, quant_rows_int8_plain,
-                  gemm_int8_plain, attention_bf16_plain, residual_layernorm_plain)
+                  gemm_int8_plain, attention_int8_plain if qattn else attention_bf16_plain,
+                  residual_layernorm_plain)
 
 
 def prepare_layer_int8(layer) -> tuple:
@@ -177,10 +245,11 @@ def prepare_layer_int8(layer) -> tuple:
     )
 
 
-def prepare_posenet_int8(posenet) -> dict:
+def prepare_posenet_int8(posenet, qattn: bool = False) -> dict:
     """One-time quantization of a PoseNet for the int8 path; the embedding,
-    head and timestep params stay f32."""
-    return {
-        "layers": tuple(prepare_layer_int8(layer) for layer in posenet.seqTransEncoder.layers),
-        **posenet_prep_tail(posenet),
-    }
+    head and timestep params stay f32. With `qattn` the layers go under the
+    key "layers_qattn", which is what selects the quantized attention in
+    posenet_apply_prepared (as in the JAX package: an int8 layer tuple has
+    16 entries either way)."""
+    layers = tuple(prepare_layer_int8(layer) for layer in posenet.seqTransEncoder.layers)
+    return {"layers_qattn" if qattn else "layers": layers, **posenet_prep_tail(posenet)}

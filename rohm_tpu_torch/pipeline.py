@@ -9,7 +9,8 @@ The bridge decodes the TrajNet output, runs SMPL-X forward kinematics and
 re-encodes it (decode -> FK -> get_repr -> renormalize).
 
 PoseNet runs through the hand-written Hopper kernels when `fused_posenet`
-is True/"bf16" (bf16 layers) or "int8" (W8A8 layers).
+is True/"bf16" (bf16 layers), "int8" (W8A8 layers), "int8qa" (W8A8 layers
+with quantized attention) or "f32" (f32 layers on the raw weights).
 """
 
 from __future__ import annotations
@@ -127,19 +128,16 @@ class RohmPipeline:
     infill_traj: bool = False
     guidance_override: tuple | None = None
     # PoseNet on the hand-written kernels: False = plain module, True/"bf16" =
-    # bf16 layers (accuracy mode), "int8" = W8A8 layers (throughput mode)
+    # bf16 layers (accuracy mode), "int8" = W8A8 layers (throughput mode),
+    # "int8qa" = W8A8 layers with int8 attention, "f32" = f32 layers
     fused_posenet: bool | str = False
     _prepared_posenet: dict | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        if self.fused_posenet in ("int8qa", "f32"):
+        if self.fused_posenet not in (False, True, "bf16", "int8", "int8qa", "f32"):
             raise ValueError(
-                f"fused_posenet={self.fused_posenet!r} is not yet ported to PyTorch; "
-                "use False, True, 'bf16' or 'int8'"
-            )
-        if self.fused_posenet not in (False, True, "bf16", "int8"):
-            raise ValueError(
-                f"fused_posenet={self.fused_posenet!r}: expected False, True, 'bf16' or 'int8'"
+                f"fused_posenet={self.fused_posenet!r}: expected False, True, 'bf16', "
+                "'int8', 'int8qa' or 'f32'"
             )
         if self.grad_type not in (None, "amass"):
             raise ValueError(f"grad_type={self.grad_type!r} is not yet ported (only 'amass')")
@@ -158,8 +156,11 @@ class RohmPipeline:
         if self._prepared_posenet is None:
             from rohm_tpu_torch.ops import prepare_posenet_fused, prepare_posenet_int8
 
-            prepare = prepare_posenet_int8 if self.fused_posenet == "int8" else prepare_posenet_fused
-            self._prepared_posenet = prepare(self.posenet)
+            if self.fused_posenet in ("int8", "int8qa"):
+                prep = prepare_posenet_int8(self.posenet, qattn=self.fused_posenet == "int8qa")
+            else:
+                prep = prepare_posenet_fused(self.posenet)
+            self._prepared_posenet = prep
         return self._prepared_posenet
 
     def _guidance(self):
@@ -172,6 +173,13 @@ class RohmPipeline:
     def _pose_model_fn(self, cond: torch.Tensor):
         if not self.fused_posenet:
             return lambda x, tt: self.posenet(x, cond, tt)
+        if self.fused_posenet == "f32":
+            # the f32 layers take the module's raw weights, as the JAX
+            # package's f32 path takes the raw param tree
+            from rohm_tpu_torch.ops import embed_cond_f32, posenet_apply_fused
+
+            cond_emb = embed_cond_f32(self.posenet, cond)  # hoisted out of the loop
+            return lambda x, tt: posenet_apply_fused(self.posenet, x, cond, tt, cond_emb=cond_emb)
         from rohm_tpu_torch.ops import embed_cond, posenet_apply_prepared
 
         prep = self._ensure_prepared()

@@ -248,9 +248,16 @@ def test_run_batch_argument_checks():
     with pytest.raises(ValueError, match="unknown preset_noise key"):
         tp.run_batch(*inputs, torch.Generator(), preset_noise={"pose_noise": noise["pose_init"]})
     models, _, tbody, mean, std, *_ = _slice_setup()
-    for mode in ("int8qa", "f32"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            RohmPipeline(trajnet=models["trajnet"], trajcontrol=None, posenet=models["posenet"],
-                         sched_traj=make_schedule("cosine", 5), sched_pose=make_schedule("cosine", 8),
-                         body_model=tbody, mean=torch.from_numpy(mean), std=torch.from_numpy(std),
-                         fused_posenet=mode)
+
+    def make(mode):
+        return RohmPipeline(trajnet=models["trajnet"], trajcontrol=None, posenet=models["posenet"],
+                            sched_traj=make_schedule("cosine", 5), sched_pose=make_schedule("cosine", 8),
+                            body_model=tbody, mean=torch.from_numpy(mean), std=torch.from_numpy(std),
+                            fused_posenet=mode)
+
+    # every mode of the JAX package is accepted; an unknown one is refused
+    # rather than silently running the plain module
+    for mode in (False, True, "bf16", "int8", "int8qa", "f32"):
+        make(mode)
+    with pytest.raises(ValueError, match="expected False, True"):
+        make("fp8")
