@@ -61,25 +61,28 @@ from rohm_tpu_torch.reprs.schema import REPR_DIM_DICT, REPR_LIST, TRAJ_ABS_INDEX
 B, S, D, H, F, LAYERS = 32, 144, 512, 4, 1024, 8
 CLIP_LEN = 145  # frames per clip -> 144 repr frames (TrajNet) -> 143 (PoseNet)
 N_INT8, N_BF16 = 2, 1  # batches through run_batch per mode
-KERNELS = {  # wrapper -> (source, the TPU kernel it replaces a part of)
+KERNELS = {  # name -> (wrapper, its launch counter, source, the TPU kernel it replaces a part of)
     # attention_bf16 and residual_layernorm serve the int8 layer too
     # (rohm_tpu/ops/transformer_layer_int8.py:106 calls the same helpers)
-    "gemm_bf16": (l16.gemm_bf16, "rohm_tpu_torch/ops/csrc/gemm_bf16.cu",
+    "gemm_bf16": (l16.gemm_bf16, "launches", "rohm_tpu_torch/ops/csrc/gemm_bf16.cu",
                   "rohm_tpu/ops/transformer_layer_bf16.py:42"),
-    "attention_bf16": (kc.attention_bf16, "rohm_tpu_torch/ops/csrc/attention_bf16.cu",
+    "attention_bf16": (kc.attention_bf16, "launches", "rohm_tpu_torch/ops/csrc/attention_bf16.cu",
                        "rohm_tpu/ops/transformer_layer_bf16.py:42"),
-    "residual_layernorm": (kc.residual_layernorm, "rohm_tpu_torch/ops/csrc/residual_layernorm.cu",
+    "residual_layernorm": (kc.residual_layernorm, "launches", "rohm_tpu_torch/ops/csrc/residual_layernorm.cu",
                            "rohm_tpu/ops/transformer_layer_bf16.py:42"),
-    "quant_rows_int8": (l8.quant_rows_int8, "rohm_tpu_torch/ops/csrc/quant_rows_int8.cu",
+    "quant_rows_int8": (l8.quant_rows_int8, "launches", "rohm_tpu_torch/ops/csrc/quant_rows_int8.cu",
                         "rohm_tpu/ops/transformer_layer_int8.py:106"),
-    "gemm_int8": (l8.gemm_int8, "rohm_tpu_torch/ops/csrc/gemm_int8.cu",
+    "gemm_int8": (l8.gemm_int8, "launches", "rohm_tpu_torch/ops/csrc/gemm_int8.cu",
                   "rohm_tpu/ops/transformer_layer_int8.py:106"),
-    # the f32 layer (K1) also runs residual_layernorm, in its two-pass mode
-    "gemm_f32": (l32.gemm_f32, "rohm_tpu_torch/ops/csrc/gemm_f32.cu",
+    "gemm_f32": (l32.gemm_f32, "launches", "rohm_tpu_torch/ops/csrc/gemm_f32.cu",
                  "rohm_tpu/ops/transformer_layer.py:37"),
-    "attention_f32": (l32.attention_f32, "rohm_tpu_torch/ops/csrc/attention_f32.cu",
+    "attention_f32": (l32.attention_f32, "launches", "rohm_tpu_torch/ops/csrc/attention_f32.cu",
                       "rohm_tpu/ops/transformer_layer.py:37"),
-    "attention_int8": (l8.attention_int8, "rohm_tpu_torch/ops/csrc/attention_int8.cu",
+    # the f32 layer's LayerNorm: the same source in its two-pass mode
+    "residual_layernorm two-pass": (kc.residual_layernorm, "two_pass_launches",
+                                    "rohm_tpu_torch/ops/csrc/residual_layernorm.cu",
+                                    "rohm_tpu/ops/transformer_layer.py:37"),
+    "attention_int8": (l8.attention_int8, "launches", "rohm_tpu_torch/ops/csrc/attention_int8.cu",
                        "rohm_tpu/ops/transformer_layer_int8.py:68"),
 }
 BF16_ULP = 2.0 ** -7  # bf16 spacing relative to |x| is at most 2^-7
@@ -87,6 +90,15 @@ BF16_ULP = 2.0 ** -7  # bf16 spacing relative to |x| is at most 2^-7
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    for fn, counter, _, _ in KERNELS.values():
+        setattr(fn, counter, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(fn, counter) for name, (fn, counter, _, _) in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -312,18 +324,39 @@ def kernel_phase(seed: int) -> dict:
     _time("attention_f32", lambda: l32.attention_f32(qkv32, S, H),
           lambda: l32.attention_f32_plain(qkv32, S, H), stats, "attention_f32")
 
-    stats["residual_layernorm two-pass"] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    ln_args = (x32, res, layer.norm1.weight.detach(), layer.norm1.bias.detach(), True, False, True)
+    # residual_layernorm in K1's two-pass mode, var = E[(y - mu)^2]: both
+    # uses in the f32 layer, on f32 inputs of the layer's scale
+    s1, b1 = layer.norm1.weight.detach(), layer.norm1.bias.detach()
+    s2, b2 = layer.norm2.weight.detach(), layer.norm2.bias.detach()
+    for name, a, bb, s_, b_ in (
+        ("residual_layernorm two-pass LN1 (f32+f32 -> f32)", x32, res, s1, b1),
+        ("residual_layernorm two-pass LN2 (f32+f32 -> f32)", y32, res, s2, b2),
+    ):
+        ln_args = (a, bb, s_, b_, True, False, True)
+        got, ref = kc.residual_layernorm(*ln_args)[0], kc.residual_layernorm_plain(*ln_args)[0]
+        _check(name, got, ref, 1e-5 * ref.abs().max().item(),
+               "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm two-pass")
+        _time(name, lambda: kc.residual_layernorm(*ln_args),
+              lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass")
+    # Rows of mean 1024 and spread ~1 tell the two variances apart. Their
+    # values are multiples of 1/16 and every partial sum of a row stays
+    # below 2^20, so each sum is exact in f32 and mu is the same in any
+    # order: the two-pass kernel must stay within the tolerance above. The
+    # one-pass E[y^2] - mu^2 (terms near 2^20, sums near 2^29) loses the
+    # variance to cancellation, so the one-pass kernel must fall outside it.
+    big = torch.round(16.0 * randn(r, D)) / 16.0 + 1024.0
+    zeros = torch.zeros(r, D, device=dev)
+    ln_args = (big, zeros, s1, b1, True, False, True)
     got, ref = kc.residual_layernorm(*ln_args)[0], kc.residual_layernorm_plain(*ln_args)[0]
-    _check("residual_layernorm two-pass (f32+f32 -> f32)", got, ref, 1e-5 * ref.abs().max().item(),
-           "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm two-pass")
-    _time("residual_layernorm two-pass", lambda: kc.residual_layernorm(*ln_args),
-          lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass")
-    # the two variances are different functions: the two-pass mode must not
-    # silently run the one-pass one (equal only up to cancellation)
-    one_pass = kc.residual_layernorm(x32, res, ln_args[2], ln_args[3], True, False, False)[0]
-    log(f"[kernels] residual_layernorm one-pass vs two-pass: max diff "
-        f"{(one_pass - got).abs().max().item():.3e}")
+    tol = 1e-5 * ref.abs().max().item()
+    _check("residual_layernorm two-pass, rows of mean 1024", got, ref, tol,
+           "exact mu, var in another order: 1e-5 of max|ref|", stats, "residual_layernorm two-pass")
+    one_pass = kc.residual_layernorm(big, zeros, s1, b1, True, False, False)[0]
+    err = (one_pass - ref).abs()
+    log(f"[kernels] residual_layernorm one-pass kernel on the same rows: max_abs_err {err.max().item():.3e} "
+        f"against the two-pass plain version (must exceed {tol:.3e})")
+    if bool((err <= tol).all()):
+        raise AssertionError("the one-pass kernel passes the two-pass check: the check cannot tell the modes apart")
 
     # whole layers: bf16 flips upstream propagate through LayerNorm, so the
     # kernels' own envelope vs flax applies (tests/test_ops.py); the f32
@@ -422,7 +455,7 @@ def expected_launches(batches: dict) -> dict:
         "bf16": {"gemm_bf16": 4, "attention_bf16": 1, "residual_layernorm": 2},
         "int8": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_bf16": 1, "residual_layernorm": 2},
         "int8qa": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_int8": 1, "residual_layernorm": 2},
-        "f32": {"gemm_f32": 4, "attention_f32": 1, "residual_layernorm": 2},
+        "f32": {"gemm_f32": 4, "attention_f32": 1, "residual_layernorm two-pass": 2},
     }
     out = dict.fromkeys(KERNELS, 0)
     for mode, n in batches.items():
@@ -483,8 +516,7 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
         if not torch.equal(out[..., :22], noisy_n[..., :22]):
             raise AssertionError("traj passthrough dims are not the condition's")
 
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     batch_s = []
     modes = ["int8"] * n_int8 + ["bf16"] * n_bf16
     for i, (mode, (clean, noisy)) in enumerate(zip(modes, batches)):
@@ -506,7 +538,7 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
             raise AssertionError(f"bad output shapes {tuple(val_pose.shape)} {tuple(val_traj.shape)}")
         if not (torch.isfinite(val_pose).all() and torch.isfinite(val_traj).all()):
             raise AssertionError("non-finite pipeline output")
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    launches = read_launches()
 
     expected = expected_launches({"int8": n_int8, "bf16": n_bf16})
     log(f"[slice] launches {launches}; expected {expected}")
@@ -616,11 +648,10 @@ def cli_phase(seed: int, work: Path) -> dict:
     launches = dict.fromkeys(KERNELS, 0)
     out = {}
     for mode in ("f32", "int8qa"):
-        for fn, _, _ in KERNELS.values():
-            fn.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pkl = test_amass_full.main([
+        pkl, timing = test_amass_full.run([
             "--config=cfg_files/test_cfg/amass_occ_leg_noise_3.yaml", "--synthetic_data=True",
             f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}",
             "--batch_size=32", "--max_batches=1", "--load_noise=False", f"--fused_posenet={mode}",
@@ -629,14 +660,13 @@ def cli_phase(seed: int, work: Path) -> dict:
         ])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+        counts = read_launches()
         expected = expected_launches({mode: 1})
         log(f"[cli] fused_posenet={mode}: launches {counts}; expected {expected}")
         if counts != expected:
             raise AssertionError(f"the {mode} CLI run did not go through its kernels as the chain implies")
         for name in launches:
             launches[name] += counts[name]
-        timing = test_amass_full.main.timing
         batch_s = timing["batch_dispatch"] + timing["device_wait_and_collect"]
         log(f"[cli] fused_posenet={mode}: one batch of 32 clips {batch_s:.2f} s "
             f"(batch_dispatch + device_wait_and_collect), main() {seconds:.2f} s in all")
@@ -677,7 +707,7 @@ def main(argv=None) -> None:
          "launches": sl["launches"][name] + cli["launches"][name],
          "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-        for name, (_, src, rep) in KERNELS.items()
+        for name, (_, _, src, rep) in KERNELS.items()
     ]
     unused = [k["name"] for k in kernels if k["launches"] == 0]
     if unused:

@@ -123,7 +123,9 @@ def result_filename(args) -> str:
     return name
 
 
-def main(argv=None):
+def run(argv=None) -> tuple[str, dict]:
+    """The whole test run; returns the result pickle's path and the
+    phase-timing dict (seconds) that it also prints."""
     t_start = time.perf_counter()
     phase_t = {}
 
@@ -352,11 +354,12 @@ def main(argv=None):
               "other": round(total - accounted, 2), "total": round(total, 2)}
     print(f"[test_amass_full] timing (s): {timing}")
     print(f"results saved to {pkl_path}")
-    main.timing = timing
-    return pkl_path
+    return pkl_path, timing
 
 
-main.timing = None
+def main(argv=None) -> str:
+    return run(argv)[0]
+
 
 if __name__ == "__main__":
     main()

@@ -7,7 +7,8 @@ live here because several layers call them: `attention_bf16`
 variance).
 Each wrapper has its plain PyTorch version beside it (`*_plain`), which it
 takes only for a CPU tensor; on a CUDA tensor it launches the kernel, and
-counts the launch in its `launches` attribute.
+counts the launch in its `launches` attribute (`residual_layernorm` counts
+its two-pass launches apart, in `two_pass_launches`).
 """
 
 from __future__ import annotations
@@ -123,11 +124,15 @@ def residual_layernorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
     ob = torch.empty(rows, d, dtype=torch.bfloat16, device=a.device) if out_bf16 else None
     launch("rt_residual_layernorm", ptr(a), int(a.dtype == torch.bfloat16), ptr(b), ptr(scale),
            ptr(bias), ptr(of), ptr(ob), rows, d, LN_EPS, int(two_pass), stream())
-    residual_layernorm.launches += 1
+    if two_pass:
+        residual_layernorm.two_pass_launches += 1
+    else:
+        residual_layernorm.launches += 1
     return of, ob
 
 
-residual_layernorm.launches = 0
+residual_layernorm.launches = 0  # one-pass launches
+residual_layernorm.two_pass_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -176,8 +176,7 @@ def embed_cond_f32(posenet, cond: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def posenet_apply_fused(posenet, x_t: torch.Tensor, cond: torch.Tensor, t,
-                        cond_emb: torch.Tensor | None = None, layer_fn=fused_encoder_layer
-                        ) -> torch.Tensor:
+                        cond_emb: torch.Tensor | None = None) -> torch.Tensor:
     """PoseNet forward with the f32 kernel layers, on the module's raw
     weights (rohm_tpu/ops/transformer_layer.py::posenet_apply_fused).
 
@@ -195,7 +194,7 @@ def posenet_apply_fused(posenet, x_t: torch.Tensor, cond: torch.Tensor, t,
     h = F.linear(x_t, lin.weight, lin.bias) + cond_emb
     seq = torch.cat([emb[:, None, :], h], dim=1) + posenet.pe[None, : seq_len + 1, :]
     for layer in posenet.seqTransEncoder.layers:
-        seq = layer_fn(seq, layer, posenet.num_heads)
+        seq = fused_encoder_layer(seq, layer, posenet.num_heads)
     head = posenet.output_process.poseFinal
     out = F.linear(seq[:, 1:], head.weight, head.bias)
     return torch.cat([cond[..., : posenet.traj_feat_dim], out], dim=-1)

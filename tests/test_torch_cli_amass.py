@@ -115,12 +115,12 @@ def runs(tmp_path_factory):
         mp.setattr(JaxPipeline, "run_batch", _with_noise(JaxPipeline.run_batch))
         mp.setattr(RohmPipeline, "run_batch", _with_noise(RohmPipeline.run_batch))
         jpath = jcli.main(argv + [f"--save_root={tmp / 'res_jax'}"])
-        tpath = tcli.main(argv + [f"--save_root={tmp / 'res_torch'}", "--device=cpu"])
+        tpath, timing = tcli.run(argv + [f"--save_root={tmp / 'res_torch'}", "--device=cpu"])
     with open(jpath, "rb") as f:
         jdata = pickle.load(f)
     with open(tpath, "rb") as f:
         tdata = pickle.load(f)
-    return jpath, tpath, jdata, tdata, tcli.main.timing
+    return jpath, tpath, jdata, tdata, timing
 
 
 def test_cli_pickle_name_and_keys(runs):

@@ -142,11 +142,12 @@ def test_posenet_apply_fused_matches_jax():
 
 def test_f32_cpu_tensors_take_the_plain_version(layer_setup):  # noqa: F811
     _, layer, x = layer_setup
-    counters = (l32.gemm_f32, l32.attention_f32, kc.residual_layernorm)
-    before = [fn.launches for fn in counters]
+    counters = ((l32.gemm_f32, "launches"), (l32.attention_f32, "launches"),
+                (kc.residual_layernorm, "launches"), (kc.residual_layernorm, "two_pass_launches"))
+    before = [getattr(fn, attr) for fn, attr in counters]
     torch.testing.assert_close(l32.fused_encoder_layer(_t(x), layer, H),
                                l32.fused_encoder_layer_plain(_t(x), layer, H), rtol=0, atol=0)
-    assert [fn.launches for fn in counters] == before
+    assert [getattr(fn, attr) for fn, attr in counters] == before
 
 
 def test_f32_non_cpu_tensors_never_fall_back():
