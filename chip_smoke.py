@@ -6,30 +6,48 @@ Phases (each failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit; no CUDA device is an error.
   2. build: nvcc builds rohm_tpu_torch/ops/csrc into rohm_tpu_torch/_build/,
      one nvcc process per source, all at once.
-  3. kernels: every CUDA kernel of the PoseNet encoder layers, and each whole
-     layer (bf16, int8, int8qa, f32), against its plain PyTorch version on
-     the card, at the main path's shapes (32 clips x 144 tokens, D=512, H=4,
-     F=1024): max/mean abs error within the stated tolerance, median
-     CUDA-event times.
-  4. slice: the full-width AMASS inference pipeline (TrajNet + TrajControl
+  3. kernels: every CUDA kernel of the PoseNet inference layers, and each
+     whole layer (bf16, int8, int8qa, f32), against its plain PyTorch
+     version on the card, at the inference path's shapes (32 clips x 144
+     tokens, D=512, H=4, F=1024): max/mean abs error within the stated
+     tolerance, median CUDA-event times of the kernel, the plain version
+     and one library call for the same function, and the bound (the least
+     time the card could take: bytes over the memory rate or operations
+     over the peak rate of their type).
+  4. train kernels: every CUDA kernel of the training layer (K6 forward,
+     K7 backward) at the training shapes (64 clips x 145 tokens, D=512,
+     H=4, F=1024, dropout 0.1 with shared masks), in bf16 and f32 mode,
+     against its plain version, timed the same three ways (the f32-mode
+     attention kernels must fall outside the bf16 gates); then the whole
+     layer's forward output, dx and its 12 parameter gradients, kernels
+     against the plain chain.
+  5. slice: the full-width AMASS inference pipeline (TrajNet + TrajControl
      mid_dim 512, PoseNet 512d x 8 layers, synthetic SMPL-X body, cosine
      100/1000-step schedules, skating guidance, 2 iterations, lower-body
      mask) on batches of 32 clips x 144 frames built with the port's own FK
      and encoder, through RohmPipeline.run_batch with fused_posenet "int8"
      and "bf16". Weights are random from --seed. Checks shapes, finiteness,
      the kernels' launch counts, and the fused PoseNet of every mode (bf16,
-     int8, int8qa, f32) against the plain f32 PoseNet on one step.
-  5. breakdown: each piece of a batch (TrajNet step, bridge, guidance
-     gradient, PoseNet step per mode) timed alone, the batch predicted
-     from them, and the device's busy share over PoseNet steps.
-  6. cli: `rohm_tpu_torch.cli.test_amass_full.main` at full width with the
+     int8, int8qa, f32) against the plain f32 PoseNet on one step; then
+     each piece of a batch timed alone and the device's busy share.
+  6. train: `rohm_tpu_torch.cli.train_posenet.main` with the shipped
+     posenet_train_stage1.yaml at full width (batch 64, 145-frame clips,
+     512d x 8 layers) on a synthetic AMASS tree and a real-size synthetic
+     SMPL-X file: 20 steps with --fused_train=bfloat16 (one in-training
+     eval of the 1000-step chain, one checkpoint), 4 with float32, 4 with
+     "". Checks finite losses, moved parameters and the launch counts the
+     chain implies; then per mode the ms per optimizer step, its breakdown
+     (encoder forward, encoder backward, losses through SMPL-X, optimizer),
+     the device's busy share and the peak device memory.
+  7. cli: `rohm_tpu_torch.cli.test_amass_full.main` at full width with the
      shipped amass_occ_leg_noise_3.yaml, on a synthetic AMASS test tree
-     (3 x 11 sequences of 149 frames) and a real-size synthetic SMPL-X .npz,
-     one batch of 32 clips with fused_posenet "f32" and one with "int8qa",
-     then `eval_amass_full.main` on each pickle. Checks the launch counts,
-     the pickle's keys, shapes and finiteness.
-The second-to-last stdout line is the kernels' JSON (launches: the slice's
-and the CLI's runs); the last line is {"ok": true, "device": {...}}.
+     (3 x 11 sequences of 149 frames) and the real-size synthetic SMPL-X
+     file, one batch of 32 clips with fused_posenet "f32", loading the
+     checkpoint phase 6 trained, and one with "int8qa", then
+     `eval_amass_full.main` on each pickle. Checks the launch counts, the
+     pickle's keys, shapes and finiteness.
+The second-to-last stdout line is the kernels' JSON (launches: the main
+paths' runs of phases 5-7); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -46,14 +64,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 
 from rohm_tpu_torch.body.model import SMPLX_PARENTS, forward_joints, synthetic_model
 from rohm_tpu_torch.diffusion.schedule import make_schedule
 from rohm_tpu_torch.models import PoseNet, TrajNet
+from rohm_tpu_torch.models.blocks import TransformerEncoderLayer
 from rohm_tpu_torch.ops import _build, kernel_common as kc
 from rohm_tpu_torch.ops import transformer_layer as l32
 from rohm_tpu_torch.ops import transformer_layer_bf16 as l16
 from rohm_tpu_torch.ops import transformer_layer_int8 as l8
+from rohm_tpu_torch.ops import transformer_layer_train as lt
 from rohm_tpu_torch.pipeline import RohmPipeline, amass_eval_pose_mask, traj_to_pose_bridge
 from rohm_tpu_torch.reprs.encode import get_repr
 from rohm_tpu_torch.reprs.schema import REPR_DIM_DICT, REPR_LIST, TRAJ_ABS_INDEX
@@ -84,8 +105,32 @@ KERNELS = {  # name -> (wrapper, its launch counter, source, the TPU kernel it r
                                     "rohm_tpu/ops/transformer_layer.py:37"),
     "attention_int8": (l8.attention_int8, "launches", "rohm_tpu_torch/ops/csrc/attention_int8.cu",
                        "rohm_tpu/ops/transformer_layer_int8.py:68"),
+    # the training layer: K6 (_fwd_kernel :162) and K7 (_bwd_kernel :181,
+    # which also recomputes the forward's products)
+    "gemm_train bf16": (lt.gemm_train, "launches_bf16", "rohm_tpu_torch/ops/csrc/gemm_train.cu",
+                        "rohm_tpu/ops/transformer_layer_train.py:181"),
+    "gemm_train f32": (lt.gemm_train, "launches_f32", "rohm_tpu_torch/ops/csrc/gemm_train.cu",
+                       "rohm_tpu/ops/transformer_layer_train.py:181"),
+    "attention_train_fwd": (lt.attention_train_fwd, "launches", "rohm_tpu_torch/ops/csrc/attention_train.cu",
+                            "rohm_tpu/ops/transformer_layer_train.py:162"),
+    "attention_train_bwd": (lt.attention_train_bwd, "launches", "rohm_tpu_torch/ops/csrc/attention_train.cu",
+                            "rohm_tpu/ops/transformer_layer_train.py:181"),
+    "layernorm_train_fwd": (lt.layernorm_train_fwd, "launches", "rohm_tpu_torch/ops/csrc/layernorm_train.cu",
+                            "rohm_tpu/ops/transformer_layer_train.py:162"),
+    "layernorm_train_bwd": (lt.layernorm_train_bwd, "launches", "rohm_tpu_torch/ops/csrc/layernorm_train.cu",
+                            "rohm_tpu/ops/transformer_layer_train.py:181"),
+    "colsum": (lt.colsum, "launches", "rohm_tpu_torch/ops/csrc/colsum.cu",
+               "rohm_tpu/ops/transformer_layer_train.py:181"),
 }
 BF16_ULP = 2.0 ** -7  # bf16 spacing relative to |x| is at most 2^-7
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the bound
+# of a kernel is the larger of its operations over the peak of their type
+# and its bytes (each input read once, each output written once) over HBM
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
+# the training slice: batch 64 of 145-frame clips -> 144 repr frames + the
+# timestep token = 145 tokens
+TB, TS = 64, 145
 
 
 def log(msg: str) -> None:
@@ -163,11 +208,49 @@ def _check(name: str, got, ref, tol, why: str, stats: dict, kernel: str) -> None
     stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], max_err)
 
 
-def _time(name: str, kernel_fn, plain_fn, stats: dict, kernel: str) -> None:
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def new_stats() -> dict:
+    return {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": None} for k in KERNELS}
+
+
+def _time(name: str, kernel_fn, plain_fn, stats: dict, kernel: str, ops: float, moved: int,
+          kind: str | None, library_fn=None, tag: str = "kernels", rows: tuple = ()) -> None:
+    """Median times of the kernel, its plain version and (where one exists)
+    one library call for the same function; the bound from `ops`
+    operations of type `kind` and `moved` bytes. Each adds to the kernel's
+    per-layer sums, and to those of the TPU kernels named in `rows`."""
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
-    log(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
-    stats[kernel]["ms"] += ms
-    stats[kernel]["plain_ms"] += plain_ms
+    lib_ms = median_ms(library_fn) if library_fn is not None else None
+    ops_ms = ops / PEAK_OPS[kind] * 1e3 if kind else 0.0
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+        f"bound {max(ops_ms, bytes_ms):.4f} ms ({'operations' if ops_ms > bytes_ms else 'bytes'}) "
+        f"(median of 20)")
+    for key in (kernel, *rows):
+        st = stats.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0,
+                                    "bytes_ms": 0.0, "bound_ms": 0.0, "library_ms": None, "launches": 0})
+        st["ms"] += ms
+        st["plain_ms"] += plain_ms
+        st["ops_ms"] += ops_ms
+        st["bytes_ms"] += bytes_ms
+        st["bound_ms"] += max(ops_ms, bytes_ms)
+        st["launches"] = st.get("launches", 0) + 1
+        if lib_ms is not None:
+            st["library_ms"] = (st["library_ms"] or 0.0) + lib_ms
+
+
+def sdpa_inputs(qkv: torch.Tensor, seq_len: int, dtype) -> list:
+    """q, k, v [B, H, S, dh] copies of a fused QKV buffer, for the library
+    call (scaled_dot_product_attention) timed beside an attention kernel."""
+    rows, d3 = qkv.shape
+    d = d3 // 3
+    return [t.reshape(rows // seq_len, seq_len, H, d // H).transpose(1, 2).contiguous().to(dtype)
+            for t in qkv.split(d, dim=-1)]
 
 
 def kernel_phase(seed: int) -> dict:
@@ -180,7 +263,7 @@ def kernel_phase(seed: int) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    stats = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
+    stats = new_stats()
     posenet = PoseNet().to(dev)
     layer = posenet.seqTransEncoder.layers[0]
     p16, p8 = l16.prepare_layer_bf16(layer), l8.prepare_layer_int8(layer)
@@ -209,7 +292,9 @@ def kernel_phase(seed: int) -> dict:
             why = "one bf16 ulp of |ref| + |bias|"
         _check(name, got, ref, tol, why, stats, "gemm_bf16")
         _time(name, lambda: l16.gemm_bf16(a, w, bias, mode),
-              lambda: l16.gemm_bf16_plain(a, w, bias, mode), stats, "gemm_bf16")
+              lambda: l16.gemm_bf16_plain(a, w, bias, mode), stats, "gemm_bf16",
+              2 * a.shape[0] * a.shape[1] * w.shape[1], nbytes(a, w, bias, got), "bf16",
+              lambda: torch.matmul(a, w))
 
     # attention_bf16 on a QKV buffer of the layer's scale
     qkv = l16.gemm_bf16(x2, p16[0], p16[1], "qkv")
@@ -219,8 +304,10 @@ def kernel_phase(seed: int) -> dict:
     # <= 2^-8 max|v| in all (sum p = 1), plus the output's own bf16 rounding
     _check("attention_bf16 [32 seq x 4 heads, S=144, dh=128]", got, ref, 2.0 ** -6 * vmax,
            "2^-6 max|v|: one bf16 flip per prob + output rounding", stats, "attention_bf16")
+    q16, k16, v16 = sdpa_inputs(qkv, S, torch.bfloat16)
     _time("attention_bf16", lambda: kc.attention_bf16(qkv, S, H),
-          lambda: kc.attention_bf16_plain(qkv, S, H), stats, "attention_bf16")
+          lambda: kc.attention_bf16_plain(qkv, S, H), stats, "attention_bf16",
+          4 * r * S * D, nbytes(qkv, got), "bf16", lambda: tnf.scaled_dot_product_attention(q16, k16, v16))
 
     # residual_layernorm, both uses in a layer
     res = randn(r, D)
@@ -235,8 +322,11 @@ def kernel_phase(seed: int) -> dict:
                    "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm")
         _check(name + " bf16", got[1], ref[1], BF16_ULP * ref[1].float().abs() + 1e-5,
                "one bf16 ulp", stats, "residual_layernorm")
+        ysum = a.float() + bb
         _time(name, lambda: kc.residual_layernorm(a, bb, s_, b_, of, ob),
-              lambda: kc.residual_layernorm_plain(a, bb, s_, b_, of, ob), stats, "residual_layernorm")
+              lambda: kc.residual_layernorm_plain(a, bb, s_, b_, of, ob), stats, "residual_layernorm",
+              0, nbytes(a, bb, s_, b_, *got), None,
+              lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS))
 
     # quant_rows_int8 on each of the layer's four GEMM inputs
     for name, a in (
@@ -250,7 +340,7 @@ def kernel_phase(seed: int) -> dict:
                stats, "quant_rows_int8")
         _check(name + " scales", sc, sc_ref, 0.0, "exact", stats, "quant_rows_int8")
         _time(name, lambda: l8.quant_rows_int8(a), lambda: l8.quant_rows_int8_plain(a),
-              stats, "quant_rows_int8")
+              stats, "quant_rows_int8", 0, nbytes(a, q, sc), None)
 
     # gemm_int8: int32 sums exactly (unit scales, zero bias), then the four
     # products of one int8 layer with their epilogues
@@ -275,7 +365,9 @@ def kernel_phase(seed: int) -> dict:
         _check(name, got, ref, ulp * ref.float().abs() + 1e-6, "one ulp of the output type",
                stats, "gemm_int8")
         _time(name, lambda: l8.gemm_int8(a, s_a, w, s_w, bias, mode),
-              lambda: l8.gemm_int8_plain(a, s_a, w, s_w, bias, mode), stats, "gemm_int8")
+              lambda: l8.gemm_int8_plain(a, s_a, w, s_w, bias, mode), stats, "gemm_int8",
+              2 * a.shape[0] * a.shape[1] * w.shape[1], nbytes(a, s_a, w, s_w, bias, got), "int8",
+              lambda: torch._int_mm(a, w))
 
     # attention_int8 (K4) on the int8 layer's own QKV buffer
     qkv8 = l8.gemm_int8(qa, rs, p8[0], p8[1], p8[2], "bf16")
@@ -289,7 +381,8 @@ def kernel_phase(seed: int) -> dict:
            vmax / 127.0 + BF16_ULP * ref.float().abs(),
            "one prob code (vmax/127 of the column) + one bf16 ulp", stats, "attention_int8")
     _time("attention_int8", lambda: l8.attention_int8(qkv8, S, H),
-          lambda: l8.attention_int8_plain(qkv8, S, H), stats, "attention_int8")
+          lambda: l8.attention_int8_plain(qkv8, S, H), stats, "attention_int8",
+          4 * r * S * D, nbytes(qkv8, got), "int8")
 
     # the f32 layer (K1): its four products with their epilogues, on the
     # module's raw weights (a random in_proj bias, so the q scale after the
@@ -313,7 +406,9 @@ def kernel_phase(seed: int) -> dict:
         _check(name, got, ref, 1e-5 * ref.abs().max().item() + 1e-6,
                "f32 accumulation order, 1e-5 of max|ref|", stats, "gemm_f32")
         _time(name, lambda: l32.gemm_f32(a, w, bias, mode, scale, D),
-              lambda: l32.gemm_f32_plain(a, w, bias, mode, scale, D), stats, "gemm_f32")
+              lambda: l32.gemm_f32_plain(a, w, bias, mode, scale, D), stats, "gemm_f32",
+              2 * a.shape[0] * a.shape[1] * w.shape[0], nbytes(a, w, bias, got), "f32",
+              lambda: torch.matmul(a, w.t()))
 
     qkv32 = l32.gemm_f32(x32, sa.in_proj_weight.detach(), sa.in_proj_bias.detach(), "qkv", scale, D)
     got, ref = l32.attention_f32(qkv32, S, H), l32.attention_f32_plain(qkv32, S, H)
@@ -321,8 +416,10 @@ def kernel_phase(seed: int) -> dict:
     _check("attention_f32 [32 seq x 4 heads, S=144, dh=128]", got, ref,
            1e-5 * qkv32[:, 2 * D:].abs().max().item(), "f32 sum order, 1e-5 of max|v|", stats,
            "attention_f32")
+    q32, k32, v32 = sdpa_inputs(qkv32, S, torch.float32)
     _time("attention_f32", lambda: l32.attention_f32(qkv32, S, H),
-          lambda: l32.attention_f32_plain(qkv32, S, H), stats, "attention_f32")
+          lambda: l32.attention_f32_plain(qkv32, S, H), stats, "attention_f32",
+          4 * r * S * D, nbytes(qkv32, got), "f32", lambda: tnf.scaled_dot_product_attention(q32, k32, v32))
 
     # residual_layernorm in K1's two-pass mode, var = E[(y - mu)^2]: both
     # uses in the f32 layer, on f32 inputs of the layer's scale
@@ -336,8 +433,10 @@ def kernel_phase(seed: int) -> dict:
         got, ref = kc.residual_layernorm(*ln_args)[0], kc.residual_layernorm_plain(*ln_args)[0]
         _check(name, got, ref, 1e-5 * ref.abs().max().item(),
                "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm two-pass")
+        ysum = a + bb
         _time(name, lambda: kc.residual_layernorm(*ln_args),
-              lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass")
+              lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass",
+              0, nbytes(a, bb, s_, b_, got), None, lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS))
     # Rows of mean 1024 and spread ~1 tell the two variances apart. Their
     # values are multiples of 1/16 and every partial sum of a row stays
     # below 2^20, so each sum is exact in f32 and mu is the same in any
@@ -385,7 +484,252 @@ def kernel_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the slice
+# phase 4: the training layer's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _op(t: torch.Tensor, trans: bool) -> torch.Tensor:
+    return t.t() if trans else t
+
+
+def _check_gemm_train(name: str, kw: dict, bf16: bool, stats: dict, kernel: str, row: str) -> None:
+    """One product of the chain, kernel against plain, then timed. Both
+    round the same operands (bf16 mode) and sum exact products in f32 in
+    another order: per element <= ~sqrt(K) 2^-24 of sum |a||b| (K <= 9280:
+    < 6e-6), so the gate is 2e-5 of sum |a||b|, times the epilogue's gain
+    (inv_keep 1.11 x gelu' <= 1.13), plus 2^-22 of |out| and of an added
+    tensor (their own f32 roundings)."""
+    got, ref = lt.gemm_train(bf16=bf16, **kw), lt.gemm_train_plain(bf16=bf16, **kw)
+    a_t, b_t = kw.get("a_t", False), kw.get("b_t", False)
+    absprod = lt.gemm_train_plain(kw["a"].abs(), kw["b"].abs(), a_t, b_t, bf16)
+    gain = 1.3 if (kw.get("mask") is not None or kw.get("gelu")) else 1.0
+    added = kw["add"].abs() if kw.get("add") is not None else 0.0
+    outs = list(zip(got, ref, ("", " (pre-gelu h1)"), (gain, 1.0))) if kw.get("gelu") == 1 else [(got, ref, "", gain)]
+    la, lb = _op(kw["a"], a_t), _op(kw["b"], b_t)
+    m, k, n = la.shape[0], la.shape[1], lb.shape[1]
+    label = f"gemm_train {'bf16' if bf16 else 'f32'} {name} [{m}x{k}]x[{k}x{n}]"
+    for g_, r_, suffix, gn in outs:
+        tol = 2e-5 * gn * absprod + 2.0 ** -22 * (r_.abs() + added) + 1e-7
+        _check(label + suffix, g_, r_, tol, "f32 sum order: 2e-5 sum|a||b| x epilogue gain + output roundings",
+               stats, kernel)
+    if bf16:
+        la, lb = la.to(torch.bfloat16), lb.to(torch.bfloat16)
+    outputs = got if isinstance(got, tuple) else (got,)
+    moved = nbytes(kw["a"], kw["b"], kw.get("bias"), kw.get("mask"), kw.get("add"), *outputs,
+                   kw.get("aux") if kw.get("gelu") == 2 else None)
+    _time(label, lambda: lt.gemm_train(bf16=bf16, **kw), lambda: lt.gemm_train_plain(bf16=bf16, **kw),
+          stats, kernel, 2 * m * n * k, moved, "bf16" if bf16 else "f32",
+          lambda: torch.matmul(la, lb), tag="train kernels", rows=(row,))
+
+
+def train_kernel_phase(seed: int, stats: dict) -> None:
+    """Each training kernel at every shape one layer's forward and backward
+    give it (B=64, S=145: R=9280 rows), dropout 0.1 with the same masks on
+    both sides, in bf16 and f32 mode, against its plain version; then the
+    whole layer through the autograd Function, kernels against the plain
+    chain. Adds the per-layer sums to stats (the mode-independent
+    LayerNorm and column-sum kernels, and attention's JSON time, from the
+    bf16 pass; attention's f32-mode times are logged)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    r = TB * TS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    layer = TransformerEncoderLayer(D, H, F).to(dev)
+    with torch.no_grad():  # random biases and LayerNorm parameters, so every term is seen
+        for prm in layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * randn(prm.shape[0]))
+    params = tuple(t.detach() for t in lt.layer_params(layer))
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = params
+    p = 0.1
+    ik = 1.0 / (1.0 - p)
+    masks = lt.gen_dropout_masks(g, TB, TS, D, F, H, p)
+    fm = lt.flat_masks(masks, r)
+    mp, mo, mh, mf = fm
+    x, dy = randn(r, D), randn(r, D)
+    P = lt.PLAIN
+    for bf16 in (True, False):
+        mode = "bf16" if bf16 else "f32"
+        # attention serves both modes: its JSON entry takes the bf16 pass's
+        # times, the f32 pass's go to an entry of their own
+        attn_fwd = "attention_train_fwd" if bf16 else "attention_train_fwd (f32 mode)"
+        attn_bwd = "attention_train_bwd" if bf16 else "attention_train_bwd (f32 mode)"
+        # the plain chain's intermediates are every kernel's inputs
+        _, saved = lt.layer_train_fwd(x, params, fm, TS, H, ik, bf16, P)
+        _, qkv, attn, y1, norm1, rstd1, h1, gld, norm2, rstd2 = saved
+        od = P.gemm(attn, wo, b_t=True, bf16=bf16, bias=bo, mask=mo, inv_keep=ik)
+        ffd = P.gemm(gld, w2, b_t=True, bf16=bf16, bias=b2, mask=mf, inv_keep=ik)
+        dr2, df = P.ln_bwd(dy, norm2, rstd2, g2, mf, ik)
+        dh1 = P.gemm(df, w2, bf16=bf16, mask=mh, inv_keep=ik, gelu=2, aux=h1)
+        dy1 = P.gemm(dh1, w1, bf16=bf16, add=dr2)
+        dr1, do = P.ln_bwd(dy1, norm1, rstd1, g1, mo, ik)
+        dattn = P.gemm(do, wo, bf16=bf16)
+        dqkv = P.attn_bwd(qkv, dattn, mp, TS, H, ik, bf16)
+        for name, kw in (
+            ("qkv", dict(a=x, b=wqkv, b_t=True, bias=bqkv)),
+            ("out+dropout", dict(a=attn, b=wo, b_t=True, bias=bo, mask=mo, inv_keep=ik)),
+            ("ff1+gelu+dropout", dict(a=y1, b=w1, b_t=True, bias=b1, mask=mh, inv_keep=ik, gelu=1)),
+            ("ff2+dropout", dict(a=gld, b=w2, b_t=True, bias=b2, mask=mf, inv_keep=ik)),
+            ("dW2", dict(a=df, b=gld, a_t=True)),
+            ("dh1 (dropout, gelu')", dict(a=df, b=w2, mask=mh, inv_keep=ik, gelu=2, aux=h1)),
+            ("dW1", dict(a=dh1, b=y1, a_t=True)),
+            ("dy1 (+dr2)", dict(a=dh1, b=w1, add=dr2)),
+            ("dWo", dict(a=do, b=attn, a_t=True)),
+            ("dattn", dict(a=do, b=wo)),
+            ("dWqkv", dict(a=dqkv, b=x, a_t=True)),
+            ("dx (+dr1)", dict(a=dqkv, b=wqkv, add=dr1)),
+        ):
+            row = f"K6 {mode}" if kw.get("b_t") else f"K7 {mode}"  # the forward products take W^T
+            _check_gemm_train(name, kw, bf16, stats, f"gemm_train {mode}", row)
+
+        # attention forward: kernel and plain round q, k, v and the probs at
+        # the same points and sum in f32 (measured bit-identical in both
+        # modes): the gate leaves room for expf and sum order only; the
+        # f32-mode kernel lands 1.2e-3 off the bf16 plain version, 4.6x it
+        # or more
+        vmax = qkv[:, 2 * D:].abs().max().item()
+        got = lt.attention_train_fwd(qkv, mp, TS, H, ik, bf16)
+        ref = lt.attention_train_fwd_plain(qkv, mp, TS, H, ik, bf16)
+        fwd_tol = (2.0 ** -14 if bf16 else 1e-5) * ik * vmax
+        _check(f"attention_train_fwd {mode} [64 seq x 4 heads, S=145, dh=128]", got, ref, fwd_tol,
+               f"{'2^-14' if bf16 else '1e-5'} inv_keep max|v|: expf and f32 sum order",
+               stats, "attention_train_fwd")
+        ref_fwd = ref
+        dt = torch.bfloat16 if bf16 else torch.float32
+        qs, ks, vs = sdpa_inputs(qkv, TS, dt)
+        _time(f"attention_train_fwd {mode}", lambda: lt.attention_train_fwd(qkv, mp, TS, H, ik, bf16),
+              lambda: lt.attention_train_fwd_plain(qkv, mp, TS, H, ik, bf16), stats, attn_fwd,
+              4 * r * TS * D, nbytes(qkv, mp, got), mode,
+              lambda: tnf.scaled_dot_product_attention(qs, ks, vs), tag="train kernels",
+              rows=(f"K6 {mode}",))
+        # attention backward, per block of dq, dk, dv: f32 sum order, and
+        # in bf16 a rare flipped rounding of ds (measured 1.4e-4 to 4e-4 of
+        # max|ref|; the gate 2^-10, which the f32-mode kernel misses by 3.8x)
+        got = lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, bf16)
+        ref = lt.attention_train_bwd_plain(qkv, dattn, mp, TS, H, ik, bf16)
+        parts = []
+        for i, part in enumerate(("dq", "dk", "dv")):
+            blk = slice(i * D, (i + 1) * D)
+            tol = (2.0 ** -10 if bf16 else 1e-5) * ref[:, blk].abs().max().item()
+            _check(f"attention_train_bwd {mode} {part}", got[:, blk], ref[:, blk], tol,
+                   f"{'2^-10' if bf16 else '1e-5'} of max|ref|", stats, "attention_train_bwd")
+            parts.append((part, blk, tol))
+        if bf16:
+            # the bf16 gates must tell the modes apart: the f32-mode kernels
+            # (no bf16 rounding of q, k, v, the probs, dA, pd or ds) held to
+            # them against the bf16 plain versions must fall outside
+            f32_fwd = lt.attention_train_fwd(qkv, mp, TS, H, ik, False)
+            f32_bwd = lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, False)
+            inside = []
+            for part, g_, r_, tol in (("fwd", f32_fwd, ref_fwd, fwd_tol),
+                                      *((p_, f32_bwd[:, b_], ref[:, b_], t_) for p_, b_, t_ in parts)):
+                err = (g_ - r_).abs().max().item()
+                log(f"[train kernels] attention_train f32-mode kernel {part} against the bf16 plain version: "
+                    f"max_abs_err {err:.3e} (must exceed the bf16 gate {tol:.3e})")
+                if err <= tol:
+                    inside.append(part)
+            if inside:
+                raise AssertionError(f"attention_train bf16 gates pass the f32-mode kernel on {inside}: "
+                                     "they cannot tell the modes apart")
+        qs, ks, vs = (t.requires_grad_() for t in sdpa_inputs(qkv, TS, dt))
+        sdpa_out = tnf.scaled_dot_product_attention(qs, ks, vs)
+        sdpa_grad = torch.randn_like(sdpa_out)
+        _time(f"attention_train_bwd {mode}", lambda: lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, bf16),
+              lambda: lt.attention_train_bwd_plain(qkv, dattn, mp, TS, H, ik, bf16), stats, attn_bwd,
+              10 * r * TS * D, nbytes(qkv, dattn, mp, got), mode,
+              lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), sdpa_grad, retain_graph=True),
+              tag="train kernels", rows=(f"K7 {mode}",))
+
+        # the whole layer through the autograd Function: y, dx and the 12
+        # parameter gradients, kernels against the plain chain. f32: sum
+        # order through the chain (measured <= 1.6e-6 of each max); bf16:
+        # flips of bf16 roundings of f32 operands propagate (measured
+        # <= 1.8e-3, on d in_proj_weight)
+        tol = 4e-3 if bf16 else 1e-4
+        outs = []
+        for kernels in (lt.KERNELS, lt.PLAIN):
+            layer.zero_grad()
+            xx = x.reshape(TB, TS, D).clone().requires_grad_()
+            y = lt.fused_train_layer(layer, xx, masks, H, p, "bfloat16" if bf16 else "float32", kernels)
+            (y * dy.reshape(TB, TS, D)).sum().backward()
+            outs.append([y.detach(), xx.grad] + [t.grad.clone() for t in lt.layer_params(layer)])
+        names = ["y", "dx", "d in_proj_weight", "d in_proj_bias", "d out_proj.weight", "d out_proj.bias",
+                 "d norm1.weight", "d norm1.bias", "d linear1.weight", "d linear1.bias",
+                 "d linear2.weight", "d linear2.bias", "d norm2.weight", "d norm2.bias"]
+        for nm, got, ref in zip(names, *outs):
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            log(f"[train kernels] layer {mode} {nm}: max_abs_err {err:.3e} of max|ref| {scale:.3e} "
+                f"(tolerance {tol} of max|ref|)")
+            if err > tol * scale:
+                raise AssertionError(f"training layer {mode}: {nm} disagrees with the plain chain")
+        layer.zero_grad()
+        fwd = median_ms(lambda: lt.layer_train_fwd(x, params, fm, TS, H, ik, bf16))
+        fwd_plain = median_ms(lambda: lt.layer_train_fwd(x, params, fm, TS, H, ik, bf16, P))
+        bwd = median_ms(lambda: lt.layer_train_bwd(dy, saved, params, fm, TS, H, ik, bf16))
+        bwd_plain = median_ms(lambda: lt.layer_train_bwd(dy, saved, params, fm, TS, H, ik, bf16, P))
+        log(f"[train kernels] layer {mode}: forward {fwd:.4f} ms (plain {fwd_plain:.4f}), "
+            f"backward {bwd:.4f} ms (plain {bwd_plain:.4f}) per layer (median of 20)")
+        stats[f"train layer {mode}"] = {"fwd_ms": fwd, "fwd_plain_ms": fwd_plain,
+                                        "bwd_ms": bwd, "bwd_plain_ms": bwd_plain}
+        if not bf16:
+            continue
+
+        # LayerNorm forward (LN1, LN2) and backward (LN2, LN1), and the six
+        # column sums: mode-independent f32 kernels, checked once
+        for name, a, b, gm, bt in (("LN1", x, od, g1, be1), ("LN2", y1, ffd, g2, be2)):
+            got, ref = lt.layernorm_train_fwd(a, b, gm, bt), lt.layernorm_train_fwd_plain(a, b, gm, bt)
+            for part, g_, r_ in zip(("y", "norm", "rstd"), got, ref):
+                _check(f"layernorm_train_fwd {name} {part}", g_, r_, 1e-5 * r_.abs().max().item(),
+                       "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "layernorm_train_fwd")
+            rsum = a + b
+            _time(f"layernorm_train_fwd {name}", lambda: lt.layernorm_train_fwd(a, b, gm, bt),
+                  lambda: lt.layernorm_train_fwd_plain(a, b, gm, bt), stats, "layernorm_train_fwd",
+                  0, nbytes(a, b, gm, bt, *got), None,
+                  lambda: tnf.layer_norm(rsum, (D,), gm, bt, kc.LN_EPS), tag="train kernels",
+                  rows=("K6 bf16", "K6 f32"))
+        for name, d_, nrm, rs, gm, mk, a, b in (("LN2", dy, norm2, rstd2, g2, mf, y1, ffd),
+                                                ("LN1", dy1, norm1, rstd1, g1, mo, x, od)):
+            got = lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik)
+            ref = lt.layernorm_train_bwd_plain(d_, nrm, rs, gm, mk, ik)
+            for part, g_, r_ in zip(("dr", "dr*mask"), got, ref):
+                _check(f"layernorm_train_bwd {name} {part}", g_, r_, 1e-5 * r_.abs().max().item(),
+                       "f32 row-mean order, 1e-5 of max|ref|", stats, "layernorm_train_bwd")
+            rin = (a + b).requires_grad_()
+            gml, btl = gm.clone().requires_grad_(), torch.zeros_like(gm).requires_grad_()
+            ln_out = tnf.layer_norm(rin, (D,), gml, btl, kc.LN_EPS)
+            _time(f"layernorm_train_bwd {name}", lambda: lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik),
+                  lambda: lt.layernorm_train_bwd_plain(d_, nrm, rs, gm, mk, ik), stats, "layernorm_train_bwd",
+                  0, nbytes(d_, nrm, rs, gm, mk, *got), None,
+                  lambda: torch.autograd.grad(ln_out, (rin, gml, btl), d_, retain_graph=True),
+                  tag="train kernels", rows=("K7 bf16", "K7 f32"))
+        for name, a, b in (("dg2, dbe2", dy, norm2), ("db2", df, None), ("db1", dh1, None),
+                           ("dg1, dbe1", dy1, norm1), ("dbo", do, None), ("dbqkv", dqkv, None)):
+            got, ref = lt.colsum(a, b), lt.colsum_plain(a, b)
+            got, ref = (got, ref) if b is not None else ((got,), (ref,))
+            sums = ((a * b).abs().sum(0), a.abs().sum(0)) if b is not None else (a.abs().sum(0),)
+            for g_, r_, sm in zip(got, ref, sums):
+                # 9280 terms in another order: <= ~sqrt(R) 2^-24 of sum |a|
+                _check(f"colsum {name} [{a.shape[0]}x{a.shape[1]}]", g_, r_, 1e-5 * sm + 1e-6,
+                       "f32 sum order, 1e-5 of sum|terms|", stats, "colsum")
+            _time(f"colsum {name}", lambda: lt.colsum(a, b), lambda: lt.colsum_plain(a, b), stats, "colsum",
+                  0, nbytes(a, b, *got), None,
+                  (lambda: torch.einsum("rn,rn->n", a, b)) if b is not None else (lambda: a.sum(0)),
+                  tag="train kernels", rows=("K7 bf16", "K7 f32"))
+    for row in ("K6 bf16", "K7 bf16", "K6 f32", "K7 f32"):
+        st = stats[row]
+        by = "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes"
+        log(f"[train kernels] {row}, its kernels one by one at one layer's shapes: {st['launches']} launches, "
+            f"kernels {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.4f} ms ({by})")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the slice
 # ---------------------------------------------------------------------------
 
 
@@ -587,28 +931,206 @@ def breakdown_phase(pipes: dict, cond: torch.Tensor, x_pose: torch.Tensor) -> No
                     + 1000 * ms[f"posenet step {mode}"] + 51 * ms["guidance grad"]) / 1e3
         log(f"[breakdown] {mode} batch predicted from the pieces: {pred:.2f} s "
             f"(PoseNet steps {2 * 1000 * ms[f'posenet step {mode}'] / 1e3:.2f} s)")
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        device_busy(steps[mode], 20, f"{mode} PoseNet steps", "breakdown")
+
+
+def device_busy(fn, n: int, what: str, tag: str) -> float:
+    """Run fn n times under torch.profiler: log the device's busy share of
+    the wall time and the largest kernels; returns the busy share."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(20):
-                steps[mode]()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = sorted(
-            ((e.key, e.self_device_time_total) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA),
-            key=lambda kv: -kv[1],
-        )
-        busy = sum(us for _, us in kernels)
-        log(f"[breakdown] {mode} PoseNet steps x20 under the profiler: device busy {busy / wall_us:.3f} "
-            f"of {wall_us / 1e3:.1f} ms wall")
-        for name, us in kernels[:8]:
-            log(f"[breakdown]   {us / busy:.3f}  {us / 20e3:.4f} ms/step  {name[:90]}")
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted(
+        ((e.key, e.self_device_time_total) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda kv: -kv[1],
+    )
+    busy = sum(us for _, us in kernels)
+    log(f"[{tag}] {what} x{n} under the profiler: device busy {busy / wall_us:.3f} "
+        f"of {wall_us / 1e3:.1f} ms wall")
+    for name, us in kernels[:8]:
+        log(f"[{tag}]   {us / busy:.3f}  {us / (n * 1e3):.4f} ms each  {name[:90]}")
+    return busy / wall_us
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the CLI
+# phase 6: PoseNet training through the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = {"bfloat16": 20, "float32": 4, "": 4}  # --fused_train -> --num_steps
+TRAIN_EVAL_AT = 10  # --log_interval of the bf16 run: one in-training eval
+CLIPS_PER_TRAIN_SEQ = 8
+
+
+def write_train_tree(root: Path, body, train_seqs: int, test_seqs: int, seed: int) -> None:
+    """A synthetic AMASS tree for train_posenet: the 15 train datasets with
+    `train_seqs` sequences of 8 clips each, and the 3 test datasets with
+    `test_seqs` sequences of 4 clips (the test split drops a sequence's
+    first and last frame, then keeps every second clip)."""
+    from rohm_tpu_torch.cli.common import AMASS_TEST_DATASETS, AMASS_TRAIN_DATASETS
+    from rohm_tpu_torch.data import write_synthetic_amass
+
+    write_synthetic_amass(str(root), body, datasets={n: train_seqs for n in AMASS_TRAIN_DATASETS},
+                          seq_len=CLIPS_PER_TRAIN_SEQ * CLIP_LEN, seed=seed)
+    write_synthetic_amass(str(root), body, datasets={n: test_seqs for n in AMASS_TEST_DATASETS},
+                          seq_len=4 * CLIP_LEN + 2, seed=seed + 1)
+
+
+def expected_train_launches(mode: str, steps: int) -> dict:
+    """Per optimizer step and layer, the chain runs 12 products, one
+    attention forward and backward, two LayerNorms each way and six column
+    sums; the plain path ("") launches no kernel."""
+    out = dict.fromkeys(KERNELS, 0)
+    if not mode:
+        return out
+    gemm = "gemm_train bf16" if mode == "bfloat16" else "gemm_train f32"
+    per_layer = {gemm: 12, "attention_train_fwd": 1, "attention_train_bwd": 1,
+                 "layernorm_train_fwd": 2, "layernorm_train_bwd": 2, "colsum": 6}
+    for name, k in per_layer.items():
+        out[name] = k * LAYERS * steps
+    return out
+
+
+def train_timing(loop, mode: str) -> dict:
+    """ms per optimizer step (host clock around a synchronised step, median
+    of 10 after 3 warm-up steps), its pieces timed alone (median CUDA-event
+    ms), the device's busy share over 5 steps and the peak memory of the
+    steps. The steps keep training the run's model."""
+    batch = next(loop.train_dataset.batches(TB, seed=123))
+    sb = {"motion_repr_clean": loop._to_device(batch["motion_repr_clean"]),
+          "cond": loop._to_device(loop._make_cond(batch, 0))}
+    skating = torch.tensor(1.0, device="cuda")
+
+    def step():
+        loop.train_step(loop.state, sb, loop.generator, skating)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    model = loop.state.model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    clean, cond = sb["motion_repr_clean"], sb["cond"]
+    frames = clean.shape[1]
+    t = torch.randint(0, 1000, (TB,), generator=gen, device="cuda")
+    x_t = torch.randn(clean.shape, generator=gen, device="cuda")
+    masks = lt.posenet_dropout_masks(gen, model, TB, frames)
+    g_out = torch.randn(clean.shape, generator=gen, device="cuda")
+
+    def forward():
+        with torch.enable_grad():
+            if mode:
+                return lt.posenet_apply_train(model, x_t, cond, t, masks, mode)
+            return model.forward_train(x_t, cond, t, masks)
+
+    out_graph = forward()  # its graph is kept for the timed backward passes
+    out0 = out_graph.detach()
+
+    def losses():
+        o = out0.clone().requires_grad_()
+        with torch.enable_grad():
+            loop.eval_loss_fn(o, clean)["loss"].backward()
+
+    ms = {
+        "draws (t, noise, dropout masks)": median_ms(
+            lambda: (torch.randint(0, 1000, (TB,), generator=gen, device="cuda"),
+                     torch.randn(clean.shape, generator=gen, device="cuda"),
+                     lt.posenet_dropout_masks(gen, model, TB, frames))),
+        "PoseNet forward (embeddings, 8 layers, head)": median_ms(forward),
+        "PoseNet backward": median_ms(lambda: out_graph.backward(g_out, retain_graph=True)),
+        "losses through SMPL-X, forward + backward": median_ms(losses),
+        "optimizer (AdamW)": median_ms(loop.state.optimizer.step),
+    }
+    step_ms = statistics.median(times)
+    log(f"[train] --fused_train={mode!r}: {step_ms:.2f} ms per optimizer step (host clock, median of 10 "
+        f"after 3 warm-up; batch {TB} x {frames} frames), peak memory of the steps "
+        f"{peak / 2**30:.2f} GiB")
+    for name, v in ms.items():
+        log(f"[train]   {name}: {v:.3f} ms (median of 20)")
+    busy = device_busy(step, 5, f"--fused_train={mode!r} optimizer steps", "train")
+    return {"step_ms": step_ms, "pieces_ms": ms, "busy": busy, "steps_peak_bytes": peak}
+
+
+def train_phase(seed: int, work: Path, body_path: Path) -> dict:
+    """train_posenet.main in each --fused_train mode at full width; returns
+    the launch counts of the runs, the bf16 run's checkpoint and the
+    timings."""
+    from types import SimpleNamespace
+
+    from rohm_tpu_torch.cli import train_posenet
+    from rohm_tpu_torch.cli.common import build_posenet
+    from rohm_tpu_torch.train.checkpoint import latest_checkpoint
+
+    body = synthetic_model(num_verts=10475, seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    trees = {"full": (work / "train_full", 12, 11), "small": (work / "train_small", 3, 1)}
+    for root, train_seqs, test_seqs in trees.values():
+        write_train_tree(root, body, train_seqs, test_seqs, seed)
+    log(f"[train] synthetic trees: 15 train datasets x 12 / 3 sequences of {CLIPS_PER_TRAIN_SEQ} clips "
+        f"(1440 / 360 clips: 22 / 5 batches of {TB}), 3 test datasets x 11 / 1 sequences of 4 clips, "
+        f"{time.perf_counter() - t0:.2f} s")
+    init = [t.cuda() for t in build_posenet(SimpleNamespace(latent_dim=D), seed=seed).parameters()]
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for mode, steps in TRAIN_STEPS.items():
+        root = trees["full" if mode == "bfloat16" else "small"][0]
+        log_interval = TRAIN_EVAL_AT if mode == "bfloat16" else 10**9
+        save_dir = work / f"runs_{mode or 'plain'}"
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop = train_posenet.main([
+            "--config=cfg_files/train_cfg/posenet_train_stage1.yaml", f"--dataset_root={root}",
+            f"--body_model_path={body_path}", f"--save_dir={save_dir}", f"--fused_train={mode}",
+            f"--num_steps={steps}", f"--log_interval={log_interval}", "--save_interval=1000000000",
+            f"--seed={seed}", "--device=0",
+        ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_launches()
+        expected = expected_train_launches(mode, loop.step)
+        log(f"[train] --fused_train={mode!r}: main() {seconds:.2f} s, {loop.step} steps, "
+            f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; expected {expected}")
+        if loop.step != steps or counts != expected:
+            raise AssertionError(f"the {mode!r} training run did not go through its kernels as the chain implies")
+        for name in launches:
+            launches[name] += counts[name]
+        losses = {k: float(v) for k, v in loop.last_losses.items()}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses in the {mode!r} run: {losses}")
+        moved = [not torch.equal(a, b) for a, b in zip(init, loop.state.model.parameters())]
+        if not all(moved):
+            raise AssertionError(f"the {mode!r} run left {moved.count(False)} parameter tensors untouched")
+        ckpt = latest_checkpoint(loop.logdir)
+        run_log = "".join(p.read_text() for p in Path(loop.logdir).glob("run_*.log"))
+        evals = run_log.count("[eval]  loss:")
+        log(f"[train] --fused_train={mode!r}: last loss {losses['loss']:.4f}, checkpoint {Path(ckpt).name}, "
+            f"in-training evals {evals}")
+        if not ckpt.endswith(f"model{steps:09d}.npz") or evals != (1 if mode == "bfloat16" else 0):
+            raise AssertionError(f"the {mode!r} run's checkpoint or eval is missing")
+        out[mode] = {"main_s": seconds, "peak_bytes": peak, "losses": losses, "checkpoint": ckpt,
+                     **train_timing(loop, mode)}
+        del loop
+        torch.cuda.empty_cache()
+    return {"launches": launches, "runs": out, "checkpoint": out["bfloat16"]["checkpoint"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the CLI
 # ---------------------------------------------------------------------------
 
 CLI_SEQS, CLI_SEQ_LEN = 11, 149  # per test dataset: 33 test clips of 145 frames
@@ -628,18 +1150,17 @@ def write_smplx_npz(path: Path, seed: int) -> None:
     )
 
 
-def cli_phase(seed: int, work: Path) -> dict:
+def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str) -> dict:
     """`test_amass_full.main` at full width on a synthetic AMASS test tree
     (3 datasets x 11 sequences of 149 frames: 33 clips) with a real-size
-    synthetic SMPL-X file, one batch of 32 clips in each of "f32" and
-    "int8qa", then `eval_amass_full.main` on each pickle."""
+    synthetic SMPL-X file, one batch of 32 clips in each of "f32" (PoseNet
+    loaded from `posenet_ckpt`, the training phase's checkpoint, and its
+    run directory's stats) and "int8qa" (random PoseNet), then
+    `eval_amass_full.main` on each pickle."""
     from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
     from rohm_tpu_torch.cli.common import AMASS_TEST_DATASETS
     from rohm_tpu_torch.data import write_synthetic_amass
 
-    work.mkdir(parents=True, exist_ok=True)
-    body_path = work / "SMPLX_NEUTRAL.npz"
-    write_smplx_npz(body_path, seed)
     t0 = time.perf_counter()
     write_synthetic_amass(str(work / "amass"), synthetic_model(num_verts=10475, seed=seed, device="cuda"),
                           datasets={n: CLI_SEQS for n in AMASS_TEST_DATASETS}, seq_len=CLI_SEQ_LEN, seed=seed)
@@ -647,7 +1168,7 @@ def cli_phase(seed: int, work: Path) -> dict:
         f"frames, {time.perf_counter() - t0:.2f} s")
     launches = dict.fromkeys(KERNELS, 0)
     out = {}
-    for mode in ("f32", "int8qa"):
+    for mode, ckpt in (("f32", posenet_ckpt), ("int8qa", "")):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -655,7 +1176,7 @@ def cli_phase(seed: int, work: Path) -> dict:
             "--config=cfg_files/test_cfg/amass_occ_leg_noise_3.yaml", "--synthetic_data=True",
             f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}",
             "--batch_size=32", "--max_batches=1", "--load_noise=False", f"--fused_posenet={mode}",
-            "--model_path_trajnet=", "--model_path_trajnet_control=", "--model_path_posenet=",
+            "--model_path_trajnet=", "--model_path_trajnet_control=", f"--model_path_posenet={ckpt}",
             f"--save_root={work / ('results_' + mode)}", f"--seed={seed}", "--device=0",
         ])
         torch.cuda.synchronize()
@@ -669,7 +1190,8 @@ def cli_phase(seed: int, work: Path) -> dict:
             launches[name] += counts[name]
         batch_s = timing["batch_dispatch"] + timing["device_wait_and_collect"]
         log(f"[cli] fused_posenet={mode}: one batch of 32 clips {batch_s:.2f} s "
-            f"(batch_dispatch + device_wait_and_collect), main() {seconds:.2f} s in all")
+            f"(batch_dispatch + device_wait_and_collect), main() {seconds:.2f} s in all; "
+            f"PoseNet {'from ' + Path(ckpt).name if ckpt else 'random'}")
 
         with open(pkl, "rb") as f:
             saved = pickle.load(f)
@@ -687,7 +1209,6 @@ def cli_phase(seed: int, work: Path) -> dict:
         if not np.isfinite(metrics["mpjpe_global_mm"]):
             raise AssertionError("non-finite MPJPE")
         out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics}
-    shutil.rmtree(work)
     return {"launches": launches, "runs": out}
 
 
@@ -696,19 +1217,34 @@ def main(argv=None) -> None:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
+    t_start = time.perf_counter()
     device = device_phase()
     build_phase()
     stats = kernel_phase(args.seed)
+    train_kernel_phase(args.seed, stats)
     sl = slice_phase(args.seed, N_INT8, N_BF16)
-    cli = cli_phase(args.seed, Path(".chipscratch") / "cli_smoke")
-    # launches: the slice's and the CLI's main-path runs, each counted from 0
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sl["launches"][name] + cli["launches"][name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-        for name, (_, _, src, rep) in KERNELS.items()
-    ]
+    work = Path(".chipscratch") / "smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    body_path = work / "SMPLX_NEUTRAL.npz"
+    write_smplx_npz(body_path, args.seed)
+    train = train_phase(args.seed, work, body_path)
+    cli = cli_phase(args.seed, work, body_path, train["checkpoint"])
+    shutil.rmtree(work)
+    log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
+    # launches: the slice's, the training runs' and the CLI's main-path
+    # runs, each counted from 0; ms / plain_ms / bound_ms / library_ms are
+    # per layer (summed over the launches one layer makes)
+    kernels = []
+    for name, (_, _, src, rep) in KERNELS.items():
+        st = stats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sl["launches"][name] + train["launches"][name] + cli["launches"][name],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
+            "library_ms": st["library_ms"],
+        })
     unused = [k["name"] for k in kernels if k["launches"] == 0]
     if unused:
         raise AssertionError(f"kernels never launched by the main path: {unused}")

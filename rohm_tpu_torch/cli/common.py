@@ -78,14 +78,25 @@ def build_trajnet(args, traj_feat_dim: int, trajcontrol: bool = False) -> TrajNe
     )
 
 
-def build_posenet(args) -> PoseNet:
-    """Reference train_posenet.py:116-128: latent 512, ff 1024, 8 layers, 4 heads."""
-    return PoseNet(
-        latent_dim=getattr(args, "latent_dim", None) or 512,
-        ff_size=1024,
-        num_layers=8,
-        num_heads=4,
-    )
+def build_posenet(args, seed: int | None = None) -> PoseNet:
+    """Reference train_posenet.py:116-128: latent 512, ff 1024, 8 layers,
+    4 heads, dropout 0.1 (train mode only). With `seed`, the random init
+    is drawn from a generator seeded with it (the global one is left as it
+    was); without, from the global generator."""
+    def make():
+        return PoseNet(
+            latent_dim=getattr(args, "latent_dim", None) or 512,
+            ff_size=1024,
+            num_layers=8,
+            num_heads=4,
+            dropout=0.1,
+        )
+
+    if seed is None:
+        return make()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return make()
 
 
 def load_pretrained(model: torch.nn.Module, path: str) -> None:

@@ -1,8 +1,9 @@
-"""DDPM posterior math (x0-prediction, FIXED_SMALL variance).
+"""DDPM core math (x0-prediction, FIXED_SMALL variance).
 
-The port of rohm_tpu/diffusion/gaussian.py's sampling half. Inside the
-sampling loop `t` is one Python int for the whole batch, as in the
-reference loop (gaussian_diffusion_trajnet.py:611-612).
+The port of rohm_tpu/diffusion/gaussian.py: forward noising for training
+(`q_sample`, `t` a per-sample [B] tensor) and the posterior the sampling
+loop uses (`t` one Python int for the whole batch, as in the reference loop
+gaussian_diffusion_trajnet.py:611-612).
 """
 
 from __future__ import annotations
@@ -10,6 +11,18 @@ from __future__ import annotations
 import torch
 
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
+
+
+def q_sample(
+    sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor
+) -> torch.Tensor:
+    """Sample q(x_t | x_0) for per-sample timesteps t [B] (reference
+    gaussian_diffusion_trajnet.py:192-210)."""
+    shape = t.shape + (1,) * (x_start.dim() - t.dim())
+    return (
+        sched.sqrt_alphas_cumprod[t].reshape(shape) * x_start
+        + sched.sqrt_one_minus_alphas_cumprod[t].reshape(shape) * noise
+    )
 
 
 def q_posterior_mean(

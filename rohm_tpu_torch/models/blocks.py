@@ -140,19 +140,26 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, probs_keep: torch.Tensor | None = None,
+                inv_keep: float = 1.0) -> torch.Tensor:
+        """probs_keep: an optional [B, H, S, S] keep-mask, dropout on the
+        attention probabilities (flax's `dropout_rate`) scaled by inv_keep."""
         b, s, d = x.shape
         h = self.num_heads
         dh = d // h
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
         scores = (q / math.sqrt(dh)) @ k.transpose(-1, -2)
-        attn = torch.softmax(scores, dim=-1) @ v  # [b, h, s, dh]
+        probs = torch.softmax(scores, dim=-1)
+        if probs_keep is not None:
+            probs = probs * (probs_keep.to(probs.dtype) * inv_keep)
+        attn = probs @ v  # [b, h, s, dh]
         return self.out_proj(attn.transpose(1, 2).reshape(b, s, d))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder layer (eps 1e-5, exact-erf gelu), eval mode."""
+    """Post-LN encoder layer (eps 1e-5, exact-erf gelu). `forward` is the
+    eval mode; `forward_train` applies dropout from given keep-masks."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int):
         super().__init__()
@@ -166,3 +173,18 @@ class TransformerEncoderLayer(nn.Module):
         x = self.norm1(x + self.self_attn(x))
         h = self.linear2(F.gelu(self.linear1(x), approximate="none"))
         return self.norm2(x + h)
+
+    def forward_train(self, x: torch.Tensor, masks: tuple, dropout_p: float) -> torch.Tensor:
+        """Train mode with dropout where flax puts it (the attention
+        probabilities, after the out-projection, after the gelu, after the
+        second dense), from int8 keep-masks (probs [B,H,S,S], out [B,S,D],
+        gelu [B,S,F], FF2 [B,S,D]) scaled by 1/(1 - dropout_p)."""
+        mp, mo, mh, mf = masks
+        inv_keep = 1.0 / (1.0 - dropout_p) if dropout_p > 0 else 1.0
+
+        def drop(t, m):
+            return t * (m.to(t.dtype) * inv_keep)
+
+        x = self.norm1(x + drop(self.self_attn(x, mp, inv_keep), mo))
+        h = drop(F.gelu(self.linear1(x), approximate="none"), mh)
+        return self.norm2(x + drop(self.linear2(h), mf))

@@ -10,7 +10,10 @@ The port of rohm_tpu/models/posenet.py (reference model/posenet.py:11-96):
 
 Module names follow the reference state_dict. The PE table is a
 non-persistent buffer, so it is not part of the state_dict.
-Layout: [B, T, 294]; any T. Eval mode only (no dropout).
+Layout: [B, T, 294]; any T. `forward` is the eval mode (no dropout, no
+autograd); `forward_train` is the differentiable train mode, with dropout
+(rate `dropout`) from keep-masks the caller draws
+(ops/transformer_layer_train.py::posenet_dropout_masks).
 """
 
 from __future__ import annotations
@@ -59,9 +62,11 @@ class PoseNet(nn.Module):
         num_layers: int = 8,
         num_heads: int = 4,
         max_len: int = 5000,
+        dropout: float = 0.1,
     ):
         super().__init__()
         self.traj_feat_dim = traj_feat_dim
+        self.dropout = dropout
         self.latent_dim = latent_dim
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -80,15 +85,43 @@ class PoseNet(nn.Module):
         """t [B] int -> [B, latent] (PE lookup -> SiLU MLP)."""
         return self.embed_timestep.time_embed(self.pe[t])
 
-    @torch.no_grad()
-    def forward(self, x_t: torch.Tensor, cond: torch.Tensor, t) -> torch.Tensor:
-        """x_t, cond [B, T, 294]; t [B] or an int timestep -> [B, T, 294]."""
+    def embed_tokens(self, x_t: torch.Tensor, cond: torch.Tensor, t) -> torch.Tensor:
+        """The encoder's input [B, T+1, latent]: the timestep token, then the
+        summed x_t and cond embeddings, plus the positional table."""
         bsz, seq_len, _ = x_t.shape
         t = torch.as_tensor(t, device=x_t.device).expand(bsz)
         emb = self.timestep_token(t)
         h = self.input_process(x_t) + self.input_process_cond(cond)
-        seq = torch.cat([emb[:, None, :], h], dim=1) + self.pe[None, : seq_len + 1, :]
-        for layer in self.seqTransEncoder.layers:
-            seq = layer(seq)
+        return torch.cat([emb[:, None, :], h], dim=1) + self.pe[None, : seq_len + 1, :]
+
+    def output_head(self, seq: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """Drop the timestep token, project to the pose dims and put the
+        condition's trajectory dims in front -> [B, T, 294]."""
         out = self.output_process(seq[:, 1:])
         return torch.cat([cond[..., : self.traj_feat_dim], out], dim=-1)
+
+    @torch.no_grad()
+    def forward(self, x_t: torch.Tensor, cond: torch.Tensor, t) -> torch.Tensor:
+        """x_t, cond [B, T, 294]; t [B] or an int timestep -> [B, T, 294]."""
+        seq = self.embed_tokens(x_t, cond, t)
+        for layer in self.seqTransEncoder.layers:
+            seq = layer(seq)
+        return self.output_head(seq, cond)
+
+    def forward_train(self, x_t: torch.Tensor, cond: torch.Tensor, t: torch.Tensor,
+                      masks: tuple, layer_fn=None) -> torch.Tensor:
+        """Train mode (flax PoseNet.apply(..., train=True)): dropout after
+        the positional encoding and inside every layer. masks: (input
+        keep-mask [B, T+1, latent] bool, or None at dropout 0; one
+        4-tuple of int8 keep-masks per layer). layer_fn(layer, seq,
+        layer_masks, dropout) runs one encoder layer; the default is the
+        layer's own forward_train (ops.posenet_apply_train passes the
+        fused training layer)."""
+        seq = self.embed_tokens(x_t, cond, t)
+        keep, layer_masks = masks
+        if self.dropout > 0:
+            seq = torch.where(keep, seq / (1.0 - self.dropout), 0.0)
+        for layer, m in zip(self.seqTransEncoder.layers, layer_masks):
+            seq = (layer_fn(layer, seq, m, self.dropout) if layer_fn is not None
+                   else layer.forward_train(seq, m, self.dropout))
+        return self.output_head(seq, cond)

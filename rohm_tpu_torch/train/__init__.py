@@ -1,1 +1,1 @@
-"""Evaluation-time mask helpers (the training port comes later)."""
+"""Training: masking curricula, timestep samplers, AdamW state, steps, checkpoints, loops."""

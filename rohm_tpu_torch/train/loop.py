@@ -1,0 +1,184 @@
+"""The PoseNet training loop.
+
+The port of rohm_tpu/train/loop.py (`_CheckpointMixin`, `TrainLoopPoseNet`;
+reference train/training_loop_posenet.py:15-303): the same epochs and
+batches (`batches(seed=epoch)`), the same masking curriculum drawn from the
+same numpy generator, the same epoch gates (PROX masks after
+start_prox_mask_epoch, the skating loss from start_skating_loss_epoch), the
+eval during training every log_interval steps and the checkpoints every
+save_interval steps. Timesteps, noise and dropout masks come from one
+torch.Generator on the training device, seeded like the numpy generator.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
+from rohm_tpu_torch.models.losses import posenet_losses
+from rohm_tpu_torch.train.checkpoint import checkpoint_step, load_checkpoint, save_checkpoint
+from rohm_tpu_torch.train.masking import posenet_eval_cond_mask, posenet_train_cond_mask
+from rohm_tpu_torch.train.state import TrainState, create_train_state
+from rohm_tpu_torch.train.steps import make_posenet_sampler, make_posenet_train_step
+
+logger = logging.getLogger("rohm_tpu_torch.train")
+
+
+def _log_losses(writer, logger_, tag, losses, step, epoch):
+    for key, val in losses.items():
+        v = float(val)
+        if writer is not None:
+            writer.add_scalar(f"{tag}/{key}", v, step)
+        logger_.info(f"[Step {step:d}/ Epoch {epoch:d}] [{tag}]  {key}: {v:.10f}")
+
+
+class _CheckpointMixin:
+    """Save/restore of the train loops (rohm_tpu/train/loop.py:49-82)."""
+
+    last_losses: dict = None  # most recent train-step loss dict (tests/monitoring)
+
+    def save(self) -> str:
+        path = save_checkpoint(
+            self.logdir, self.step, self.state.model,
+            optimizer=self.state.optimizer if self.save_optimizer else None,
+        )
+        self.logger.info("[*] model saved")
+        return path
+
+    def restore(self, ckpt_path: str):
+        """Resume params (+ optimizer state when the file has it) from a
+        model{step:09d}.npz; the step resumes from the file's name."""
+        if load_checkpoint(ckpt_path, self.state.model, self.state.optimizer):
+            self.logger.info("restored params + optimizer state from %s", ckpt_path)
+        else:
+            self.logger.info("restored params (no optimizer state) from %s", ckpt_path)
+        step = checkpoint_step(ckpt_path)
+        if step is not None:
+            self.step = self.state.step = step
+
+
+class TrainLoopPoseNet(_CheckpointMixin):
+    """Reference train/training_loop_posenet.py:15-303."""
+
+    def __init__(
+        self,
+        model,
+        sched_train: DiffusionSchedule,
+        sched_eval: DiffusionSchedule,
+        train_dataset,
+        test_dataset,
+        body_model,
+        loss_weights: dict,
+        logdir: str,
+        device,
+        batch_size: int = 64,
+        lr: float = 1e-4,
+        weight_decay: float = 0.0,
+        num_steps: int = 100,
+        log_interval: int = 100,
+        save_interval: int = 25000,
+        input_noise: bool = True,
+        start_prox_mask_epoch: int = 10**9,
+        start_skating_loss_epoch: int = 0,
+        mask_scheme: str = "lower",
+        prox_mask_bank: np.ndarray | None = None,
+        writer=None,
+        seed: int = 0,
+        run_logger=None,
+        save_optimizer: bool = False,
+        fused_train: str = "",
+    ):
+        self.model = model
+        self.logger = run_logger or logger
+        self.save_optimizer = save_optimizer
+        self.train_dataset = train_dataset
+        self.test_dataset = test_dataset
+        self.batch_size = batch_size
+        self.num_steps = num_steps
+        self.log_interval = log_interval
+        self.save_interval = save_interval
+        self.input_noise = input_noise
+        self.start_prox_mask_epoch = start_prox_mask_epoch
+        self.start_skating_loss_epoch = start_skating_loss_epoch
+        self.mask_scheme = mask_scheme
+        self.prox_mask_bank = prox_mask_bank
+        self.logdir = logdir
+        self.writer = writer
+        self.device = torch.device(device)
+        self.rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        self.state: TrainState = create_train_state(model, lr, weight_decay)
+        mean = torch.as_tensor(train_dataset.mean, device=self.device)
+        std = torch.as_tensor(train_dataset.std, device=self.device)
+        self.train_step = make_posenet_train_step(
+            model, sched_train, mean, std, body_model, loss_weights, fused_train
+        )
+        self.sampler = make_posenet_sampler(model, sched_eval)
+        self.eval_loss_fn = lambda out, clean: posenet_losses(
+            out, clean, mean, std, body_model, loss_weights
+        )
+        self.step = 0
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _make_cond(self, batch, epoch, train=True) -> np.ndarray:
+        """Condition = (noisy|clean) repr x curriculum visibility mask."""
+        cond = (
+            batch["motion_repr_noisy"] if self.input_noise else batch["motion_repr_clean"]
+        ).copy()
+        bs, clip_len = cond.shape[:2]
+        if train:
+            vis = posenet_train_cond_mask(
+                self.rng, bs, clip_len, epoch, self.start_prox_mask_epoch,
+                self.mask_scheme, self.prox_mask_bank, self.input_noise,
+            )
+        else:
+            vis = posenet_eval_cond_mask(self.rng, bs, clip_len, self.input_noise)
+        return cond * vis
+
+    def run_loop(self):
+        # batches() drops a short tail, so a batch_size larger than the
+        # dataset would yield no batch and save an untrained checkpoint
+        assert len(self.train_dataset) >= self.batch_size, (
+            f"batch_size {self.batch_size} exceeds the train dataset "
+            f"({len(self.train_dataset)} clips): the epoch loader would be "
+            "empty and no training would happen"
+        )
+        steps_per_epoch = max(len(self.train_dataset) // self.batch_size, 1)
+        num_epochs = self.num_steps // steps_per_epoch + 1
+        for epoch in range(num_epochs):
+            skating = torch.tensor(float(epoch >= self.start_skating_loss_epoch), device=self.device)
+            for batch in self.train_dataset.batches(self.batch_size, seed=epoch):
+                step_batch = {
+                    "motion_repr_clean": self._to_device(batch["motion_repr_clean"]),
+                    "cond": self._to_device(self._make_cond(batch, epoch, train=True)),
+                }
+                self.state, losses = self.train_step(self.state, step_batch, self.generator, skating)
+                self.last_losses = losses
+                if self.step % self.log_interval == 0 and self.step > 0:
+                    _log_losses(self.writer, self.logger, "train", losses, self.step, epoch)
+                    self._eval(epoch)
+                if self.step % self.save_interval == 0 and self.step > 0:
+                    self.save()
+                self.step += 1
+                if self.step >= self.num_steps:
+                    break
+
+    @torch.no_grad()
+    def _eval(self, epoch):
+        agg, n = None, 0
+        for batch in self.test_dataset.batches(self.batch_size, shuffle=False):
+            cond = self._to_device(self._make_cond(batch, epoch, train=False))
+            out = self.sampler(cond, self.generator)
+            losses = self.eval_loss_fn(out, self._to_device(batch["motion_repr_clean"]))
+            losses = {k: float(v) for k, v in losses.items()}
+            agg = losses if agg is None else {k: agg[k] + losses[k] for k in agg}
+            n += 1
+        if agg:
+            _log_losses(self.writer, self.logger, "eval", {k: v / n for k, v in agg.items()},
+                        self.step, epoch)

@@ -1,11 +1,14 @@
-"""Flax -> PyTorch weight bridge.
+"""Flax <-> PyTorch weight bridge.
 
 Turns the JAX package's flax param trees (nested dicts of numpy arrays, e.g.
 `jax.tree.map(np.asarray, params)`) into state_dicts of the port's modules,
 and a JAX `SmplxModel` into the port's body container. The torch parameter
 names are the reference's state_dict names, i.e. the inverse of
 rohm_tpu/utils/convert_torch_ckpt.py, so flax -> torch -> flax through that
-converter is the identity. Layout rules (flax -> torch):
+converter is the identity. `posenet_flax_params` goes the other way for
+PoseNet (the port's own copy of that converter's `convert_posenet`): the
+port's training checkpoints are flattened flax params, the format the JAX
+package's `load_pretrained` reads. Layout rules (flax -> torch):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel [k, in, out]        -> Conv1d weight [out, in, k]
@@ -154,6 +157,49 @@ def posenet_state_dict(flax_params, num_layers: int | None = None) -> dict:
             out[f"{t}.{torch_name}.weight"] = _dense(p[f"{s}/{flax_name}/kernel"])
             out[f"{t}.{torch_name}.bias"] = _t(p[f"{s}/{flax_name}/bias"])
     return out
+
+
+def posenet_flax_params(state_dict: dict, num_heads: int) -> dict:
+    """Port PoseNet state_dict (or any dict of tensors under its parameter
+    names, e.g. optimizer moments) -> flat flax params, "/"-separated keys
+    under "params/" (numpy float32): the inverse of posenet_state_dict."""
+    src = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, np.float32)
+           for k, v in state_dict.items()}
+
+    def dense(w):  # torch Linear [out, in] -> flax [in, out]
+        return np.ascontiguousarray(w.T)
+
+    flat = {
+        "Dense_0/kernel": dense(src["embed_timestep.time_embed.0.weight"]),
+        "Dense_0/bias": src["embed_timestep.time_embed.0.bias"],
+        "Dense_1/kernel": dense(src["embed_timestep.time_embed.2.weight"]),
+        "Dense_1/bias": src["embed_timestep.time_embed.2.bias"],
+        "input_process/kernel": dense(src["input_process.poseEmbedding.weight"]),
+        "input_process/bias": src["input_process.poseEmbedding.bias"],
+        "input_process_cond/kernel": dense(src["input_process_cond.poseEmbedding.weight"]),
+        "input_process_cond/bias": src["input_process_cond.poseEmbedding.bias"],
+        "output_process/kernel": dense(src["output_process.poseFinal.weight"]),
+        "output_process/bias": src["output_process.poseFinal.bias"],
+    }
+    layers = sorted({int(k.split(".")[2]) for k in src if k.startswith("seqTransEncoder.layers.")})
+    for i in layers:
+        t, s = f"seqTransEncoder.layers.{i}", f"layer_{i}"
+        a = f"{s}/MultiHeadDotProductAttention_0"
+        in_w, in_b = src[f"{t}.self_attn.in_proj_weight"], src[f"{t}.self_attn.in_proj_bias"]
+        d = in_w.shape[1]
+        h, hd = num_heads, d // num_heads
+        for j, name in enumerate(("query", "key", "value")):
+            flat[f"{a}/{name}/kernel"] = dense(in_w[j * d : (j + 1) * d]).reshape(d, h, hd)
+            flat[f"{a}/{name}/bias"] = in_b[j * d : (j + 1) * d].reshape(h, hd)
+        flat[f"{a}/out/kernel"] = dense(src[f"{t}.self_attn.out_proj.weight"]).reshape(h, hd, d)
+        flat[f"{a}/out/bias"] = src[f"{t}.self_attn.out_proj.bias"]
+        for torch_name, flax_name in (("norm1", "LayerNorm_0"), ("norm2", "LayerNorm_1")):
+            flat[f"{s}/{flax_name}/scale"] = src[f"{t}.{torch_name}.weight"]
+            flat[f"{s}/{flax_name}/bias"] = src[f"{t}.{torch_name}.bias"]
+        for torch_name, flax_name in (("linear1", "Dense_0"), ("linear2", "Dense_1")):
+            flat[f"{s}/{flax_name}/kernel"] = dense(src[f"{t}.{torch_name}.weight"])
+            flat[f"{s}/{flax_name}/bias"] = src[f"{t}.{torch_name}.bias"]
+    return {f"params/{k}": v for k, v in flat.items()}
 
 
 def body_model_from_jax(jax_model, device, dtype=torch.float32) -> SmplxModel:

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no file of `rohm_tpu_torch/`, and not
-`chip_smoke.py`, imports jax, flax or the JAX package `rohm_tpu` (an AST scan,
-so a lazy import inside a function counts too)."""
+`chip_smoke.py`, imports jax, flax, optax, orbax or the JAX package
+`rohm_tpu` (an AST scan, so a lazy import inside a function counts too)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "rohm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "rohm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rohm_tpu")
 
 
 def _imported_modules(tree: ast.AST):
@@ -34,6 +34,7 @@ def test_port_imports_no_jax(path):
 
 
 def test_scan_catches_forbidden_imports():
-    src = "import jax.numpy as jnp\nfrom rohm_tpu.ops import x\nfrom rohm_tpu_torch import y\nimport flax\n"
+    src = ("import jax.numpy as jnp\nfrom rohm_tpu.ops import x\nfrom rohm_tpu_torch import y\nimport flax\n"
+           "import optax\nimport orbax.checkpoint as ocp\nimport optree\n")
     mods = [m for _, m in _imported_modules(ast.parse(src))]
-    assert [m for m in mods if _forbidden(m)] == ["jax.numpy", "rohm_tpu.ops", "flax"]
+    assert [m for m in mods if _forbidden(m)] == ["jax.numpy", "rohm_tpu.ops", "flax", "optax", "orbax.checkpoint"]

@@ -262,20 +262,3 @@ def test_non_cpu_tensors_never_fall_back():
         l8.quant_rows_int8(a)
     with pytest.raises(ValueError, match="CUDA"):
         kc.attention_bf16(torch.empty(32, 96, dtype=torch.bfloat16, device="meta"), 16, 2)
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_cuda(layer_setup):
-    """Needs a CUDA device (skips without one): each layer's kernel chain
-    against its plain chain on the card, at D=64 (the kernels' tile widths)."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the kernels run only on the card (see chip_smoke.py)")
-    torch.manual_seed(0)
-    layer = TransformerEncoderLayer(64, 4, 128).cuda()
-    x = torch.randn(2, 144, 64, device="cuda").to(torch.bfloat16)
-    for fn, plain, prep, atol in (
-        (l16.fused_encoder_layer_bf16, l16.fused_encoder_layer_bf16_plain, l16.prepare_layer_bf16(layer), 6e-2),
-        (l8.fused_encoder_layer_int8, l8.fused_encoder_layer_int8_plain, l8.prepare_layer_int8(layer), 0.3),
-    ):
-        err = (fn(x, prep, 4).float() - plain(x, prep, 4).float()).abs()
-        assert err.max().item() < atol

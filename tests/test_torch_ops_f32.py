@@ -4,7 +4,7 @@ mode, on the CPU, where the port's wrappers take their plain versions.
 
 The CUDA kernels (gemm_f32, attention_f32, the two-pass residual_layernorm)
 run only on the card; `python3 chip_smoke.py` holds each against these plain
-versions there, and the `cuda`-marked test here does so at a small size.
+versions there, and tests/test_torch_cuda.py does so at a small size.
 """
 
 import jax
@@ -18,7 +18,6 @@ from test_torch_pipeline import _unflatten
 from rohm_tpu.ops import transformer_layer as j32
 from rohm_tpu.utils.convert_torch_ckpt import convert_posenet
 from rohm_tpu_torch.models import PoseNet
-from rohm_tpu_torch.models.blocks import TransformerEncoderLayer
 from rohm_tpu_torch.ops import kernel_common as kc
 from rohm_tpu_torch.ops import transformer_layer as l32
 
@@ -159,22 +158,3 @@ def test_f32_non_cpu_tensors_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         kc.residual_layernorm(a, a, torch.empty(64, device="meta"), torch.empty(64, device="meta"),
                               True, False, True)
-
-
-@pytest.mark.cuda
-def test_f32_and_int8qa_kernels_match_plain_on_cuda():
-    """Needs a CUDA device (skips without one): the f32 and the int8qa layer
-    chains against their plain chains on the card, at D=64."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the kernels run only on the card (see chip_smoke.py)")
-    from rohm_tpu_torch.ops import transformer_layer_int8 as l8
-
-    torch.manual_seed(0)
-    layer = TransformerEncoderLayer(64, 4, 128).cuda()
-    x = torch.randn(2, 144, 64, device="cuda")
-    err = (l32.fused_encoder_layer(x, layer, 4) - l32.fused_encoder_layer_plain(x, layer, 4)).abs()
-    assert err.max().item() < 2e-4
-    prep = l8.prepare_layer_int8(layer)
-    xb = x.to(torch.bfloat16)
-    got = l8.fused_encoder_layer_int8(xb, prep, 4, qattn=True).float()
-    assert (got - l8.fused_encoder_layer_int8_plain(xb, prep, 4, qattn=True).float()).abs().max().item() < 0.3
