@@ -46,8 +46,21 @@ Phases (each failure ends the run with a non-zero exit code):
      checkpoint phase 6 trained, and one with "int8qa", then
      `eval_amass_full.main` on each pickle. Checks the launch counts, the
      pickle's keys, shapes and finiteness.
+  8. bench: the int8 measurement path at full width. The whole-stack
+     kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
+     random PoseNet(): bit-identical to 8 launches of the K3 chain, within
+     the int8 envelope of its plain version, timed beside the K3 chain and a
+     CUDA graph of it. Then `rohm_tpu_torch.bench.run` (PoseNet 512d x 8,
+     batch 32 x 143, 1000 cosine steps, one warm-up and 3 timed chains) on
+     the per-layer int8 prep and on the `mega` prep with the same seeds:
+     final samples bit-identical, steps/s and the device's busy share over
+     20 steps of each. Then the two probes: the GEMM skeleton (K8) at 4-32
+     sequences and the layer's seven ablations (K9), each call checked
+     against its plain version once, then `main()` of
+     `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
+     Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-7); the last line is {"ok": true, "device": {...}}.
+paths' runs of phases 5-8); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -78,6 +91,8 @@ from rohm_tpu_torch.ops import transformer_layer_train as lt
 from rohm_tpu_torch.pipeline import RohmPipeline, amass_eval_pose_mask, traj_to_pose_bridge
 from rohm_tpu_torch.reprs.encode import get_repr
 from rohm_tpu_torch.reprs.schema import REPR_DIM_DICT, REPR_LIST, TRAJ_ABS_INDEX
+from rohm_tpu_torch.scripts import bench_int8_gemm_rows as k8
+from rohm_tpu_torch.scripts import bench_int8_layer as k9
 
 B, S, D, H, F, LAYERS = 32, 144, 512, 4, 1024, 8
 CLIP_LEN = 145  # frames per clip -> 144 repr frames (TrajNet) -> 143 (PoseNet)
@@ -121,6 +136,22 @@ KERNELS = {  # name -> (wrapper, its launch counter, source, the TPU kernel it r
                             "rohm_tpu/ops/transformer_layer_train.py:181"),
     "colsum": (lt.colsum, "launches", "rohm_tpu_torch/ops/csrc/colsum.cu",
                "rohm_tpu/ops/transformer_layer_train.py:181"),
+    # the int8 measurement path: K5, the whole stack in one launch; the K8
+    # skeleton and the K9 variants, each a chain of the K3 kernels (one
+    # count per call on the card), with the two modes K9 adds to them
+    "encoder_stack_int8": (l8.fused_encoder_stack_int8, "launches",
+                           "rohm_tpu_torch/ops/csrc/encoder_stack_int8.cu",
+                           "rohm_tpu/ops/transformer_layer_int8.py:151"),
+    "gemm_skeleton": (k8.gemm_skeleton, "launches", "rohm_tpu_torch/scripts/bench_int8_gemm_rows.py",
+                      "scripts/bench_int8_gemm_rows.py:45"),
+    "int8_layer_variant": (k9.int8_layer_variant, "launches", "rohm_tpu_torch/scripts/bench_int8_layer.py",
+                           "scripts/bench_int8_layer.py:28"),
+    "quant_rows_int8 fixed-scale": (l8.quant_rows_int8, "fixed_launches",
+                                    "rohm_tpu_torch/ops/csrc/quant_rows_int8.cu",
+                                    "scripts/bench_int8_layer.py:28"),
+    "attention_bf16 no-softmax": (kc.attention_bf16, "no_softmax_launches",
+                                  "rohm_tpu_torch/ops/csrc/attention_bf16.cu",
+                                  "scripts/bench_int8_layer.py:28"),
 }
 BF16_ULP = 2.0 ** -7  # bf16 spacing relative to |x| is at most 2^-7
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the bound
@@ -221,11 +252,15 @@ def _time(name: str, kernel_fn, plain_fn, stats: dict, kernel: str, ops: float, 
           kind: str | None, library_fn=None, tag: str = "kernels", rows: tuple = ()) -> None:
     """Median times of the kernel, its plain version and (where one exists)
     one library call for the same function; the bound from `ops`
-    operations of type `kind` and `moved` bytes. Each adds to the kernel's
-    per-layer sums, and to those of the TPU kernels named in `rows`."""
+    operations of type `kind` (or `ops` a dict type -> operations, `kind`
+    None) and `moved` bytes. Each adds to the kernel's per-layer sums, and
+    to those of the TPU kernels named in `rows`."""
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
     lib_ms = median_ms(library_fn) if library_fn is not None else None
-    ops_ms = ops / PEAK_OPS[kind] * 1e3 if kind else 0.0
+    if isinstance(ops, dict):
+        ops_ms = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
+    else:
+        ops_ms = ops / PEAK_OPS[kind] * 1e3 if kind else 0.0
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
     log(f"[{tag}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
@@ -792,18 +827,20 @@ def make_batch(body, rng: np.random.Generator):
     return encode(body, clean), encode(body, noisy)
 
 
+PER_LAYER_LAUNCHES = {  # fused_posenet mode -> kernel -> launches per layer
+    "bf16": {"gemm_bf16": 4, "attention_bf16": 1, "residual_layernorm": 2},
+    "int8": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_bf16": 1, "residual_layernorm": 2},
+    "int8qa": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_int8": 1, "residual_layernorm": 2},
+    "f32": {"gemm_f32": 4, "attention_f32": 1, "residual_layernorm two-pass": 2},
+}
+
+
 def expected_launches(batches: dict) -> dict:
     """Launches per kernel for full batches in each fused_posenet mode:
     2 iterations x 1000 PoseNet steps x 8 layers, each layer's chain."""
-    per_layer = {  # mode -> kernel -> launches per layer
-        "bf16": {"gemm_bf16": 4, "attention_bf16": 1, "residual_layernorm": 2},
-        "int8": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_bf16": 1, "residual_layernorm": 2},
-        "int8qa": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_int8": 1, "residual_layernorm": 2},
-        "f32": {"gemm_f32": 4, "attention_f32": 1, "residual_layernorm two-pass": 2},
-    }
     out = dict.fromkeys(KERNELS, 0)
     for mode, n in batches.items():
-        for name, k in per_layer[mode].items():
+        for name, k in PER_LAYER_LAUNCHES[mode].items():
             out[name] += k * 2 * 1000 * LAYERS * n
     return out
 
@@ -1212,6 +1249,233 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str) -> dict
     return {"launches": launches, "runs": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the int8 measurement path (K5, the bench chain, K8, K9)
+# ---------------------------------------------------------------------------
+
+BENCH_CHAINS = 4  # rohm_tpu_torch.bench.run: one warm-up and 3 timed chains
+
+
+def _envelope(name: str, got, ref, atol: float, mean_tol: float, why: str, stats: dict, kernel: str) -> None:
+    """max and mean |got - ref| within a layer's envelope."""
+    err = (got.float() - ref.float()).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    ok = max_err <= atol and mean_err <= mean_tol
+    log(f"[bench] {name}: max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} "
+        f"({'ok' if ok else 'FAIL'}: max {atol}, mean {mean_tol}; {why})")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], max_err)
+
+
+def _check_launches(what: str, counts: dict, expected: dict) -> None:
+    log(f"[bench] {what}: launches {counts}; expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"{what} did not go through its kernels as the chain implies")
+
+
+def probe_launches(calls: int, k8_groups: int = 0, k9_variants: tuple = ()) -> dict:
+    """Launches of `calls` calls of the K8 skeleton at each of `k8_groups`
+    sizes, or of each K9 variant (its switches) in `k9_variants`."""
+    out = dict.fromkeys(KERNELS, 0)
+    per_call = []
+    if k8_groups:
+        per_call += [{"gemm_skeleton": 1, "quant_rows_int8": 4, "gemm_int8": 4}] * k8_groups
+    for kw in k9_variants:
+        one = {"int8_layer_variant": 1, "gemm_int8": 4, "residual_layernorm": 2,
+               "quant_rows_int8 fixed-scale" if kw.get("fixed_quant") else "quant_rows_int8": 4}
+        if not kw.get("no_attn"):
+            one["attention_bf16 no-softmax" if kw.get("no_softmax") else "attention_bf16"] = 1
+        per_call.append(one)
+    for one in per_call:
+        for name, k in one.items():
+            out[name] += k * calls
+    return out
+
+
+def no_softmax_gate(qkv: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Per output element of attention_bf16(no_softmax=True): a prob
+    bf16(score * 0.01) whose f32 score was summed in another order may
+    flip one bf16 rounding (<= 2^-8 |p|), which moves the output by <=
+    2^-8 sum_j |p_j| |v_j|; plus one bf16 ulp of the output's rounding."""
+    rows, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (t.reshape(rows // seq_len, seq_len, H, d // H).transpose(1, 2).float() for t in qkv.split(d, -1))
+    p = ((q @ k.transpose(-1, -2)) * 0.01).to(torch.bfloat16).float().abs()
+    pv = (p @ v.abs()).transpose(1, 2).reshape(rows, d)
+    ref = kc.attention_bf16_plain(qkv, seq_len, H, no_softmax=True).float().abs()
+    return 2.0 ** -8 * pv + BF16_ULP * ref + 1e-6
+
+
+def bench_phase(seed: int, stats: dict) -> dict:
+    from rohm_tpu_torch import bench
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = B * S
+    launches = dict.fromkeys(KERNELS, 0)
+    mega = functools.partial(l8.prepare_posenet_int8, mega=True)
+
+    # K5: the whole stack in one launch, against 8 launches of the K3 chain
+    # (bit for bit: the same device routines) and the plain stack
+    torch.manual_seed(seed)
+    stacked = mega(PoseNet().to(dev))["layers_stacked"]
+    layers = [tuple(t[i] for t in stacked) for i in range(LAYERS)]
+    x = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
+
+    def k3_chain(xx):
+        for prep in layers:
+            xx = l8.fused_encoder_layer_int8(xx, prep, H)
+        return xx
+
+    got, k3 = l8.fused_encoder_stack_int8(x, stacked, H), k3_chain(x)
+    per_sm, sms = l8.stack_grid(S, D // H)
+    same = torch.equal(got, k3)
+    log(f"[bench] encoder_stack_int8, one cooperative launch of {per_sm} x {sms} blocks of 256 threads for "
+        f"8 layers, against 8 launches of the K3 chain: {'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the stack kernel is not bit-identical to the K3 chain")
+    # a layer's kernels vs its plain chain flip a few int8 codes and bf16
+    # roundings (phase 3); over 8 layers they propagate, so the gate is the
+    # int8 layer's own envelope against flax (tests/test_ops.py)
+    _envelope("encoder_stack_int8 [32,144,512] x 8 layers vs the plain stack", got,
+              l8.fused_encoder_stack_int8_plain(x, stacked, H), 0.3, 5e-2,
+              "the int8 layer's envelope, held over 8 layers", stats, "encoder_stack_int8")
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k3_chain(static)  # warm-up before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        graph_out = k3_chain(static)
+    graph.replay()
+    if not torch.equal(graph_out, k3):
+        raise AssertionError("the CUDA graph of the K3 chain does not replay the chain")
+    int8_ops = LAYERS * 2 * r * (D * 3 * D + D * D + 2 * D * F)
+    _time("encoder_stack_int8 (8 layers)", lambda: l8.fused_encoder_stack_int8(x, stacked, H),
+          lambda: l8.fused_encoder_stack_int8_plain(x, stacked, H), stats, "encoder_stack_int8",
+          {"int8": int8_ops, "bf16": LAYERS * 4 * r * S * D}, nbytes(x, got, *stacked), None, tag="bench")
+    chain_ms, graph_ms = median_ms(lambda: k3_chain(x)), median_ms(graph.replay)
+    log(f"[bench] the same 8 layers as 88 launches of the K3 chain: {chain_ms:.4f} ms; as one CUDA graph of "
+        f"that chain: {graph_ms:.4f} ms (median of 20)")
+    del graph, graph_out
+    # where the stack's time goes: the global timer at each grid barrier,
+    # beside the K3 chain's kernels under the profiler
+    stamps = torch.zeros(2 + 9 * LAYERS, dtype=torch.int64, device=dev)
+    l8.fused_encoder_stack_int8(x, stacked, H, phase_ns=stamps)
+    gaps = (stamps[1:] - stamps[:-1]).tolist()
+    phases = {name: sum(gaps[1 + 9 * i + j] for i in range(LAYERS)) / 1e3 for j, name in enumerate(l8.STACK_PHASES)}
+    log(f"[bench] encoder_stack_int8 phases, us summed over the 8 layers (one launch): quant x {gaps[0] / 1e3:.1f}, "
+        + ", ".join(f"{name} {us:.1f}" for name, us in phases.items()) + f"; total {sum(gaps) / 1e3:.1f}")
+    device_busy(lambda: k3_chain(x), 5, "the K3 chain, 8 layers", "bench")
+    out = {"stack": {"blocks_per_sm": per_sm, "sms": sms, "ms": stats["encoder_stack_int8"]["ms"],
+                     "k3_chain_ms": chain_ms, "k3_graph_ms": graph_ms, "phases_us": phases}}
+
+    # the bench chain (rohm_tpu_torch.bench, the port of root bench.py) on
+    # the per-layer prep, then on the mega prep with the same seeds
+    results = {}
+    for name, prepare, expected in (
+        ("int8 per layer", l8.prepare_posenet_int8,
+         {k: v * BENCH_CHAINS * bench.STEPS * LAYERS for k, v in PER_LAYER_LAUNCHES["int8"].items()}),
+        ("int8 mega", mega, {"encoder_stack_int8": BENCH_CHAINS * bench.STEPS}),
+    ):
+        reset_launches()
+        res = bench.run(device=dev, prepare=prepare, seed=seed)
+        counts = read_launches()
+        _check_launches(f"bench chain, {name}", counts, {**dict.fromkeys(KERNELS, 0), **expected})
+        for k in launches:
+            launches[k] += counts[k]
+        sample = res.pop("sample")
+        if tuple(sample.shape) != (bench.BATCH, bench.T, 294) or not torch.isfinite(sample).all():
+            raise AssertionError(f"bench chain {name}: bad final sample")
+        results[name] = (res, sample)
+        log(f"[bench] {name}: {json.dumps(res)}")
+    same = torch.equal(results["int8 per layer"][1], results["int8 mega"][1])
+    log(f"[bench] final samples of the two chains (generator seed 4): {'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the mega chain's samples differ from the per-layer chain's")
+    busy = {}
+    for name, prepare in (("int8 per layer", l8.prepare_posenet_int8), ("int8 mega", mega)):
+        torch.manual_seed(seed)
+        sample20 = bench.make_chain(PoseNet(), prepare, bench.BATCH, bench.T, 20, dev)
+
+        def chain20(sample20=sample20):
+            return sample20(torch.Generator(device=dev).manual_seed(5))
+
+        chain20()
+        busy[name] = device_busy(chain20, 1, f"bench chain {name}, 20 steps", "bench")
+    out["bench"] = {name: {**res, "busy": busy[name]} for name, (res, _) in results.items()}
+
+    # K8: the GEMM skeleton at each size against its plain version, then the probe
+    macs = D * 3 * D + D * D + 2 * D * F
+    for group in k8.GROUPS:
+        w, xg = k8.build(group, dev)
+        got, ref = k8.gemm_skeleton(xg, w), k8.gemm_skeleton_plain(xg, w)
+        _check(f"gemm_skeleton group {group} [{group * S} rows]", got, ref, BF16_ULP * ref.float().abs(),
+               "int8 codes and int32 sums exact: equal, or one bf16 ulp", stats, "gemm_skeleton")
+        _time(f"gemm_skeleton group {group}", lambda: k8.gemm_skeleton(xg, w),
+              lambda: k8.gemm_skeleton_plain(xg, w), stats, "gemm_skeleton", 2 * group * S * macs,
+              nbytes(xg, *w, got), "int8", tag="bench")
+    qkv = torch.randn(r, 3 * D, generator=g, device=dev).to(torch.bfloat16)
+    (q, sc), (q_ref, sc_ref) = l8.quant_rows_int8(qkv[:, :D]), l8.quant_rows_int8_plain(qkv[:, :D])
+    _check("quant_rows_int8 of the q third of a QKV buffer, read in place (row stride 1536): codes", q, q_ref, 0.0,
+           "exact", stats, "quant_rows_int8")
+    _check("quant_rows_int8 of the q third, in place: scales", sc, sc_ref, 0.0, "exact", stats, "quant_rows_int8")
+    reset_launches()
+    out["k8"] = k8.main([])
+    counts = read_launches()
+    probe_calls = k8.ITERS + 2 + k8.GRAPH_CALLS  # warm-ups, the chain from Python, the captured chain
+    _check_launches("scripts.bench_int8_gemm_rows.main()", counts, probe_launches(probe_calls, len(k8.GROUPS)))
+    for k in launches:
+        launches[k] += counts[k]
+
+    # K9: each variant against its plain version, the two modes it adds,
+    # then the probe
+    prepared, x9 = k9.build(dev)
+    r9 = k9.G * k9.S
+    for name, kw in k9.VARIANTS:
+        got = k9.int8_layer_variant(x9, prepared, **kw)
+        ref = k9.int8_layer_variant_plain(x9, prepared, **kw)
+        _envelope(f"int8_layer_variant {name} [8,144,512]", got, ref, 0.3, 5e-2,
+                  "the int8 layer's gate (phase 3)", stats, "int8_layer_variant")
+        ops = {"int8": 2 * r9 * macs, **({} if kw.get("no_attn") else {"bf16": 4 * r9 * S * D})}
+        _time(f"int8_layer_variant {name}", lambda: k9.int8_layer_variant(x9, prepared, **kw),
+              lambda: k9.int8_layer_variant_plain(x9, prepared, **kw), stats, "int8_layer_variant", ops,
+              nbytes(x9, got, *prepared), None, tag="bench")
+    x92 = x9.reshape(r9, D)
+    qkv9 = l8.gemm_int8(*l8.quant_rows_int8(x92), *prepared[:3], "bf16")
+    for name, a in (("x bf16 [1152,512]", x92), ("attn bf16 [1152,512]", qkv9[:, 2 * D:].contiguous()),
+                    ("y f32 [1152,512]", torch.randn(r9, D, generator=g, device=dev)),
+                    ("h1 f32 [1152,1024]", torch.randn(r9, F, generator=g, device=dev))):
+        (q, sc), (q_ref, sc_ref) = l8.quant_rows_int8(a, k9.FIXED_SCALE), l8.quant_rows_int8_plain(a, k9.FIXED_SCALE)
+        _check(f"quant_rows_int8 fixed-scale {name} codes", q, q_ref, 0.0, "exact: the same product and rint",
+               stats, "quant_rows_int8 fixed-scale")
+        _check(f"quant_rows_int8 fixed-scale {name} scales", sc, sc_ref, 0.0, "exact", stats,
+               "quant_rows_int8 fixed-scale")
+        _time(f"quant_rows_int8 fixed-scale {name}", lambda: l8.quant_rows_int8(a, k9.FIXED_SCALE),
+              lambda: l8.quant_rows_int8_plain(a, k9.FIXED_SCALE), stats, "quant_rows_int8 fixed-scale", 0,
+              nbytes(a, q, sc), None, tag="bench")
+    got, ref = kc.attention_bf16(qkv9, S, H, True), kc.attention_bf16_plain(qkv9, S, H, True)
+    _check("attention_bf16 no-softmax [8 seq x 4 heads, S=144, dh=128]", got, ref, no_softmax_gate(qkv9, S),
+           "one bf16 flip per prob (2^-8 sum|p||v|) + one bf16 ulp of the output", stats,
+           "attention_bf16 no-softmax")
+    _time("attention_bf16 no-softmax", lambda: kc.attention_bf16(qkv9, S, H, True),
+          lambda: kc.attention_bf16_plain(qkv9, S, H, True), stats, "attention_bf16 no-softmax",
+          4 * r9 * S * D, nbytes(qkv9, got), "bf16", tag="bench")
+    reset_launches()
+    out["k9"] = k9.main([])
+    counts = read_launches()
+    _check_launches("scripts.bench_int8_layer.main()", counts,
+                    probe_launches(k9.ITERS + 2 + k8.GRAPH_CALLS, k9_variants=tuple(kw for _, kw in k9.VARIANTS)))
+    for k in launches:
+        launches[k] += counts[k]
+    torch.cuda.synchronize()
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -1231,16 +1495,19 @@ def main(argv=None) -> None:
     train = train_phase(args.seed, work, body_path)
     cli = cli_phase(args.seed, work, body_path, train["checkpoint"])
     shutil.rmtree(work)
+    bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
-    # launches: the slice's, the training runs' and the CLI's main-path
-    # runs, each counted from 0; ms / plain_ms / bound_ms / library_ms are
-    # per layer (summed over the launches one layer makes)
+    # launches: the slice's, the training runs', the CLI's and the bench
+    # phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
+    # / library_ms are per layer (summed over the launches one layer
+    # makes), per 8-layer forward for encoder_stack_int8, and summed over
+    # the probe's sizes or variants for gemm_skeleton and int8_layer_variant
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():
         st = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sl["launches"][name] + train["launches"][name] + cli["launches"][name],
+            "launches": sum(ph["launches"][name] for ph in (sl, train, cli, bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
             "library_ms": st["library_ms"],

@@ -10,45 +10,25 @@
 // The layer input `a` is bf16 for the first residual and f32 for the
 // second; the first LN's f32 output is kept in device memory for the second
 // residual while the next GEMM reads its bf16 image.
-// Bound: memory traffic (one 512-wide row per block, ~6 bytes read and 2-6
-// written per element); a later PR fuses it into the GEMM epilogue.
-#include "common.cuh"
+// Bound: memory traffic (one 512-wide row per 128-thread block, ~6 bytes
+// read and 2-6 written per element); a later PR fuses it into the GEMM
+// epilogue. The row itself is `rohm::residual_layernorm_row`
+// (layer_routines.cuh), which the whole-stack kernel runs too.
+#include "layer_routines.cuh"
 
 namespace {
 
 template <typename TA, bool TWO_PASS>
-__global__ void residual_layernorm_kernel(const TA* __restrict__ a, const float* __restrict__ b,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ bias,
-                                          float* __restrict__ out_f32,
-                                          __nv_bfloat16* __restrict__ out_bf16, int D, float eps) {
+__global__ void __launch_bounds__(rohm::GROUP) residual_layernorm_kernel(
+    const TA* __restrict__ a, const float* __restrict__ b, const float* __restrict__ scale,
+    const float* __restrict__ bias, float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
+    int D, float eps) {
   __shared__ float scratch[32];
   const size_t row = (size_t)blockIdx.x * D;
-  float s = 0.0f, ss = 0.0f;
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float y = rohm::to_f32(a[row + c]) + b[row + c];
-    s += y;
-    ss += y * y;
-  }
-  const float mu = rohm::block_sum(s, scratch) / D;
-  float var;
-  if (TWO_PASS) {
-    float sd = 0.0f;
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      const float y = rohm::to_f32(a[row + c]) + b[row + c] - mu;
-      sd += y * y;
-    }
-    var = rohm::block_sum(sd, scratch) / D;
-  } else {
-    var = rohm::block_sum(ss, scratch) / D - mu * mu;
-  }
-  const float inv = rsqrtf(var + eps);
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float y = rohm::to_f32(a[row + c]) + b[row + c];
-    const float o = (y - mu) * inv * scale[c] + bias[c];
-    if (out_f32) out_f32[row + c] = o;
-    if (out_bf16) out_bf16[row + c] = __float2bfloat16_rn(o);
-  }
+  rohm::residual_layernorm_row<TA, TWO_PASS>(a + row, b + row, scale, bias,
+                                             out_f32 ? out_f32 + row : nullptr,
+                                             out_bf16 ? out_bf16 + row : nullptr, D, eps, threadIdx.x,
+                                             rohm::GROUP, 0, scratch);
 }
 
 }  // namespace
@@ -66,13 +46,14 @@ extern "C" int rt_residual_layernorm(const void* a, int a_is_bf16, const void* b
   auto* ob = static_cast<__nv_bfloat16*>(out_bf16);
   const auto* a16 = static_cast<const __nv_bfloat16*>(a);
   const auto* a32 = static_cast<const float*>(a);
+  constexpr int T = rohm::GROUP;
   if (a_is_bf16 && two_pass)
-    residual_layernorm_kernel<__nv_bfloat16, true><<<R, 128, 0, s>>>(a16, bb, sc, bi, of, ob, D, eps);
+    residual_layernorm_kernel<__nv_bfloat16, true><<<R, T, 0, s>>>(a16, bb, sc, bi, of, ob, D, eps);
   else if (a_is_bf16)
-    residual_layernorm_kernel<__nv_bfloat16, false><<<R, 128, 0, s>>>(a16, bb, sc, bi, of, ob, D, eps);
+    residual_layernorm_kernel<__nv_bfloat16, false><<<R, T, 0, s>>>(a16, bb, sc, bi, of, ob, D, eps);
   else if (two_pass)
-    residual_layernorm_kernel<float, true><<<R, 128, 0, s>>>(a32, bb, sc, bi, of, ob, D, eps);
+    residual_layernorm_kernel<float, true><<<R, T, 0, s>>>(a32, bb, sc, bi, of, ob, D, eps);
   else
-    residual_layernorm_kernel<float, false><<<R, 128, 0, s>>>(a32, bb, sc, bi, of, ob, D, eps);
+    residual_layernorm_kernel<float, false><<<R, T, 0, s>>>(a32, bb, sc, bi, of, ob, D, eps);
   return (int)cudaGetLastError();
 }

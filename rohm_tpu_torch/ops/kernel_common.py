@@ -8,7 +8,8 @@ variance).
 Each wrapper has its plain PyTorch version beside it (`*_plain`), which it
 takes only for a CPU tensor; on a CUDA tensor it launches the kernel, and
 counts the launch in its `launches` attribute (`residual_layernorm` counts
-its two-pass launches apart, in `two_pass_launches`).
+its two-pass launches apart, in `two_pass_launches`, and `attention_bf16`
+its no-softmax launches, in `no_softmax_launches`).
 """
 
 from __future__ import annotations
@@ -44,10 +45,12 @@ def post_ln(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def attention_bf16_plain(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Tensor:
+def attention_bf16_plain(qkv: torch.Tensor, seq_len: int, num_heads: int,
+                         no_softmax: bool = False) -> torch.Tensor:
     """qkv [B*S, 3D] bf16 -> [B*S, D] bf16: per (sequence, head), f32 scores
     of bf16 operands, f32 softmax, bf16 probs, f32 P.V rounded to bf16. The
-    1/sqrt(dh) scale is already folded into Q."""
+    1/sqrt(dh) scale is already folded into Q. With `no_softmax` the probs
+    are bf16(scores * 0.01) (the ablation of scripts/bench_int8_layer.py)."""
     rows, d3 = qkv.shape
     d = d3 // 3
     dh = d // num_heads
@@ -55,21 +58,28 @@ def attention_bf16_plain(qkv: torch.Tensor, seq_len: int, num_heads: int) -> tor
         t.reshape(rows // seq_len, seq_len, num_heads, dh).transpose(1, 2).float()
         for t in qkv.split(d, dim=-1)
     )
-    probs = torch.softmax(q @ k.transpose(-1, -2), dim=-1).to(torch.bfloat16)
+    scores = q @ k.transpose(-1, -2)
+    if no_softmax:
+        probs = (scores * 0.01).to(torch.bfloat16)  # f32 product, as the kernel's
+    else:
+        probs = torch.softmax(scores, dim=-1).to(torch.bfloat16)
     out = (probs.float() @ v).to(torch.bfloat16)  # [B, H, S, dh]
     return out.transpose(1, 2).reshape(rows, d)
 
 
-def attention_bf16(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Tensor:
+def attention_bf16(qkv: torch.Tensor, seq_len: int, num_heads: int,
+                   no_softmax: bool = False) -> torch.Tensor:
     """Self-attention of every (sequence, head) read in place from the fused
-    QKV buffer [B*S, 3D] bf16 -> [B*S, D] bf16.
+    QKV buffer [B*S, 3D] bf16 -> [B*S, D] bf16; `no_softmax` takes
+    bf16(scores * 0.01) for the probs (counted in `no_softmax_launches`).
 
     Replaces kernel_common.attention_bf16 inside the TPU kernels
-    _layer_kernel_bf16 and _layer_kernel_int8. CUDA: csrc/attention_bf16.cu,
+    _layer_kernel_bf16 and _layer_kernel_int8 (and the attention of
+    scripts/bench_int8_layer.py::make_kernel). CUDA: csrc/attention_bf16.cu,
     one block per (16 queries, sequence, head) with the sequence's K and V
     in shared memory; latency-bound at S=144."""
     if qkv.device.type == "cpu":
-        return attention_bf16_plain(qkv, seq_len, num_heads)
+        return attention_bf16_plain(qkv, seq_len, num_heads, no_softmax)
     check_cuda(qkv, torch.bfloat16, 2, "qkv")
     rows, d3 = qkv.shape
     d = d3 // 3
@@ -77,12 +87,16 @@ def attention_bf16(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Ten
         raise ValueError(f"attention_bf16: bad shape {tuple(qkv.shape)} for S={seq_len}, H={num_heads}")
     out = torch.empty(rows, d, dtype=torch.bfloat16, device=qkv.device)
     launch("rt_attention_bf16", ptr(qkv), ptr(out), rows // seq_len, seq_len, num_heads,
-           d // num_heads, stream())
-    attention_bf16.launches += 1
+           d // num_heads, int(no_softmax), stream())
+    if no_softmax:
+        attention_bf16.no_softmax_launches += 1
+    else:
+        attention_bf16.launches += 1
     return out
 
 
-attention_bf16.launches = 0
+attention_bf16.launches = 0  # softmax launches
+attention_bf16.no_softmax_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -141,15 +141,16 @@ def posenet_apply_prepared(
     prep: dict, x_t: torch.Tensor, cond: torch.Tensor, t, num_heads: int = 4,
     traj_feat_dim: int = 22, cond_emb: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """PoseNet forward on a prepared dict: bf16 or int8 layers under
-    "layers" (by the tuple's length, 12 or 16), int8 layers with quantized
-    attention under "layers_qattn" (rohm_tpu/ops/transformer_layer_bf16.py
-    dispatches the same way).
+    """PoseNet forward on a prepared dict: the stacked int8 layers under
+    "layers_stacked" (the whole-stack kernel, one launch), int8 layers with
+    quantized attention under "layers_qattn", bf16 or int8 layers under
+    "layers" (by the tuple's length, 12 or 16), looked up in that order
+    (rohm_tpu/ops/transformer_layer_bf16.py dispatches the same way).
 
     x_t/cond [B, T, 294] -> [B, T, 294] with the cond's traj dims passed
     through. Pass `cond_emb=embed_cond(prep, cond)` inside a sampling loop.
     """
-    from rohm_tpu_torch.ops.transformer_layer_int8 import fused_encoder_layer_int8
+    from rohm_tpu_torch.ops import transformer_layer_int8 as l8
 
     bsz, seq_len, _ = x_t.shape
     t = torch.as_tensor(t, device=x_t.device).expand(bsz)
@@ -162,12 +163,14 @@ def posenet_apply_prepared(
     seq = torch.cat([emb[:, None, :], h], dim=1)
     seq = (seq + pe[None, : seq_len + 1, :]).to(torch.bfloat16)
 
-    if "layers_qattn" in prep:
+    if "layers_stacked" in prep:
+        seq = l8.fused_encoder_stack_int8(seq, prep["layers_stacked"], num_heads)
+    elif "layers_qattn" in prep:
         for layer in prep["layers_qattn"]:
-            seq = fused_encoder_layer_int8(seq, layer, num_heads, qattn=True)
+            seq = l8.fused_encoder_layer_int8(seq, layer, num_heads, qattn=True)
     else:
         layers = prep["layers"]
-        layer_fn = fused_encoder_layer_int8 if len(layers[0]) == 16 else fused_encoder_layer_bf16
+        layer_fn = l8.fused_encoder_layer_int8 if len(layers[0]) == 16 else fused_encoder_layer_bf16
         for layer in layers:
             seq = layer_fn(seq, layer, num_heads)
 

@@ -20,16 +20,30 @@ CUDA kernels:
 
 With qattn=True ("int8qa") `attention_int8` (csrc/attention_int8.cu) takes
 the place of attention_bf16: both attention products on int8 codes.
-`quant_rows_int8` (csrc/quant_rows_int8.cu), `gemm_int8` (csrc/gemm_int8.cu)
-and `attention_int8` live here.
+
+The whole stack of L such layers also runs as one launch,
+`fused_encoder_stack_int8` (csrc/encoder_stack_int8.cu; replaces
+_mega_kernel_int8): a persistent cooperative kernel whose phases are the
+chain above, separated by grid-wide barriers, with the intermediates in a
+workspace that stays largely in L2. Its phases run the same device
+routines as the per-layer kernels (csrc/layer_routines.cuh), so its output
+is bit-identical to L launches of the chain. `prepare_posenet_int8(mega=True)`
+files the layers under "layers_stacked" (16 tensors with a leading [L]
+dim), which selects it in posenet_apply_prepared.
+
+`quant_rows_int8` (csrc/quant_rows_int8.cu), `gemm_int8` (csrc/gemm_int8.cu),
+`attention_int8` and the stack kernel live here.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from rohm_tpu_torch.ops._build import check_cuda, launch, ptr, stream
 from rohm_tpu_torch.ops.kernel_common import (
+    LN_EPS,
     attention_bf16,
     attention_bf16_plain,
     fuse_qkv,
@@ -53,32 +67,51 @@ def _quant(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
     return q, (amax * (1.0 / 127.0)).squeeze(dim)
 
 
-def quant_rows_int8_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[R, C] bf16/f32 -> (int8 [R, C], f32 row scales [R])."""
-    return _quant(x, -1)
+def quant_rows_int8_plain(x: torch.Tensor, fixed_scale: float | None = None):
+    """[R, C] bf16/f32 -> (int8 [R, C], f32 row scales [R]); with
+    `fixed_scale`, codes clip(rint(x / fixed_scale)) and that scale on
+    every row (the fixed_quant ablation of scripts/bench_int8_layer.py)."""
+    if fixed_scale is None:
+        return _quant(x, -1)
+    inv = 1.0 / fixed_scale
+    q = torch.clamp(torch.round(x.float() * inv), -127.0, 127.0).to(torch.int8)
+    return q, torch.full((x.shape[0],), fixed_scale, dtype=torch.float32, device=x.device)
 
 
-def quant_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quant_rows_int8(x: torch.Tensor, fixed_scale: float | None = None):
     """Per-row int8 quantization of an activation [R, C] (bf16 or f32) ->
-    (int8 [R, C], f32 scales [R]).
+    (int8 [R, C], f32 scales [R]). `x` may be a column slice of a wider
+    buffer (rows apart by x.stride(0), e.g. the q third of a QKV buffer):
+    the kernel reads it in place. `fixed_scale` (a power of two, as the
+    1/8 of scripts/bench_int8_layer.py) replaces the per-row scale; those
+    launches count in `fixed_launches`.
 
     Replaces `_quant_rows` inside _layer_kernel_int8. CUDA:
     csrc/quant_rows_int8.cu, one block per row; memory-bound."""
     if x.device.type == "cpu":
-        return quant_rows_int8_plain(x)
+        return quant_rows_int8_plain(x, fixed_scale)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quant_rows_int8: x must be bf16 or f32, got {x.dtype}")
-    check_cuda(x, x.dtype, 2, "x")
+    if x.device.type != "cuda":
+        raise ValueError(f"x: expected a CUDA tensor, got {x.device}")
+    if x.dim() != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
+        raise ValueError(f"quant_rows_int8: expected rows of contiguous columns, got strides {x.stride()}")
+    if fixed_scale is not None and not fixed_scale > 0.0:
+        raise ValueError(f"quant_rows_int8: fixed_scale must be positive, got {fixed_scale}")
     rows, cols = x.shape
     q = torch.empty(rows, cols, dtype=torch.int8, device=x.device)
     scale = torch.empty(rows, dtype=torch.float32, device=x.device)
     launch("rt_quant_rows_int8", ptr(x), int(x.dtype == torch.bfloat16), ptr(q), ptr(scale),
-           rows, cols, stream())
-    quant_rows_int8.launches += 1
+           rows, cols, x.stride(0), 0.0 if fixed_scale is None else 1.0 / fixed_scale, stream())
+    if fixed_scale is None:
+        quant_rows_int8.launches += 1
+    else:
+        quant_rows_int8.fixed_launches += 1
     return q, scale
 
 
-quant_rows_int8.launches = 0
+quant_rows_int8.launches = 0  # per-row scale launches
+quant_rows_int8.fixed_launches = 0
 
 
 def _quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -245,11 +278,99 @@ def prepare_layer_int8(layer) -> tuple:
     )
 
 
-def prepare_posenet_int8(posenet, qattn: bool = False) -> dict:
+def fused_encoder_stack_int8_plain(x: torch.Tensor, stacked: tuple, num_heads: int = 4) -> torch.Tensor:
+    """The whole stack through the plain PyTorch versions: the plain layer
+    on each layer's slice of the stacked tensors, on any device."""
+    for l in range(stacked[0].shape[0]):
+        x = fused_encoder_layer_int8_plain(x, tuple(t[l] for t in stacked), num_heads)
+    return x
+
+
+STACK_PHASES = ("QKV GEMM", "attention", "quant attn", "out GEMM", "LN1 + quant y", "FF1 GEMM + gelu",
+                "quant h1", "FF2 GEMM", "LN2 + quant x")
+
+
+def fused_encoder_stack_int8(x: torch.Tensor, stacked: tuple, num_heads: int = 4,
+                             phase_ns: torch.Tensor | None = None) -> torch.Tensor:
+    """All L int8 encoder layers in one launch. x [B, S, D] bf16 -> [B, S, D]
+    bf16; `stacked` is 16 tensors with a leading [L] dim
+    (`prepare_posenet_int8(mega=True)["layers_stacked"]`). `phase_ns`, an
+    int64 CUDA tensor [2 + 9L], receives the card's global timer at the
+    start, after layer 0's input quantization and after each of the L x 9
+    phases (STACK_PHASES), for a breakdown of the launch (the plain version
+    has no phases and leaves it untouched).
+
+    Replaces _mega_kernel_int8 (rohm_tpu/ops/transformer_layer_int8.py).
+    CUDA: csrc/encoder_stack_int8.cu, one persistent cooperative kernel
+    whose phases (the K3 chain's GEMM tiles, attention items and rows,
+    separated by grid-wide barriers) run the per-layer kernels' routines:
+    bit-identical to L launches of the fused_encoder_layer_int8 chain. The
+    intermediates live in a workspace allocated here per call (~66 MB at
+    B=32, S=144). A grid the card cannot hold at once raises."""
+    if x.device.type == "cpu":
+        return fused_encoder_stack_int8_plain(x, stacked, num_heads)
+    x = x.to(torch.bfloat16).contiguous()
+    check_cuda(x, torch.bfloat16, 3, "x")
+    b, s, d = x.shape
+    num_layers, f = stacked[0].shape[0], stacked[8].shape[-1]
+    if d % 64 or f % 64 or d % num_heads or (d // num_heads) % 16:
+        raise ValueError(f"fused_encoder_stack_int8: D={d}, F={f}, H={num_heads} unsupported")
+    shapes = _stack_shapes(num_layers, d, f)
+    for i, (t, shape) in enumerate(zip(stacked, shapes, strict=True)):
+        check_cuda(t, torch.int8 if i in (0, 3, 8, 11) else torch.float32, len(shape), f"stacked[{i}]")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_encoder_stack_int8: stacked[{i}] is {tuple(t.shape)}, expected {shape}")
+    if phase_ns is not None:
+        check_cuda(phase_ns, torch.int64, 1, "phase_ns")
+        if phase_ns.shape[0] != 2 + 9 * num_layers:
+            raise ValueError(f"fused_encoder_stack_int8: phase_ns needs {2 + 9 * num_layers} entries")
+    r = b * s
+
+    def empty(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    out = torch.empty_like(x)
+    # xbuf, q, qscale, qkv, attn, a, y, h1 (csrc/encoder_stack_int8.cu)
+    work = (empty(r, d, dtype=torch.bfloat16), empty(r, f, dtype=torch.int8), empty(r, dtype=torch.float32),
+            empty(r, 3 * d, dtype=torch.bfloat16), empty(r, d, dtype=torch.bfloat16),
+            empty(r, d, dtype=torch.float32), empty(r, d, dtype=torch.float32), empty(r, f, dtype=torch.float32))
+    weights = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in stacked))
+    buffers = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in work))
+    launch("rt_encoder_stack_int8", ptr(x), ptr(out), ctypes.addressof(weights), ctypes.addressof(buffers),
+           ptr(phase_ns), b, s, d, f, num_heads, num_layers, LN_EPS, stream())
+    fused_encoder_stack_int8.launches += 1
+    return out
+
+
+fused_encoder_stack_int8.launches = 0
+
+
+def stack_grid(seq_len: int, head_dim: int) -> tuple[int, int]:
+    """(blocks per SM, SMs) of fused_encoder_stack_int8's launch on the
+    current card: the grid is their product."""
+    out = (ctypes.c_int * 2)()
+    launch("rt_encoder_stack_int8_grid", seq_len, head_dim, ctypes.addressof(out))
+    return out[0], out[1]
+
+
+def _stack_shapes(num_layers: int, d: int, f: int) -> list[tuple]:
+    """The 16 stacked tensors' shapes, in prepare_layer_int8's order."""
+    per_layer = [(d, 3 * d), (3 * d,), (3 * d,), (d, d), (d,), (d,), (d,), (d,),
+                 (d, f), (f,), (f,), (f, d), (d,), (d,), (d,), (d,)]
+    return [(num_layers, *shape) for shape in per_layer]
+
+
+def prepare_posenet_int8(posenet, qattn: bool = False, mega: bool = False) -> dict:
     """One-time quantization of a PoseNet for the int8 path; the embedding,
-    head and timestep params stay f32. With `qattn` the layers go under the
-    key "layers_qattn", which is what selects the quantized attention in
-    posenet_apply_prepared (as in the JAX package: an int8 layer tuple has
-    16 entries either way)."""
+    head and timestep params stay f32. The key the layers go under selects
+    the kernels in posenet_apply_prepared, as in the JAX package:
+    "layers" (per-layer chain), "layers_qattn" (with `qattn`: the quantized
+    attention; an int8 layer tuple has 16 entries either way) or, with
+    `mega`, "layers_stacked": the 16 tensors stacked with a leading [L] dim
+    for the whole-stack kernel. `mega` takes precedence over `qattn`."""
     layers = tuple(prepare_layer_int8(layer) for layer in posenet.seqTransEncoder.layers)
-    return {"layers_qattn" if qattn else "layers": layers, **posenet_prep_tail(posenet)}
+    if mega:
+        entry = {"layers_stacked": tuple(torch.stack([lay[i] for lay in layers]) for i in range(16))}
+    else:
+        entry = {"layers_qattn" if qattn else "layers": layers}
+    return {**entry, **posenet_prep_tail(posenet)}

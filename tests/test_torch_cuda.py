@@ -11,7 +11,9 @@ has only PyTorch and the CUDA toolkit, without the suite's conftest:
 import pytest
 import torch
 
+from rohm_tpu_torch.models import PoseNet
 from rohm_tpu_torch.models.blocks import TransformerEncoderLayer
+from rohm_tpu_torch.ops import kernel_common as kc
 from rohm_tpu_torch.ops import transformer_layer as l32
 from rohm_tpu_torch.ops import transformer_layer_bf16 as l16
 from rohm_tpu_torch.ops import transformer_layer_int8 as l8
@@ -99,3 +101,43 @@ def test_training_gemm_layouts_and_split_k_on_cuda():
             scale = lt.gemm_train_plain(kw["a"].abs(), kw["b"].abs(), kw.get("a_t", False),
                                         kw.get("b_t", False), bf16)
             assert ((got - ref).abs() <= 2e-5 * scale + 1e-6).all()
+
+
+def test_stack_kernel_matches_the_k3_chain_and_plain_on_cuda():
+    """The whole-stack kernel (one cooperative launch) at D=64, F=128, two
+    layers, S=144: bit-identical to two launches of the K3 chain (the same
+    device routines), and within the int8 layer's envelope of the plain
+    stack; S=15 gives ragged attention and GEMM tiles."""
+    torch.manual_seed(0)
+    posenet = PoseNet(latent_dim=64, ff_size=128, num_layers=2, num_heads=4).cuda()
+    stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
+    for seq in (144, 15):
+        x = torch.randn(3, seq, 64, device="cuda").to(torch.bfloat16)
+        before = l8.fused_encoder_stack_int8.launches
+        got = l8.fused_encoder_stack_int8(x, stacked, 4)
+        assert l8.fused_encoder_stack_int8.launches == before + 1
+        ref = x
+        for i in range(2):
+            ref = l8.fused_encoder_layer_int8(ref, tuple(t[i] for t in stacked), 4)
+        assert torch.equal(got, ref)
+        err = (got.float() - l8.fused_encoder_stack_int8_plain(x, stacked, 4).float()).abs()
+        assert err.max().item() < 0.3 and err.mean().item() < 5e-2
+
+
+def test_new_kernel_modes_match_plain_on_cuda():
+    """quant_rows_int8 with a row stride (the q third of a QKV buffer, read
+    in place) and with the fixed scale 1/8: exact. attention_bf16 without
+    the softmax: one bf16 flip per prob (2^-8 sum|p||v|) plus one bf16 ulp
+    of the output."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(2 * 144, 3 * 64, device="cuda", generator=g).to(torch.bfloat16)
+    for args in ((qkv[:, :64],), (qkv, 0.125), (qkv.float(), 0.125)):
+        q, s = l8.quant_rows_int8(*args)
+        q_ref, s_ref = l8.quant_rows_int8_plain(*args)
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    got = kc.attention_bf16(qkv, 144, 4, no_softmax=True).float()
+    ref = kc.attention_bf16_plain(qkv, 144, 4, no_softmax=True).float()
+    q, k, v = (t.reshape(2, 144, 4, 16).transpose(1, 2).float() for t in qkv.split(64, -1))
+    p = ((q @ k.transpose(-1, -2)) * 0.01).to(torch.bfloat16).float().abs()
+    pv = (p @ v.abs()).transpose(1, 2).reshape(2 * 144, 64)
+    assert ((got - ref).abs() <= 2.0 ** -8 * pv + 2.0 ** -7 * ref.abs() + 1e-6).all()
