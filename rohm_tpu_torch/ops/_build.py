@@ -45,7 +45,8 @@ SIGNATURES = {
     "rt_quant_rows_int8": [_P, _I, _P, _P, _I, _I, _I, _F, _P],
     "rt_encoder_stack_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_encoder_stack_int8_grid": [_I, _I, _P],
-    "rt_gemm_train": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P, _P, _I, _I, _P, _P],
+    "rt_gemm_train": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P, _P, _I, _I, _P, _P],
+    "rt_round_bf16": [_P, _P, ctypes.c_longlong, _P],
     "rt_attention_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "rt_attention_train_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "rt_layernorm_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],

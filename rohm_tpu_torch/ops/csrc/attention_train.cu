@@ -11,16 +11,30 @@
 // c() rounds to bf16 in the bf16 mode (the TPU kernel's casts of every
 // product operand) and is the identity in the f32 mode; scores, softmax and
 // every sum stay f32. A product of two bf16 values is exact in f32, so the
-// f32 FMA sums here compute what a bf16 MMA with f32 accumulation computes,
+// f32 sums here compute what a bf16 MMA with f32 accumulation computes,
 // up to the order of the sum. The mask is int8 [B, H, S, S] (1 = keep).
 //
 // Replaces the attention of rohm_tpu/ops/transformer_layer_train.py::
 // _forward_body (K6 and K7's recompute) and the attention backward of
 // _bwd_kernel (:259-301). The TPU kernel keeps every (sequence, head) of its
-// group in VMEM; an SM has 227 KB, and in f32 the K and V of one (sequence,
-// head) alone take 2 x 145 x 128 x 4 = 148 KB at S = 145, so:
-//   forward: one block per (48 query rows, sequence, head) with K and V in
-//            shared memory (205 KB at S = 145, dh = 128);
+// group in VMEM; an SM has 227 KB, so:
+//   forward, bf16 mode: one block per (sequence, head) reads K and V once,
+//            rounded to bf16 into shared memory (108 KB with the mask at
+//            S = 145, dh = 128: two blocks per SM, all 256 pairs of the
+//            training batch in one wave); each warp takes 16 query rows,
+//            its Q fragments straight from device memory, and runs both
+//            products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//            sums). The warp
+//            keeps its whole 16 x S score tile in registers, so the softmax
+//            is exact over the row (no online rescaling), with the rounding
+//            points of the plain version (p = e * (1 / sum), within an f32
+//            ulp of e / sum); the rounded pd passes from the accumulators of
+//            the first product into the A fragments of the second. The
+//            mask slab of the (sequence, head) is staged in shared memory
+//            with K and V. Bound: its bytes (qkv and the mask read, the
+//            output written);
+//   forward, f32 mode: one block per (48 query rows, sequence, head) with
+//            K and V in shared memory (205 KB at S = 145, dh = 128), SIMT;
 //   backward pass 1: one block per (32 query rows, sequence, head): K, V,
 //            the tile's Q then dA, its p and dp/ds rows (211 KB): writes dq
 //            and, to a scratch of [B, H, S, S] f32 each, pd and ds;
@@ -29,9 +43,9 @@
 //            and ds: writes dk and dv.
 // P is recomputed from Q and K (nothing of [B, H, S, S] is kept from the
 // forward); the two-pass split keeps every sum in one block, so dq, dk and
-// dv need no atomics. Bound: f32 FMA issue and shared-memory bandwidth
-// (2.8 GFLOP forward, 5.5 backward per layer at B = 64, S = 145); no
-// tensor cores in this first version.
+// dv need no atomics. Bound of the SIMT kernels: f32 FMA issue and
+// shared-memory bandwidth (2.8 GFLOP forward, 5.5 backward per layer at
+// B = 64, S = 145).
 #include "common.cuh"
 
 namespace {
@@ -107,12 +121,11 @@ __device__ __forceinline__ void softmax_row(float* Pt, int ldp, int r, int S, in
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward, f32 mode: SIMT
 // ---------------------------------------------------------------------------
 
 constexpr int FQT = 48, FTHREADS = 384;
 
-template <bool BF16>
 __global__ void __launch_bounds__(FTHREADS) attention_train_fwd_kernel(
     const float* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out, int S,
     int H, int dh, float scale, float inv_keep) {
@@ -128,9 +141,9 @@ __global__ void __launch_bounds__(FTHREADS) attention_train_fwd_kernel(
   const float* base = qkv + (size_t)b * S * row_stride + h * dh;
   const int8_t* mrow = mask + ((size_t)blockIdx.y * S + q0) * S;
 
-  load_rows<BF16>(Ks, ldk, base + D, row_stride, S, S, dh, tid, FTHREADS);
-  load_rows<BF16>(Vs, dh, base + 2 * D, row_stride, S, S, dh, tid, FTHREADS);
-  load_rows<BF16>(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, FQT, dh, tid, FTHREADS);
+  load_rows<false>(Ks, ldk, base + D, row_stride, S, S, dh, tid, FTHREADS);
+  load_rows<false>(Vs, dh, base + 2 * D, row_stride, S, S, dh, tid, FTHREADS);
+  load_rows<false>(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, FQT, dh, tid, FTHREADS);
   __syncthreads();
   products_xy(Pt, ldp, Qs, dh, Ks, ldk, S, FQT, dh, scale, true, tid, FTHREADS);
   __syncthreads();
@@ -139,12 +152,12 @@ __global__ void __launch_bounds__(FTHREADS) attention_train_fwd_kernel(
     __syncwarp();
     for (int c = lane; c < S; c += 32) {
       const float keep = mrow[(size_t)r * S + c] ? inv_keep : 0.0f;
-      Pt[c * ldp + r] = rnd<BF16>(__fmul_rn(Pt[c * ldp + r], keep));
+      Pt[c * ldp + r] = __fmul_rn(Pt[c * ldp + r], keep);
     }
   }
   __syncthreads();
 
-  // out = c(pd) . c(v): thread task = (4 query rows, 4 output columns)
+  // out = pd . v: thread task = (4 query rows, 4 output columns)
   for (int t = tid; t < (FQT / RM) * d4; t += FTHREADS) {
     const int g = t / d4, c = (t % d4) * 4;
     float acc[RM][4];
@@ -170,6 +183,243 @@ __global__ void __launch_bounds__(FTHREADS) attention_train_fwd_kernel(
       if (r < nq)
         st4(out + ((size_t)b * S + q0 + r) * D + h * dh + c,
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16 mode: tensor cores, one block per (sequence, head)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 5, TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_MAX_S = 160, TC_MAX_DH = 128;  // registers: a 16 x 160 score tile per warp
+constexpr int TC_ROWS = 8;                      // K/V rows per warp and staging step
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// d[16x8] += a[16x16] . b[16x8], bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ float2 ld2_or0(const float* p, bool ok) {
+  return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Fragments (lane = 4 g + q): an accumulator tile [16 x 8] holds, per
+// thread, (row g, columns 2q, 2q + 1) and (row g + 8, the same columns);
+// the A fragment of a [16 x 16] slice holds (g, 2q..), (g + 8, 2q..),
+// (g, 2q + 8..), (g + 8, 2q + 8..). So two neighbouring accumulator tiles
+// of the first product are one A fragment of the second.
+__global__ void __launch_bounds__(TC_THREADS, 2) attention_train_fwd_tc_kernel(
+    const float* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out, int S,
+    int H, int dh, float scale, float inv_keep) {
+  extern __shared__ __align__(16) __nv_bfloat16 kv[];
+  const int D = H * dh, row_stride = 3 * D;
+  const int ld = dh + 8;               // bf16 per row: 16 bytes of skew keep ldmatrix conflict-free
+  const int sp = (S + 15) / 16 * 16;   // keys (and query rows) padded to 16
+  __nv_bfloat16* Ks = kv;              // [sp][ld], rows >= S zero
+  __nv_bfloat16* Vs = kv + sp * ld;
+  int8_t* Ms = reinterpret_cast<int8_t*>(Vs + sp * ld);  // the mask slab, at its address's offset mod 16
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const float* base = qkv + (size_t)b * S * row_stride + h * dh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+
+  // The first row tile's c(q) A fragments are loaded now, so that their
+  // latency overlaps the staging. Fragment (lane = 4 g + q): rows g and
+  // g + 8 of the tile, columns 16 kk + 2 q (+1) and + 8 (+9).
+  float2 qraw[TC_MAX_DH / 16][4];
+  auto load_q = [&](int t) {
+    const int r_lo = 16 * t + g, r_hi = r_lo + 8;
+    const float* q_lo = base + (size_t)r_lo * row_stride;
+    const float* q_hi = base + (size_t)r_hi * row_stride;
+#pragma unroll
+    for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
+      if (16 * kk < dh) {
+        const int c = 16 * kk + 2 * q;
+        qraw[kk][0] = ld2_or0(q_lo + c, r_lo < S);
+        qraw[kk][1] = ld2_or0(q_hi + c, r_hi < S);
+        qraw[kk][2] = ld2_or0(q_lo + c + 8, r_lo < S);
+        qraw[kk][3] = ld2_or0(q_hi + c + 8, r_hi < S);
+      }
+    }
+  };
+  load_q(warp);
+
+  // K and V, each read once, rounded to bf16: each warp takes TC_ROWS rows
+  // at a time, a lane per 4 columns, so 2 * TC_ROWS loads are in flight
+  for (int r0 = TC_ROWS * warp; r0 < sp; r0 += TC_ROWS * TC_WARPS) {
+    float4 kr[TC_ROWS], vr[TC_ROWS];
+#pragma unroll
+    for (int u = 0; u < TC_ROWS; ++u) {
+      const bool in = r0 + u < S && 4 * lane < dh;
+      const float* row = base + (size_t)(r0 + u) * row_stride + 4 * lane;
+      kr[u] = in ? ld4(row + D) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vr[u] = in ? ld4(row + 2 * D) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < TC_ROWS; ++u) {
+      if (r0 + u < sp && 4 * lane < dh) {
+        *reinterpret_cast<uint2*>(Ks + (r0 + u) * ld + 4 * lane) =
+            make_uint2(pack_bf16(kr[u].x, kr[u].y), pack_bf16(kr[u].z, kr[u].w));
+        *reinterpret_cast<uint2*>(Vs + (r0 + u) * ld + 4 * lane) =
+            make_uint2(pack_bf16(vr[u].x, vr[u].y), pack_bf16(vr[u].z, vr[u].w));
+      }
+    }
+  }
+  // this (sequence, head)'s [S][S] mask: its 16-byte aligned interior in
+  // 16-byte loads, the ragged ends byte by byte; smem keeps the address's
+  // offset mod 16, so both sides stay aligned
+  const int8_t* mslab = mask + (size_t)blockIdx.x * S * S;
+  const uintptr_t m0 = reinterpret_cast<uintptr_t>(mslab), m1 = m0 + (size_t)S * S;
+  const uintptr_t a0 = (m0 + 15) & ~uintptr_t(15), a1 = m1 & ~uintptr_t(15);
+  const int moff = static_cast<int>(m0 & 15);
+  if (a0 < a1) {
+    for (int i = threadIdx.x; i < static_cast<int>((a1 - a0) / 16); i += TC_THREADS)
+      *reinterpret_cast<int4*>(Ms + moff + (a0 - m0) + 16 * i) = *reinterpret_cast<const int4*>(a0 + 16 * i);
+    if (threadIdx.x < a0 - m0) Ms[moff + threadIdx.x] = mslab[threadIdx.x];
+    if (threadIdx.x < m1 - a1) Ms[moff + (a1 - m0) + threadIdx.x] = mslab[(a1 - m0) + threadIdx.x];
+  } else {
+    for (int i = threadIdx.x; i < S * S; i += TC_THREADS) Ms[moff + i] = mslab[i];
+  }
+  __syncthreads();
+
+  for (int t = warp; t < sp / 16; t += TC_WARPS) {
+    const int r_lo = 16 * t + g, r_hi = r_lo + 8;  // this thread's two query rows
+    if (t != warp) load_q(t);
+    uint32_t qa[TC_MAX_DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TC_MAX_DH / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[kk][i] = pack_bf16(qraw[kk][i].x, qraw[kk][i].y);
+
+    // scores: s[j] is keys 8j..8j+7; ldmatrix.x4 gives two key tiles' B
+    // fragments (keys 16jp + 0..7 and + 8..15, dh 16kk + 0..7 and + 8..15)
+    float s[TC_MAX_S / 8][4];
+#pragma unroll
+    for (int j = 0; j < TC_MAX_S / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
+      if (16 * kk >= dh) break;
+#pragma unroll
+      for (int jp = 0; jp < TC_MAX_S / 16; ++jp) {
+        if (16 * jp >= sp) break;
+        const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
+        const int col = 16 * kk + (((lane >> 3) & 1) << 3);
+        uint32_t kb[4];
+        ldsm_x4(kb, smem_u32(Ks + key * ld + col));
+        mma_bf16(s[2 * jp], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+
+    // exact softmax over the row: scale after the product, keys >= S out
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TC_MAX_S / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1);
+        s[j][e] = col < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < TC_MAX_S / 8; ++j) {
+      s[j][0] = expf(s[j][0] - mx_lo);
+      s[j][1] = expf(s[j][1] - mx_lo);
+      s[j][2] = expf(s[j][2] - mx_hi);
+      s[j][3] = expf(s[j][3] - mx_hi);
+      sum_lo += s[j][0] + s[j][1];
+      sum_hi += s[j][2] + s[j][3];
+    }
+    sum_lo = quad_sum(sum_lo);
+    sum_hi = quad_sum(sum_hi);
+    // p = e * (1 / sum): within an f32 ulp of e / sum, and a tenth of the
+    // kernel's time cheaper than 80 IEEE divisions per thread
+    const float rs_lo = __frcp_rn(sum_lo), rs_hi = __frcp_rn(sum_hi);
+
+    // pd = c(p * keep), packed as the second product's A fragments; the
+    // mask is read once per element
+    uint32_t pa[TC_MAX_S / 16][4];
+#pragma unroll
+    for (int j = 0; j < TC_MAX_S / 8; ++j) {
+      float pd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r_lo : r_hi, col = 8 * j + 2 * q + (e & 1);
+        const bool kept = row < S && col < S && Ms[moff + row * S + col];
+        pd[e] = __fmul_rn(__fmul_rn(s[j][e], e < 2 ? rs_lo : rs_hi), kept ? inv_keep : 0.0f);
+      }
+      pa[j / 2][2 * (j % 2)] = pack_bf16(pd[0], pd[1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pd[2], pd[3]);
+    }
+
+    // out = c(pd) . c(v): ldmatrix.trans gives two dh tiles' B fragments
+    // (keys 16kc + 0..7 and + 8..15, dh 16np + 0..7 and + 8..15)
+    float o[TC_MAX_DH / 8][4];
+#pragma unroll
+    for (int n = 0; n < TC_MAX_DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < TC_MAX_S / 16; ++kc) {
+      if (16 * kc >= sp) break;
+#pragma unroll
+      for (int np = 0; np < TC_MAX_DH / 16; ++np) {
+        if (16 * np >= dh) break;
+        const int key = 16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int col = 16 * np + ((lane >> 4) << 3);
+        uint32_t vb[4];
+        ldsm_x4_t(vb, smem_u32(Vs + key * ld + col));
+        mma_bf16(o[2 * np], pa[kc], vb[0], vb[1]);
+        mma_bf16(o[2 * np + 1], pa[kc], vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < TC_MAX_DH / 8; ++n) {
+      if (8 * n >= dh) break;
+      const int col = h * dh + 8 * n + 2 * q;
+      if (r_lo < S)
+        *reinterpret_cast<float2*>(out + ((size_t)b * S + r_lo) * D + col) = make_float2(o[n][0], o[n][1]);
+      if (r_hi < S)
+        *reinterpret_cast<float2*>(out + ((size_t)b * S + r_hi) * D + col) = make_float2(o[n][2], o[n][3]);
     }
   }
 }
@@ -352,19 +602,33 @@ bool bad_shape(int B, int S, int H, int dh) {
 
 }  // namespace
 
-// Any S whose tiles fit in 227 KB of shared memory (S <= 150 at dh = 128).
+// f32 mode: any S whose tiles fit in 227 KB of shared memory (S <= 150 at
+// dh = 128); bf16 mode: S <= 160, dh a multiple of 16 up to 128.
 extern "C" int rt_attention_train_fwd(const void* qkv, const void* mask, void* out, int B, int S,
                                       int H, int dh, float scale, float inv_keep, int bf16,
                                       void* stream) {
   if (bad_shape(B, S, H, dh)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* q = static_cast<const float*>(qkv);
+  const auto* m = static_cast<const int8_t*>(mask);
+  auto* o = static_cast<float*>(out);
+  if (bf16) {
+    if (S > TC_MAX_S || dh % 16 || dh > TC_MAX_DH) return (int)cudaErrorInvalidValue;
+    // K and V as bf16, then the mask slab (S^2 bytes at an offset < 16)
+    const size_t smem = 2 * sizeof(__nv_bfloat16) * (size_t)((S + 15) / 16 * 16) * (dh + 8) + (size_t)S * S + 16;
+    cudaError_t err = allow_smem(attention_train_fwd_tc_kernel, smem);
+    if (err == cudaSuccess)  // as much shared memory as the SM has: two blocks share it
+      err = cudaFuncSetAttribute(attention_train_fwd_tc_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return (int)err;
+    attention_train_fwd_tc_kernel<<<B * H, TC_THREADS, smem, s>>>(q, m, o, S, H, dh, scale, inv_keep);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = fwd_smem(S, dh);
-  auto kernel = bf16 ? attention_train_fwd_kernel<true> : attention_train_fwd_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(attention_train_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + FQT - 1) / FQT, B * H);
-  kernel<<<grid, FTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), static_cast<const int8_t*>(mask), static_cast<float*>(out), S,
-      H, dh, scale, inv_keep);
+  attention_train_fwd_kernel<<<grid, FTHREADS, smem, s>>>(q, m, o, S, H, dh, scale, inv_keep);
   return (int)cudaGetLastError();
 }
 

@@ -21,8 +21,17 @@ Forward (per layer, R = B*S rows; c() = bf16 rounding in the bf16 mode):
 Backward: the 8 products of _bwd_kernel (dW as dY^T X, dX as dY W), the
 attention backward, two LayerNorm backwards and six column sums for the
 bias and LayerNorm gradients. The forward's activations are saved (about
-230 MB per layer at B = 64, S = 145, D = 512, F = 1024), not recomputed as
-K7 does: that spares a third of the step's work at 1.8 GB for 8 layers.
+180 MB per layer in bf16, 230 MB in f32, at B = 64, S = 145, D = 512, F = 1024), not
+recomputed as K7 does: that spares a third of the step's work.
+
+In the bf16 mode every product operand lies in device memory as bf16, so
+the GEMM's TMA loads move half the bytes and round nothing: the four weight
+matrices are cast once per layer call (`cast_weight_mats`, as the TPU
+package's `_cast_weight_mats` does outside its kernel), and each activation
+operand is cast once where it is made, by the epilogue of the product that
+makes it (gld, dh1) or by `round_bf16` (x, attn, y1, df, do, dqkv). Rounding
+to nearest even is idempotent, so every product sees the values that the
+TPU kernel's c() gives it.
 
 Dropout masks are int8 keep-masks drawn outside the kernels from an
 explicit torch.Generator (`gen_dropout_masks`); the TPU package draws them
@@ -45,7 +54,8 @@ from rohm_tpu_torch.ops.transformer_layer import erf_as
 
 SQRT_2 = 1.4142135623730951
 INV_SQRT_2PI = 0.3989422804014327
-GEMM_TILES = {True: (64, 64, 32), False: (128, 64, 16)}  # bf16 / f32: (BM, BN, BK)
+GEMM_TILES = {True: (128, 128, 64), False: (128, 64, 16)}  # bf16 (wgmma) / f32 (SIMT): (BM, BN, BK)
+GEMM_OUTS = ("f32", "operand", "both")
 
 
 def gelu_as(x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +73,10 @@ def _rnd(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _keep(mask: torch.Tensor, inv_keep: float) -> torch.Tensor:
     return mask.float() * inv_keep
 
@@ -72,16 +86,25 @@ def _keep(mask: torch.Tensor, inv_keep: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _outputs(v: torch.Tensor, out: str, bf16: bool):
+    """A product's result as the chain asks for it: "f32"; "operand", the
+    next product's operand (bf16 in the bf16 mode); "both", (f32, operand),
+    the same tensor twice in the f32 mode."""
+    op = v.to(torch.bfloat16) if bf16 else v
+    return {"f32": v, "operand": op, "both": (v, op)}[out]
+
+
 def gemm_train_plain(a, b, a_t=False, b_t=False, bf16=False, bias=None, mask=None,
-                     inv_keep=1.0, gelu=0, aux=None, add=None):
+                     inv_keep=1.0, gelu=0, aux=None, add=None, out="f32"):
     """op(a) @ op(b) (op = transpose where a_t / b_t), operands rounded to
-    bf16 in the bf16 mode, f32 sums, then the epilogue: + bias; gelu=1:
-    keep the pre-gelu h and apply gelu (returns (v, h)); * mask * inv_keep;
-    gelu=2: * gelu'(aux); add + v."""
+    bf16 in the bf16 mode (a no-op on bf16 operands), f32 sums, then the
+    epilogue: + bias; gelu=1: keep the pre-gelu h and apply gelu (returns
+    (v, h)); * mask * inv_keep; gelu=2: * gelu'(aux); add + v. `out` picks
+    the result's form (_outputs)."""
     a = a.t() if a_t else a
     b = b.t() if b_t else b
     if bf16:
-        a, b = _rnd(a), _rnd(b)
+        a, b = _rnd(a.float()), _rnd(b.float())
     v = a @ b
     if bias is not None:
         v = v + bias
@@ -94,6 +117,7 @@ def gemm_train_plain(a, b, a_t=False, b_t=False, bf16=False, bias=None, mask=Non
         v = v * gelu_grad_as(aux)
     if add is not None:
         v = add + v
+    v = _outputs(v, out, bf16)
     return (v, h) if gelu == 1 else v
 
 
@@ -101,65 +125,97 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _splits(m: int, n: int, k: int, bf16: bool, device) -> tuple[int, int]:
-    """Split-K for a product with too few output tiles to fill the card:
-    aim at two blocks per SM, each split at least 8 k-steps deep."""
-    bm, bn, bk = GEMM_TILES[bf16]
+def plan_splits(m: int, n: int, k: int, tile: tuple, sms: int) -> tuple[int, int]:
+    """(splits, chunk) of a product with too few output tiles to fill the
+    card: aim at two blocks per SM (tiles * splits >= 2 * sms), each split
+    at least 8 k-steps deep and a whole number of them."""
+    bm, bn, bk = tile
     tiles = _ceil(m, bm) * _ceil(n, bn)
-    target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(_ceil(target, tiles), k // (8 * bk)))
+    splits = max(1, min(_ceil(2 * sms, tiles), k // (8 * bk)))
     chunk = _ceil(_ceil(k, splits), bk) * bk
     return _ceil(k, chunk), chunk
 
 
 def gemm_train(a: torch.Tensor, b: torch.Tensor, a_t: bool = False, b_t: bool = False,
                bf16: bool = False, bias=None, mask=None, inv_keep: float = 1.0, gelu: int = 0,
-               aux=None, add=None):
+               aux=None, add=None, out: str = "f32"):
     """The training layer's dense products with fused epilogues (see
-    gemm_train_plain): bf16 on WMMA or f32 on SIMT FFMA, f32 in memory.
+    gemm_train_plain): bf16 operands on TMA + wgmma, or f32 operands on
+    SIMT FFMA. The epilogue writes the f32 result and, in the bf16 mode,
+    its bf16 copy as the chain asks (`out`).
 
     Replaces the dense products of _forward_body and _bwd_kernel (K6, K7).
     CUDA: csrc/gemm_train.cu; a weight gradient with too few output tiles
     is split over K and its slices added in a fixed order (no atomics)."""
     if a.device.type == "cpu":
-        return gemm_train_plain(a, b, a_t, b_t, bf16, bias, mask, inv_keep, gelu, aux, add)
-    check_cuda(a, torch.float32, 2, "a")
-    check_cuda(b, torch.float32, 2, "b")
+        return gemm_train_plain(a, b, a_t, b_t, bf16, bias, mask, inv_keep, gelu, aux, add, out)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    check_cuda(a, dtype, 2, "a")
+    check_cuda(b, dtype, 2, "b")
     m, k = (a.shape[1], a.shape[0]) if a_t else a.shape
     kb, n = (b.shape[1], b.shape[0]) if b_t else b.shape
-    # the contiguous dimension of each operand and of the output is read
-    # and written 4 floats at a time; the row counts are free
-    if kb != k or n % 4 or (m if a_t else k) % 4 or (b_t and k % 4):
+    # the contiguous dimension of each operand and of the output: 16-byte
+    # rows for TMA (8 bf16) or 16-byte loads (4 floats); the row counts are free
+    align = 8 if bf16 else 4
+    if kb != k or n % align or (m if a_t else k) % align or (b_t and k % align):
         raise ValueError(f"gemm_train: shapes {tuple(a.shape)}, {tuple(b.shape)} "
-                         f"(a_t={a_t}, b_t={b_t}) unsupported")
-    for name, t, dtype, shape in (("bias", bias, torch.float32, (n,)), ("mask", mask, torch.int8, (m, n)),
-                                  ("add", add, torch.float32, (m, n))):
+                         f"(a_t={a_t}, b_t={b_t}, bf16={bf16}) unsupported")
+    for name, t, tdtype, shape in (("bias", bias, torch.float32, (n,)), ("mask", mask, torch.int8, (m, n)),
+                                   ("add", add, torch.float32, (m, n))):
         if t is not None:
-            check_cuda(t, dtype, len(shape), name)
+            check_cuda(t, tdtype, len(shape), name)
             if tuple(t.shape) != shape:
                 raise ValueError(f"gemm_train: {name} {tuple(t.shape)}, expected {shape}")
-    if gelu not in (0, 1, 2):
-        raise ValueError(f"gemm_train: gelu={gelu}")
-    out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    if gelu not in (0, 1, 2) or out not in GEMM_OUTS:
+        raise ValueError(f"gemm_train: gelu={gelu}, out={out!r}")
+    c32 = torch.empty(m, n, dtype=torch.float32, device=a.device) if out != "operand" or not bf16 else None
+    c16 = torch.empty(m, n, dtype=torch.bfloat16, device=a.device) if out != "f32" and bf16 else None
     if gelu == 1:
-        aux = torch.empty_like(out)
+        aux = torch.empty(m, n, dtype=torch.float32, device=a.device)
     elif gelu == 2:
         check_cuda(aux, torch.float32, 2, "aux")
     has_epi = bias is not None or mask is not None or gelu or add is not None
-    bk = GEMM_TILES[bf16][2]
-    splits, chunk = (1, _ceil(k, bk) * bk) if has_epi else _splits(m, n, k, bf16, a.device)
+    tile = GEMM_TILES[bf16]
+    if has_epi or c16 is not None:
+        splits, chunk = 1, _ceil(k, tile[2]) * tile[2]
+    else:
+        splits, chunk = plan_splits(m, n, k, tile, torch.cuda.get_device_properties(a.device).multi_processor_count)
     ws = torch.empty(splits, m, n, dtype=torch.float32, device=a.device) if splits > 1 else None
-    launch("rt_gemm_train", ptr(a), ptr(b), ptr(out), m, n, k, int(a_t), int(b_t), int(bf16),
+    launch("rt_gemm_train", ptr(a), ptr(b), ptr(c32), ptr(c16), m, n, k, int(a_t), int(b_t), int(bf16),
            ptr(bias), ptr(mask), inv_keep, gelu, ptr(aux), ptr(add), splits, chunk, ptr(ws), stream())
     if bf16:
         gemm_train.launches_bf16 += 1
     else:
         gemm_train.launches_f32 += 1
-    return (out, aux) if gelu == 1 else out
+    res = {"f32": c32, "operand": c16 if bf16 else c32, "both": (c32, c16 if bf16 else c32)}[out]
+    return (res, aux) if gelu == 1 else res
 
 
 gemm_train.launches_bf16 = 0  # counted per operand mode: two kernels of one source
 gemm_train.launches_f32 = 0
+
+
+def round_bf16_plain(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x [R, N] f32 -> bf16, round to nearest even: the bf16 mode's cast of
+    an activation operand, once where it is made.
+
+    Replaces the TPU kernel's c() on its activation operands
+    (rohm_tpu/ops/transformer_layer_train.py:103). CUDA: csrc/gemm_train.cu,
+    4 elements per thread and step; memory-bound."""
+    if x.device.type == "cpu":
+        return round_bf16_plain(x)
+    check_cuda(x, torch.float32, 2, "x")
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    launch("rt_round_bf16", ptr(x), ptr(y), x.numel(), stream())
+    round_bf16.launches += 1
+    return y
+
+
+round_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +236,7 @@ def _unheads(t: torch.Tensor) -> torch.Tensor:
 def _probs(q, k, mask, inv_keep, bf16):
     """(p, pd) of every (sequence, head): f32 scores of c(q) c(k)^T, scaled
     after the product as the TPU kernel does (:118-121)."""
-    rnd = _rnd if bf16 else (lambda t: t)
+    rnd = _rnd if bf16 else _same
     scale = 1.0 / (q.shape[-1] ** 0.5)
     p = torch.softmax((rnd(q) @ rnd(k).transpose(-1, -2)) * scale, dim=-1)
     return p, p * _keep(mask, inv_keep)
@@ -188,7 +244,7 @@ def _probs(q, k, mask, inv_keep, bf16):
 
 def attention_train_fwd_plain(qkv, mask, seq_len, num_heads, inv_keep=1.0, bf16=False):
     """qkv [B*S, 3D] f32, mask [B, H, S, S] int8 -> [B*S, D] f32."""
-    rnd = _rnd if bf16 else (lambda t: t)
+    rnd = _rnd if bf16 else _same
     q, k, v = (_heads(t, seq_len, num_heads) for t in qkv.split(qkv.shape[1] // 3, dim=-1))
     _, pd = _probs(q, k, mask, inv_keep, bf16)
     return _unheads(rnd(pd) @ rnd(v))
@@ -200,10 +256,15 @@ def attention_train_fwd(qkv: torch.Tensor, mask: torch.Tensor, seq_len: int, num
     q/k/v read in place from the f32 QKV buffer.
 
     Replaces the attention of _forward_body (K6). CUDA:
-    csrc/attention_train.cu, one block per (48 queries, sequence, head)."""
+    csrc/attention_train.cu; bf16 mode: one block per (sequence, head) on
+    the tensor cores (S <= 160, dh a multiple of 16 up to 128); f32 mode:
+    one block per (48 queries, sequence, head), SIMT."""
     if qkv.device.type == "cpu":
         return attention_train_fwd_plain(qkv, mask, seq_len, num_heads, inv_keep, bf16)
     b, dh = _attention_checks(qkv, mask, seq_len, num_heads)
+    if bf16 and (seq_len > 160 or dh % 16 or dh > 128):
+        raise ValueError(f"attention_train_fwd: bf16 mode takes S <= 160 and dh a multiple of 16 "
+                         f"up to 128, got S={seq_len}, dh={dh}")
     out = torch.empty(qkv.shape[0], qkv.shape[1] // 3, dtype=torch.float32, device=qkv.device)
     launch("rt_attention_train_fwd", ptr(qkv), ptr(mask), ptr(out), b, seq_len, num_heads, dh,
            1.0 / (dh ** 0.5), inv_keep, int(bf16), stream())
@@ -229,7 +290,7 @@ def _attention_checks(qkv, mask, seq_len, num_heads) -> tuple[int, int]:
 def attention_train_bwd_plain(qkv, da, mask, seq_len, num_heads, inv_keep=1.0, bf16=False):
     """d(qkv) [B*S, 3D] from qkv, d(attn) [B*S, D] and the mask, with the
     probabilities recomputed (_bwd_kernel :259-301)."""
-    rnd = _rnd if bf16 else (lambda t: t)
+    rnd = _rnd if bf16 else _same
     q, k, v = (_heads(t, seq_len, num_heads) for t in qkv.split(qkv.shape[1] // 3, dim=-1))
     da = _heads(da, seq_len, num_heads)
     p, pd = _probs(q, k, mask, inv_keep, bf16)
@@ -394,12 +455,14 @@ class Kernels(NamedTuple):
     ln_fwd: Callable
     ln_bwd: Callable
     colsum: Callable
+    cast: Callable
 
 
 KERNELS = Kernels(gemm_train, attention_train_fwd, attention_train_bwd, layernorm_train_fwd,
-                  layernorm_train_bwd, colsum)
+                  layernorm_train_bwd, colsum, round_bf16)
 PLAIN = Kernels(gemm_train_plain, attention_train_fwd_plain, attention_train_bwd_plain,
-                layernorm_train_fwd_plain, layernorm_train_bwd_plain, colsum_plain)
+                layernorm_train_fwd_plain, layernorm_train_bwd_plain, colsum_plain, round_bf16_plain)
+WEIGHT_MATS = (0, 2, 6, 8)  # in_proj, out_proj, linear1 and linear2 weights in layer_params order
 
 
 def layer_params(layer) -> tuple:
@@ -411,6 +474,13 @@ def layer_params(layer) -> tuple:
             layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias)
 
 
+def cast_weight_mats(params: tuple) -> tuple:
+    """layer_params with the four weight matrices cast to bf16 (once per
+    layer call, outside the kernels, as rohm_tpu/ops/
+    transformer_layer_train.py::_cast_weight_mats); vectors stay f32."""
+    return tuple(p.to(torch.bfloat16) if i in WEIGHT_MATS else p for i, p in enumerate(params))
+
+
 def flat_masks(masks: tuple, rows: int) -> tuple:
     """(mask_p [B,H,S,S], mask_o [B,S,D], mask_h [B,S,F], mask_f [B,S,D])
     int8 -> the per-row [R, D|F] views the chains take."""
@@ -420,44 +490,54 @@ def flat_masks(masks: tuple, rows: int) -> tuple:
 
 
 def layer_train_fwd(x, params, masks, seq_len, num_heads, inv_keep, bf16, k: Kernels = KERNELS):
-    """K6's forward on x [R, D] f32 -> (y [R, D], the backward's saved tensors)."""
+    """K6's forward on x [R, D] f32 -> (y [R, D], the backward's saved
+    tensors). params: layer_params, through cast_weight_mats in the bf16
+    mode."""
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = params
     mp, mo, mh, mf = masks
-    qkv = k.gemm(x, wqkv, b_t=True, bf16=bf16, bias=bqkv)
-    attn = k.attn_fwd(qkv, mp, seq_len, num_heads, inv_keep, bf16)
-    od = k.gemm(attn, wo, b_t=True, bf16=bf16, bias=bo, mask=mo, inv_keep=inv_keep)
+    c = k.cast if bf16 else _same
+    g = dict(b_t=True, bf16=bf16)
+    xc = c(x)
+    qkv = k.gemm(xc, wqkv, bias=bqkv, **g)
+    attn = c(k.attn_fwd(qkv, mp, seq_len, num_heads, inv_keep, bf16))
+    od = k.gemm(attn, wo, bias=bo, mask=mo, inv_keep=inv_keep, **g)
     y1, norm1, rstd1 = k.ln_fwd(x, od, g1, be1)
-    gld, h1 = k.gemm(y1, w1, b_t=True, bf16=bf16, bias=b1, mask=mh, inv_keep=inv_keep, gelu=1)
-    ffd = k.gemm(gld, w2, b_t=True, bf16=bf16, bias=b2, mask=mf, inv_keep=inv_keep)
+    y1c = c(y1)
+    gld, h1 = k.gemm(y1c, w1, bias=b1, mask=mh, inv_keep=inv_keep, gelu=1, out="operand", **g)
+    ffd = k.gemm(gld, w2, bias=b2, mask=mf, inv_keep=inv_keep, **g)
     y, norm2, rstd2 = k.ln_fwd(y1, ffd, g2, be2)
-    return y, (x, qkv, attn, y1, norm1, rstd1, h1, gld, norm2, rstd2)
+    return y, (xc, qkv, attn, y1c, norm1, rstd1, h1, gld, norm2, rstd2)
 
 
 def layer_train_bwd(dy, saved, params, masks, seq_len, num_heads, inv_keep, bf16,
                     k: Kernels = KERNELS):
     """K7's backward: dy [R, D] -> (dx [R, D], the 12 parameter gradients
     in torch's layouts, in layer_params order)."""
-    x, qkv, attn, y1, norm1, rstd1, h1, gld, norm2, rstd2 = saved
+    xc, qkv, attn, y1c, norm1, rstd1, h1, gld, norm2, rstd2 = saved
     wqkv, _, wo, _, g1, _, w1, _, w2, _, g2, _ = params
     mp, mo, mh, mf = masks
+    c = k.cast if bf16 else _same
     g = dict(bf16=bf16)
     dr2, df = k.ln_bwd(dy, norm2, rstd2, g2, mf, inv_keep)
     dg2, dbe2 = k.colsum(dy, norm2)
-    dw2 = k.gemm(df, gld, a_t=True, **g)
+    dfc = c(df)
+    dw2 = k.gemm(dfc, gld, a_t=True, **g)
     db2 = k.colsum(df)
-    dh1 = k.gemm(df, w2, mask=mh, inv_keep=inv_keep, gelu=2, aux=h1, **g)
-    dw1 = k.gemm(dh1, y1, a_t=True, **g)
+    dh1, dh1c = k.gemm(dfc, w2, mask=mh, inv_keep=inv_keep, gelu=2, aux=h1, out="both", **g)
+    dw1 = k.gemm(dh1c, y1c, a_t=True, **g)
     db1 = k.colsum(dh1)
-    dy1 = k.gemm(dh1, w1, add=dr2, **g)
+    dy1 = k.gemm(dh1c, w1, add=dr2, **g)
     dr1, do = k.ln_bwd(dy1, norm1, rstd1, g1, mo, inv_keep)
     dg1, dbe1 = k.colsum(dy1, norm1)
-    dwo = k.gemm(do, attn, a_t=True, **g)
+    doc = c(do)
+    dwo = k.gemm(doc, attn, a_t=True, **g)
     dbo = k.colsum(do)
-    dattn = k.gemm(do, wo, **g)
+    dattn = k.gemm(doc, wo, **g)
     dqkv = k.attn_bwd(qkv, dattn, mp, seq_len, num_heads, inv_keep, bf16)
-    dwqkv = k.gemm(dqkv, x, a_t=True, **g)
+    dqkvc = c(dqkv)
+    dwqkv = k.gemm(dqkvc, xc, a_t=True, **g)
     dbqkv = k.colsum(dqkv)
-    dx = k.gemm(dqkv, wqkv, add=dr1, **g)
+    dx = k.gemm(dqkvc, wqkv, add=dr1, **g)
     return dx, (dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2)
 
 
@@ -470,9 +550,10 @@ class _TrainLayer(torch.autograd.Function):
         b, s, d = x.shape
         inv_keep = 1.0 / (1.0 - p) if p > 0 else 1.0
         m = flat_masks(masks, b * s)
-        y, saved = layer_train_fwd(x.reshape(b * s, d).float().contiguous(), params, m, s,
+        kp = cast_weight_mats(params) if bf16 else params
+        y, saved = layer_train_fwd(x.reshape(b * s, d).float().contiguous(), kp, m, s,
                                    num_heads, inv_keep, bf16, kernels)
-        ctx.save_for_backward(*saved, *params, *m)
+        ctx.save_for_backward(*saved, *kp, *m)
         ctx.cfg = (b, s, d, num_heads, inv_keep, bf16, kernels)
         return y.reshape(b, s, d)
 

@@ -1,0 +1,177 @@
+"""A/B of the training layer's bf16 kernels between two checkouts, on one card.
+
+    python -m rohm_tpu_torch.scripts.ab_train_kernels --other DIR [--seed 0]
+
+DIR is another checkout of the repository (for example the parent commit,
+`git archive` unpacked into `.chipscratch/parent`). The script runs one
+measurement process per checkout in the order other / this / this / other,
+each on that checkout's own package and kernels (built at first use), so
+the two versions are compared on the same card in turns. Each process
+times, at the training shapes (64 clips x 145 tokens, D=512, H=4, F=1024,
+dropout 0.1, random weights from --seed): `attention_train_fwd` in the bf16
+mode and the 12 `gemm_train` products of one layer as that checkout's chain
+calls them, on the card alone (a CUDA graph of 10 calls, replayed); and the
+layer's bf16 forward and backward (CUDA events around one call, and on the
+card alone). It prints one JSON line per process, then a table with the
+card's name and power limit. It runs only on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+THIS_TREE = Path(__file__).resolve().parents[2]
+TB, TS, D, H, F = 64, 145, 512, 4, 1024
+
+
+def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _card_ms(fn, calls: int = 10) -> float:
+    """fn's time on the card alone: a CUDA graph of `calls` calls, replayed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return _median_ms(graph.replay) / calls
+
+
+def measure(seed: int) -> dict:
+    """The numbers of one checkout: whichever `rohm_tpu_torch` is first on
+    sys.path. Its chain may stage bf16 operands in memory (round_bf16,
+    cast_weight_mats) or round f32 operands inside each product."""
+    import torch
+
+    from rohm_tpu_torch.models.blocks import TransformerEncoderLayer
+    from rohm_tpu_torch.ops import transformer_layer_train as lt
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the A/B measures the card")
+    staged = hasattr(lt, "round_bf16")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    layer = TransformerEncoderLayer(D, H, F).cuda()
+    with torch.no_grad():
+        for prm in layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape[0], generator=g, device="cuda"))
+    params = tuple(t.detach() for t in lt.layer_params(layer))
+    kp = lt.cast_weight_mats(params) if staged else params
+    wq, bqkv, wo, bo, g1, _, w1, b1, w2, b2, g2, _ = kp
+    ik = 1.0 / 0.9
+    fm = lt.flat_masks(lt.gen_dropout_masks(g, TB, TS, D, F, H, 0.1), TB * TS)
+    mp, mo, mh, mf = fm
+    x = torch.randn(TB * TS, D, generator=g, device="cuda")
+    dy = torch.randn(TB * TS, D, generator=g, device="cuda")
+
+    # every product's operands as the chain hands them over (the plain chain)
+    P = lt.PLAIN
+    c = P.cast if staged else (lambda t: t)
+    both = {"out": "both"} if staged else {}
+    _, saved = lt.layer_train_fwd(x, kp, fm, TS, H, ik, True, P)
+    xs, qkv, attn, y1s, norm1, rstd1, h1, gld, norm2, rstd2 = saved
+    dr2, df = P.ln_bwd(dy, norm2, rstd2, g2, mf, ik)
+    dfc = c(df)
+    dh1 = P.gemm(dfc, w2, bf16=True, mask=mh, inv_keep=ik, gelu=2, aux=h1, **both)
+    dh1c = dh1[1] if staged else dh1
+    dy1 = P.gemm(dh1c, w1, bf16=True, add=dr2)
+    dr1, do = P.ln_bwd(dy1, norm1, rstd1, g1, mo, ik)
+    doc = c(do)
+    dqkvc = c(P.attn_bwd(qkv, P.gemm(doc, wo, bf16=True), mp, TS, H, ik, True))
+    products = [
+        dict(a=xs, b=wq, b_t=True, bias=bqkv),
+        dict(a=attn, b=wo, b_t=True, bias=bo, mask=mo, inv_keep=ik),
+        dict(a=y1s, b=w1, b_t=True, bias=b1, mask=mh, inv_keep=ik, gelu=1, **({"out": "operand"} if staged else {})),
+        dict(a=gld, b=w2, b_t=True, bias=b2, mask=mf, inv_keep=ik),
+        dict(a=dfc, b=gld, a_t=True),
+        dict(a=dfc, b=w2, mask=mh, inv_keep=ik, gelu=2, aux=h1, **both),
+        dict(a=dh1c, b=y1s, a_t=True),
+        dict(a=dh1c, b=w1, add=dr2),
+        dict(a=doc, b=attn, a_t=True),
+        dict(a=doc, b=wo),
+        dict(a=dqkvc, b=xs, a_t=True),
+        dict(a=dqkvc, b=wq, add=dr1),
+    ]
+
+    def gemms():
+        for kw in products:
+            lt.gemm_train(bf16=True, **kw)
+
+    def attention():
+        lt.attention_train_fwd(qkv, mp, TS, H, ik, True)
+
+    def fwd():
+        return lt.layer_train_fwd(x, kp, fm, TS, H, ik, True)
+
+    _, saved_k = fwd()
+
+    def bwd():
+        lt.layer_train_bwd(dy, saved_k, kp, fm, TS, H, ik, True)
+
+    return {
+        "tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged,
+        "attention_fwd_card_ms": _card_ms(attention), "attention_fwd_ms": _median_ms(attention),
+        "gemm_12_card_ms": _card_ms(gemms), "gemm_12_ms": _median_ms(gemms),
+        "layer_fwd_ms": _median_ms(fwd), "layer_fwd_card_ms": _card_ms(fwd),
+        "layer_bwd_ms": _median_ms(bwd), "layer_bwd_card_ms": _card_ms(bwd),
+    }
+
+
+def main(argv=None) -> list:
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--other", help="the other checkout (its root directory)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.measure:
+        print(json.dumps(measure(args.seed)), flush=True)
+        return []
+    if not args.other:
+        parser.error("--other is required")
+    other = Path(args.other).resolve()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    runs = []
+    for label, tree in (("other", other), ("this", THIS_TREE), ("this", THIS_TREE), ("other", other)):
+        env = {**os.environ, "PYTHONPATH": str(tree)}
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", f"--seed={args.seed}"],
+                              cwd=tree, env=env, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {label} run failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        res = {"run": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
+        print(json.dumps(res), flush=True)
+        runs.append(res)
+    keys = [k for k in runs[0] if k.endswith("_ms")]
+    print(f"{card}; ms, runs in order " + " / ".join(r["run"] for r in runs))
+    for k in keys:
+        print(f"{k:24s} " + " / ".join(f"{r[k]:.4f}" for r in runs))
+    return runs
+
+
+if __name__ == "__main__":
+    main()

@@ -88,19 +88,56 @@ def test_training_kernels_match_plain_on_cuda():
 
 def test_training_gemm_layouts_and_split_k_on_cuda():
     """gemm_train's three layouts at ragged sizes (rows not a tile
-    multiple), with a weight gradient small enough to be split over K."""
+    multiple), with a weight gradient deep enough to be split over K, in
+    both operand modes: f32 operands, and bf16 operands in memory (TMA +
+    wgmma), where the epilogue's bf16 copy is its f32 result rounded."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    rows = 2 * 145 + 6  # 296 rows
+    rows = 8 * 145 + 6  # 1166 rows: the K of the weight gradient
     a = torch.randn(rows, 96, device="cuda", generator=g)
     w = torch.randn(160, 96, device="cuda", generator=g)  # a Linear weight [out, in]
     dy = torch.randn(rows, 160, device="cuda", generator=g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for bf16 in (False, True):
-        for kw in (dict(a=a, b=w, b_t=True), dict(a=dy, b=w), dict(a=dy, b=a, a_t=True)):
+        assert lt.plan_splits(160, 96, rows, lt.GEMM_TILES[bf16], sms)[0] > 1
+        ops = [t.to(torch.bfloat16) for t in (a, w, dy)] if bf16 else [a, w, dy]
+        aa, ww, dd = ops
+        for kw in (dict(a=aa, b=ww, b_t=True), dict(a=dd, b=ww), dict(a=dd, b=aa, a_t=True)):
             got = lt.gemm_train(bf16=bf16, **kw)
             ref = lt.gemm_train_plain(bf16=bf16, **kw)
             scale = lt.gemm_train_plain(kw["a"].abs(), kw["b"].abs(), kw.get("a_t", False),
                                         kw.get("b_t", False), bf16)
             assert ((got - ref).abs() <= 2e-5 * scale + 1e-6).all()
+        if bf16:
+            v32, v16 = lt.gemm_train(dd, ww, bf16=True, out="both")
+            assert v16.dtype == torch.bfloat16 and torch.equal(v16, v32.to(torch.bfloat16))
+            x = torch.randn(rows, 96, device="cuda", generator=g)
+            assert torch.equal(lt.round_bf16(x), x.to(torch.bfloat16))
+
+
+def test_bf16_attention_forward_on_the_tensor_cores():
+    """attention_train_fwd in the bf16 mode (one block per sequence and
+    head, tensor cores) against its plain version at the training layer's
+    S = 145, dh = 128, H = 4, for two sequences with dropout 0.1, under
+    the per-element gate of chip_smoke.py: 2^-14 inv_keep max|v| plus one
+    bf16 flip of every pd that the scores' f32 sums could push across a
+    rounding boundary. The f32-mode kernel, which rounds nothing, must
+    fall outside that gate."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, s, h, dh, ik = 2, 145, 4, 128, 1.0 / 0.9
+    d = h * dh
+    qkv = 0.7 * torch.randn(b * s, 3 * d, device="cuda", generator=g)
+    mask = (torch.rand(b, h, s, s, device="cuda", generator=g) < 0.9).to(torch.int8)
+    got = lt.attention_train_fwd(qkv, mask, s, h, ik, bf16=True)
+    ref = lt.attention_train_fwd_plain(qkv, mask, s, h, ik, bf16=True)
+    q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2).to(torch.bfloat16).float() for t in qkv.split(d, -1))
+    scale = dh ** -0.5
+    pd = torch.softmax((q @ k.transpose(-1, -2)) * scale, -1) * (mask.float() * ik)
+    rel = 2.0 * (2.0 ** -16 * scale * (q.abs() @ k.abs().transpose(-1, -2))).amax(-1, keepdim=True) + 2.0 ** -20
+    flip = (pd * (1 + rel)).to(torch.bfloat16).float() - (pd * (1 - rel)).to(torch.bfloat16).float()
+    gate = 2.0 ** -14 * ik * v.abs().max() + (flip @ v.abs()).transpose(1, 2).reshape(b * s, d)
+    assert ((got - ref).abs() <= gate).all()
+    f32_mode = lt.attention_train_fwd(qkv, mask, s, h, ik, bf16=False)
+    assert not ((f32_mode - ref).abs() <= gate).all()
 
 
 def test_stack_kernel_matches_the_k3_chain_and_plain_on_cuda():

@@ -220,11 +220,13 @@ def test_dropout_masks():
     assert all(bool((m == 1).all()) for m in lt.gen_dropout_masks(g, B, S, D, F, H, 0.0))
 
 
-@pytest.mark.parametrize("name", ["gemm", "attn_fwd", "attn_bwd", "ln_fwd", "ln_bwd", "colsum"])
+@pytest.mark.parametrize("name", ["gemm", "attn_fwd", "attn_bwd", "ln_fwd", "ln_bwd", "colsum", "cast",
+                                  "gemm_bf16"])
 def test_wrappers_never_fall_back_off_the_cpu(name):
     """A tensor that is not on the CPU goes to the kernel or raises: a
     `meta` tensor (no CUDA here) is refused, never computed plainly."""
     m = torch.empty(2 * S, D, device="meta")
+    m16 = torch.empty(2 * S, D, dtype=torch.bfloat16, device="meta")
     qkv = torch.empty(2 * S, 3 * D, device="meta")
     mask = torch.empty(2, H, S, S, dtype=torch.int8, device="meta")
     vec = torch.empty(D, device="meta")
@@ -235,16 +237,19 @@ def test_wrappers_never_fall_back_off_the_cpu(name):
         "ln_fwd": lambda: lt.layernorm_train_fwd(m, m, vec, vec),
         "ln_bwd": lambda: lt.layernorm_train_bwd(m, m, vec[:1].expand(2 * S), vec),
         "colsum": lambda: lt.colsum(m),
+        "cast": lambda: lt.round_bf16(m),
+        "gemm_bf16": lambda: lt.gemm_train(m16, m16, a_t=True, bf16=True, out="both"),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[name]()
 
 
-def test_posenet_apply_train_matches_jax():
-    """The whole training forward (embeddings, input dropout, 2 fused f32
-    layers, head) and every parameter gradient against the JAX package's
-    posenet_apply_train, with its masks: keys = split(dropout_key, L + 1),
-    the input keep-mask from keys[0], one gen_dropout_masks per layer."""
+def _posenet_train_both(dtype: str):
+    """The whole training forward (embeddings, input dropout, 2 fused
+    layers, head) of the JAX package's posenet_apply_train and the port's,
+    with the JAX masks (keys = split(dropout_key, L + 1), the input
+    keep-mask from keys[0], one gen_dropout_masks per layer), and every
+    parameter gradient of sum(out * w): ((out_j, grads_j), (out_t, port))."""
     p, layers, t_len = 0.25, 2, S - 1
     model = FlaxPoseNet(latent_dim=D, ff_size=F, num_layers=layers, num_heads=H, dropout=p)
     rng = np.random.default_rng(0)
@@ -259,10 +264,11 @@ def test_posenet_apply_train_matches_jax():
     layer_masks = [tuple(torch.from_numpy(np.array(m)) for m in jt.gen_dropout_masks(
         jax.random.key_data(keys[i + 1]), B, t_len + 1, D, F, H, p)) for i in range(layers)]
     wout = rng.standard_normal((B, t_len, 294)).astype(np.float32)
+    jdtype = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
 
     def loss(prm):
         out = jt.posenet_apply_train(prm, jnp.asarray(x_t), jnp.asarray(cond), jnp.asarray(t), drop_key,
-                                     num_layers=layers, num_heads=H, dropout_p=p, dtype=jnp.float32)
+                                     num_layers=layers, num_heads=H, dropout_p=p, dtype=jdtype)
         return jnp.sum(out * wout), out
 
     (_, out_j), g_j = jax.value_and_grad(loss, has_aux=True)(jax.tree.map(jnp.asarray, params))
@@ -270,11 +276,29 @@ def test_posenet_apply_train_matches_jax():
     port = PoseNet(latent_dim=D, ff_size=F, num_layers=layers, num_heads=H, dropout=p)
     port.load_state_dict(posenet_state_dict(params, num_layers=layers))
     out_t = lt.posenet_apply_train(port, _t(x_t), _t(cond), torch.from_numpy(t).long(),
-                                   (torch.from_numpy(keep), layer_masks), "float32")
+                                   (torch.from_numpy(keep), layer_masks), dtype)
     (out_t * _t(wout)).sum().backward()
+    grads_j = posenet_state_dict(jax.tree.map(np.asarray, g_j), num_layers=layers)
+    return (np.asarray(out_j), grads_j), (out_t.detach().numpy(), port)
+
+
+def test_posenet_apply_train_matches_jax():
+    """The f32 training forward and every parameter gradient against the
+    JAX package's posenet_apply_train (_posenet_train_both)."""
+    (out_j, ref), (out_t, port) = _posenet_train_both("float32")
     # value: f32 throughout, ~1e-5 after two layers; gradients: summed over
     # B x T of an O(1) readout, 5e-4 absolute as the layer test
-    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), atol=5e-5, rtol=1e-5)
-    ref = posenet_state_dict(jax.tree.map(np.asarray, g_j), num_layers=layers)
+    np.testing.assert_allclose(out_t, out_j, atol=5e-5, rtol=1e-5)
     for name, prm in port.named_parameters():
         np.testing.assert_allclose(prm.grad.numpy(), ref[name].numpy(), atol=5e-4, rtol=1e-4, err_msg=name)
+
+
+def test_posenet_apply_train_bf16_matches_jax():
+    """The same in the bf16 mode, at the bf16 layer test's gate: 2e-3 of
+    each output's max (test_bf16_layer_matches_jax: bf16 roundings of f32
+    values that differ in their last bits flip by one bf16 ulp)."""
+    (out_j, ref), (out_t, port) = _posenet_train_both("bfloat16")
+    outputs = [("out", out_t, out_j)] + [(n, p.grad.numpy(), ref[n].numpy()) for n, p in port.named_parameters()]
+    for name, got, want in outputs:
+        err, scale = np.abs(got - want).max(), np.abs(want).max()
+        assert err <= 2e-3 * scale + 1e-6, f"{name}: max err {err} vs scale {scale}"
