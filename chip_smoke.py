@@ -25,6 +25,10 @@ Phases (each failure ends the run with a non-zero exit code):
      f32-mode attention kernels must fall outside the bf16 gates. Then the
      whole layer's forward output, dx and its 12 parameter gradients,
      kernels against the plain chain, and its forward and backward ms.
+  4b. long sequences: every attention kernel at S = 145, 161, 167, 177,
+     209 and 1024 (2 sequences at full width) against its plain version,
+     K5 bit-identical to the K3 chain at each; then each kernel's time on
+     the card alone at S = 145, 161 and 1024 on ~9280 rows.
   5. slice: the full-width AMASS inference pipeline (TrajNet + TrajControl
      mid_dim 512, PoseNet 512d x 8 layers, synthetic SMPL-X body, cosine
      100/1000-step schedules, skating guidance, 2 iterations, lower-body
@@ -64,8 +68,8 @@ Phases (each failure ends the run with a non-zero exit code):
      `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
      Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-8; card_ms: the training kernels' time on the card
-alone, null where not measured); the last line is {"ok": true, "device":
+paths' runs of phases 5-8; card_ms and library_card_ms: the time on the
+card alone with a cold L2); the last line is {"ok": true, "device":
 {...}}.
 """
 
@@ -98,6 +102,7 @@ from rohm_tpu_torch.pipeline import RohmPipeline, amass_eval_pose_mask, traj_to_
 from rohm_tpu_torch.reprs.encode import get_repr
 from rohm_tpu_torch.reprs.schema import REPR_DIM_DICT, REPR_LIST, TRAJ_ABS_INDEX
 from rohm_tpu_torch.scripts import bench_int8_gemm_rows as k8
+from rohm_tpu_torch.scripts.ab_train_kernels import card_ms
 from rohm_tpu_torch.scripts import bench_int8_layer as k9
 
 B, S, D, H, F, LAYERS = 32, 144, 512, 4, 1024, 8
@@ -213,7 +218,7 @@ def build_phase() -> None:
     _build.library()
     log(f"[build] {lib_path} nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
     for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line.lower() or "error" in line.lower():
+        if any(w in line.lower() for w in ("registers", "spill", "error", "function properties")):
             log(f"[build] {line.strip()}")
 
 
@@ -254,55 +259,42 @@ def nbytes(*tensors) -> int:
 
 def new_stats() -> dict:
     return {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                "bound_ms": 0.0, "library_ms": None, "card_ms": None} for k in KERNELS}
-
-
-def card_ms(fn, calls: int = 10) -> float:
-    """fn's time on the card alone: a CUDA graph of `calls` calls, replayed
-    (no host launch cost inside a replay); median ms per call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up before capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    ms = median_ms(graph.replay) / calls
-    del graph
-    return ms
+                "bound_ms": 0.0, "library_ms": None, "card_ms": None, "library_card_ms": None} for k in KERNELS}
 
 
 def _time(name: str, kernel_fn, plain_fn, stats: dict, kernel: str, ops: float, moved: int,
-          kind: str | None, library_fn=None, tag: str = "kernels", rows: tuple = (),
-          card: bool = False) -> None:
-    """Median times of the kernel, its plain version and (where one exists)
-    one library call for the same function, and with `card` the kernel's
-    time on the card alone (card_ms); the bound from `ops` operations of
-    type `kind` (or `ops` a dict type -> operations, `kind` None) and
-    `moved` bytes. Each adds to the kernel's per-layer sums, and to those
-    of the TPU kernels named in `rows`."""
-    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
-    lib_ms = median_ms(library_fn) if library_fn is not None else None
-    on_card = card_ms(kernel_fn) if card else None
+          kind: str | None, library=None, tag: str = "kernels", rows: tuple = ()) -> None:
+    """Median times of the kernel (CUDA events around each call, which count
+    the host's launch cost, and on the card alone with a cold L2: card_ms),
+    of its plain version, and, where one PyTorch call computes the same
+    function, of that call (`library`: (fn, base, label), timed the same
+    two ways; with `base`, the time of fn less that of base, as for a
+    backward after its forward); the bound from `ops` operations of type
+    `kind` (or `ops` a dict type -> operations, `kind` None) and `moved`
+    bytes. Each adds to the kernel's per-layer sums, and to those of the TPU
+    kernels named in `rows`."""
+    ms, plain_ms, on_card = median_ms(kernel_fn), median_ms(plain_fn), card_ms(kernel_fn)
+    lib_ms = lib_card = None
+    if library is not None:
+        lib_fn, lib_base, label = library
+        lib_ms, lib_card = median_ms(lib_fn), card_ms(lib_fn)
+        if lib_base is not None:
+            lib_ms, lib_card = lib_ms - median_ms(lib_base), lib_card - card_ms(lib_base)
     if isinstance(ops, dict):
         ops_ms = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     else:
         ops_ms = ops / PEAK_OPS[kind] * 1e3 if kind else 0.0
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-    alone = f", on the card alone {on_card:.4f} ms" if on_card is not None else ""
-    log(f"[{tag}] {name}: kernel {ms:.4f} ms{alone}, plain {plain_ms:.4f} ms, library {lib}, "
-        f"bound {max(ops_ms, bytes_ms):.4f} ms ({'operations' if ops_ms > bytes_ms else 'bytes'}) "
+    lib = f"{lib_ms:.4f} ms (on the card {lib_card:.4f}; {label})" if lib_ms is not None else "none"
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms, on the card {on_card:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib}, bound {max(ops_ms, bytes_ms):.4f} ms ({'operations' if ops_ms > bytes_ms else 'bytes'}) "
         f"(median of 20)")
     for key in (kernel, *rows):
         st = stats.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0,
                                     "bytes_ms": 0.0, "bound_ms": 0.0, "library_ms": None, "card_ms": None,
-                                    "launches": 0})
+                                    "library_card_ms": None, "launches": 0})
         st["ms"] += ms
-        if on_card is not None:
-            st["card_ms"] = (st.get("card_ms") or 0.0) + on_card
+        st["card_ms"] = (st.get("card_ms") or 0.0) + on_card
         st["plain_ms"] += plain_ms
         st["ops_ms"] += ops_ms
         st["bytes_ms"] += bytes_ms
@@ -310,6 +302,54 @@ def _time(name: str, kernel_fn, plain_fn, stats: dict, kernel: str, ops: float, 
         st["launches"] = st.get("launches", 0) + 1
         if lib_ms is not None:
             st["library_ms"] = (st["library_ms"] or 0.0) + lib_ms
+            st["library_card_ms"] = (st.get("library_card_ms") or 0.0) + lib_card
+
+
+def lib(fn, label: str = "torch", base=None) -> tuple:
+    """A library yardstick for _time."""
+    return fn, base, label
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_library(q, k, v, grad=None) -> tuple:
+    """scaled_dot_product_attention on q, k, v [B, H, S, dh] (with `grad`,
+    its backward: fn the forward and backward, base the forward), pinned
+    with torch.nn.attention.sdpa_kernel to the fastest backend that runs
+    these shapes on the card alone, so the yardstick does not move with
+    PyTorch's choice per call. Returns _time's `library`."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if grad is not None:
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def make(backend):
+        def fwd():
+            with sdpa_kernel(backend):
+                return tnf.scaled_dot_product_attention(q, k, v)
+
+        def both():
+            with torch.enable_grad():
+                return torch.autograd.grad(fwd(), (q, k, v), grad)
+
+        return (both, fwd) if grad is not None else (fwd, None)
+
+    best = None
+    for name in SDPA_BACKENDS:
+        fn, base = make(getattr(SDPBackend, name))
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:  # this backend does not run these shapes or dtype
+            continue
+        t = card_ms(fn) - (card_ms(base) if base is not None else 0.0)
+        if best is None or t < best[0]:
+            best = (t, fn, base, name)
+    if best is None:
+        raise RuntimeError("no scaled_dot_product_attention backend runs these shapes")
+    _, fn, base, name = best
+    return fn, base, f"SDPA {name.lower()}{' backward' if grad is not None else ''}"
 
 
 def sdpa_inputs(qkv: torch.Tensor, seq_len: int, dtype) -> list:
@@ -362,7 +402,7 @@ def kernel_phase(seed: int) -> dict:
         _time(name, lambda: l16.gemm_bf16(a, w, bias, mode),
               lambda: l16.gemm_bf16_plain(a, w, bias, mode), stats, "gemm_bf16",
               2 * a.shape[0] * a.shape[1] * w.shape[1], nbytes(a, w, bias, got), "bf16",
-              lambda: torch.matmul(a, w))
+              lib(lambda: torch.matmul(a, w), "torch.matmul"))
 
     # attention_bf16 on a QKV buffer of the layer's scale
     qkv = l16.gemm_bf16(x2, p16[0], p16[1], "qkv")
@@ -375,7 +415,7 @@ def kernel_phase(seed: int) -> dict:
     q16, k16, v16 = sdpa_inputs(qkv, S, torch.bfloat16)
     _time("attention_bf16", lambda: kc.attention_bf16(qkv, S, H),
           lambda: kc.attention_bf16_plain(qkv, S, H), stats, "attention_bf16",
-          4 * r * S * D, nbytes(qkv, got), "bf16", lambda: tnf.scaled_dot_product_attention(q16, k16, v16))
+          4 * r * S * D, nbytes(qkv, got), "bf16", sdpa_library(q16, k16, v16))
 
     # residual_layernorm, both uses in a layer
     res = randn(r, D)
@@ -394,7 +434,7 @@ def kernel_phase(seed: int) -> dict:
         _time(name, lambda: kc.residual_layernorm(a, bb, s_, b_, of, ob),
               lambda: kc.residual_layernorm_plain(a, bb, s_, b_, of, ob), stats, "residual_layernorm",
               0, nbytes(a, bb, s_, b_, *got), None,
-              lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS))
+              lib(lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS), "layer_norm"))
 
     # quant_rows_int8 on each of the layer's four GEMM inputs
     for name, a in (
@@ -435,7 +475,7 @@ def kernel_phase(seed: int) -> dict:
         _time(name, lambda: l8.gemm_int8(a, s_a, w, s_w, bias, mode),
               lambda: l8.gemm_int8_plain(a, s_a, w, s_w, bias, mode), stats, "gemm_int8",
               2 * a.shape[0] * a.shape[1] * w.shape[1], nbytes(a, s_a, w, s_w, bias, got), "int8",
-              lambda: torch._int_mm(a, w))
+              lib(lambda: torch._int_mm(a, w), "torch._int_mm"))
 
     # attention_int8 (K4) on the int8 layer's own QKV buffer
     qkv8 = l8.gemm_int8(qa, rs, p8[0], p8[1], p8[2], "bf16")
@@ -476,7 +516,7 @@ def kernel_phase(seed: int) -> dict:
         _time(name, lambda: l32.gemm_f32(a, w, bias, mode, scale, D),
               lambda: l32.gemm_f32_plain(a, w, bias, mode, scale, D), stats, "gemm_f32",
               2 * a.shape[0] * a.shape[1] * w.shape[0], nbytes(a, w, bias, got), "f32",
-              lambda: torch.matmul(a, w.t()))
+              lib(lambda: torch.matmul(a, w.t()), "torch.matmul"))
 
     qkv32 = l32.gemm_f32(x32, sa.in_proj_weight.detach(), sa.in_proj_bias.detach(), "qkv", scale, D)
     got, ref = l32.attention_f32(qkv32, S, H), l32.attention_f32_plain(qkv32, S, H)
@@ -487,7 +527,7 @@ def kernel_phase(seed: int) -> dict:
     q32, k32, v32 = sdpa_inputs(qkv32, S, torch.float32)
     _time("attention_f32", lambda: l32.attention_f32(qkv32, S, H),
           lambda: l32.attention_f32_plain(qkv32, S, H), stats, "attention_f32",
-          4 * r * S * D, nbytes(qkv32, got), "f32", lambda: tnf.scaled_dot_product_attention(q32, k32, v32))
+          4 * r * S * D, nbytes(qkv32, got), "f32", sdpa_library(q32, k32, v32))
 
     # residual_layernorm in K1's two-pass mode, var = E[(y - mu)^2]: both
     # uses in the f32 layer, on f32 inputs of the layer's scale
@@ -504,7 +544,7 @@ def kernel_phase(seed: int) -> dict:
         ysum = a + bb
         _time(name, lambda: kc.residual_layernorm(*ln_args),
               lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass",
-              0, nbytes(a, bb, s_, b_, got), None, lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS))
+              0, nbytes(a, bb, s_, b_, got), None, lib(lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS), "layer_norm"))
     # Rows of mean 1024 and spread ~1 tell the two variances apart. Their
     # values are multiples of 1/16 and every partial sum of a row stays
     # below 2^20, so each sum is exact in f32 and mu is the same in any
@@ -600,10 +640,10 @@ def _check_gemm_train(name: str, kw: dict, bf16: bool, stats: dict, kernel: str,
                    kw.get("aux") if kw.get("gelu") == 2 else None)
     _time(label, lambda: lt.gemm_train(bf16=bf16, **kw), lambda: lt.gemm_train_plain(bf16=bf16, **kw),
           stats, kernel, 2 * m * n * k, moved, "bf16" if bf16 else "f32",
-          lambda: torch.matmul(la, lb), tag="train kernels", rows=(row,), card=True)
+          lib(lambda: torch.matmul(la, lb), "torch.matmul"), tag="train kernels", rows=(row,))
 
 
-def attention_fwd_gate(qkv: torch.Tensor, mask: torch.Tensor, inv_keep: float) -> torch.Tensor:
+def attention_fwd_gate(qkv: torch.Tensor, mask: torch.Tensor, inv_keep: float, seq_len: int = TS) -> torch.Tensor:
     """Per output element of attention_train_fwd in the bf16 mode against
     its plain version: 2^-14 inv_keep max|v| for the f32 sums of the
     second product and the softmax in another order, plus one bf16 flip
@@ -618,7 +658,7 @@ def attention_fwd_gate(qkv: torch.Tensor, mask: torch.Tensor, inv_keep: float) -
     rows, d3 = qkv.shape
     d = d3 // 3
     dh = d // H
-    q, k, v = (t.reshape(rows // TS, TS, H, dh).transpose(1, 2).to(torch.bfloat16).float()
+    q, k, v = (t.reshape(rows // seq_len, seq_len, H, dh).transpose(1, 2).to(torch.bfloat16).float()
                for t in qkv.split(d, dim=-1))
     scale = dh ** -0.5
     pd = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1) * (mask.float() * inv_keep)
@@ -626,6 +666,25 @@ def attention_fwd_gate(qkv: torch.Tensor, mask: torch.Tensor, inv_keep: float) -
     rel = 2.0 * ds.amax(dim=-1, keepdim=True) + 2.0 ** -20
     flip = (pd * (1.0 + rel)).to(torch.bfloat16).float() - (pd * (1.0 - rel)).to(torch.bfloat16).float()
     return 2.0 ** -14 * inv_keep * v.abs().max() + (flip @ v.abs()).transpose(1, 2).reshape(rows, d)
+
+
+def check_bwd(name: str, got, qkv, da, mask, seq_len: int, inv_keep: float, bf16: bool, stats: dict) -> list:
+    """attention_train_bwd's dq, dk and dv against its plain version in
+    f32: 2^-10 (bf16 mode) or 1e-5 (f32 mode) of each one's max|ref|.
+    Returns (part, slice, tol, ref) for each part."""
+    d = qkv.shape[1] // 3
+    ref = lt.attention_train_bwd_plain(qkv, da, mask, seq_len, H, inv_keep, bf16)
+    ref = ref[0] if bf16 else ref
+    parts = []
+    for i, part in enumerate(("dq", "dk", "dv")):
+        blk = slice(i * d, (i + 1) * d)
+        tol = (2.0 ** -10 if bf16 else 1e-5) * ref[:, blk].abs().max().item()
+        if bf16:
+            log(f"[kernels] {name} {part}: {(got[:, blk] - ref[:, blk]).abs().max().item() / tol:.3f} of the gate")
+        _check(f"{name} {part}", got[:, blk], ref[:, blk], tol, f"{'2^-10' if bf16 else '1e-5'} of max|ref|",
+               stats, "attention_train_bwd")
+        parts.append((part, blk, tol, ref[:, blk]))
+    return parts
 
 
 def train_kernel_phase(seed: int, stats: dict) -> None:
@@ -643,6 +702,7 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
+    torch.manual_seed(seed)  # the layer's weights from the seed alone, whatever ran before
     layer = TransformerEncoderLayer(D, H, F).to(dev)
     with torch.no_grad():  # random biases and LayerNorm parameters, so every term is seen
         for prm in layer.parameters():
@@ -679,11 +739,11 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
         dy1 = P.gemm(dh1c, w1_, bf16=bf16, add=dr2)
         dr1, do = P.ln_bwd(dy1, norm1, rstd1, g1, mo, ik)
         doc = c(do)
-        dattn = P.gemm(doc, wo_, bf16=bf16)
+        dattn = P.gemm(doc, wo_, bf16=bf16, out="operand")
         dqkv = P.attn_bwd(qkv, dattn, mp, TS, H, ik, bf16)
-        dqkvc = c(dqkv)
+        dqkv, dqkvc = dqkv if bf16 else (dqkv, dqkv)
         for name, kw in (
-            ("qkv", dict(a=xc, b=wq, b_t=True, bias=bqkv)),
+            ("qkv", dict(a=xc, b=wq, b_t=True, bias=bqkv, out="operand")),
             ("out+dropout", dict(a=attn, b=wo_, b_t=True, bias=bo, mask=mo, inv_keep=ik)),
             ("ff1+gelu+dropout", dict(a=y1c, b=w1_, b_t=True, bias=b1, mask=mh, inv_keep=ik, gelu=1,
                                       out="operand")),
@@ -693,15 +753,16 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
             ("dW1", dict(a=dh1c, b=y1c, a_t=True)),
             ("dy1 (+dr2)", dict(a=dh1c, b=w1_, add=dr2)),
             ("dWo", dict(a=doc, b=attn, a_t=True)),
-            ("dattn", dict(a=doc, b=wo_)),
+            ("dattn", dict(a=doc, b=wo_, out="operand")),
             ("dWqkv", dict(a=dqkvc, b=xc, a_t=True)),
             ("dx (+dr1)", dict(a=dqkvc, b=wq, add=dr1)),
         ):
             row = f"K6 {mode}" if kw.get("b_t") else f"K7 {mode}"  # the forward products take W^T
             _check_gemm_train(name, kw, bf16, stats, f"gemm_train {mode}", row)
 
-        # attention forward: kernel and plain round q, k, v and the probs at
-        # the same points and sum in f32 in other orders. f32 mode: the
+        # attention forward, on qkv as the chain hands it over (bf16 in the
+        # bf16 mode): kernel and plain round the probs at the same points
+        # and sum in f32 in other orders. f32 mode: the
         # SIMT kernel, 1e-5 inv_keep max|v|. bf16 mode: the tensor cores'
         # sums of the scores may push a pd across a bf16 rounding boundary
         # (attention_fwd_gate); the f32-mode kernel must fall outside.
@@ -726,29 +787,26 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
         _time(f"attention_train_fwd {mode}", lambda: lt.attention_train_fwd(qkv, mp, TS, H, ik, bf16),
               lambda: lt.attention_train_fwd_plain(qkv, mp, TS, H, ik, bf16), stats, attn_fwd,
               4 * r * TS * D, nbytes(qkv, mp, got), mode,
-              lambda: tnf.scaled_dot_product_attention(qs, ks, vs), tag="train kernels",
-              rows=(f"K6 {mode}",), card=True)
-        # attention backward, per block of dq, dk, dv: f32 sum order, and
-        # in bf16 a rare flipped rounding of ds (measured 1.4e-4 to 4e-4 of
-        # max|ref|; the gate 2^-10, which the f32-mode kernel misses by 3.8x)
+              sdpa_library(qs, ks, vs), tag="train kernels", rows=(f"K6 {mode}",))
+        # attention backward, per block of dq, dk, dv (check_bwd; the bf16
+        # gate the f32-mode kernel misses); its bf16 copy (the chain's
+        # operand of dWqkv and dx) is its f32 result rounded, bit for bit
         got = lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, bf16)
-        ref = lt.attention_train_bwd_plain(qkv, dattn, mp, TS, H, ik, bf16)
-        parts = []
-        for i, part in enumerate(("dq", "dk", "dv")):
-            blk = slice(i * D, (i + 1) * D)
-            tol = (2.0 ** -10 if bf16 else 1e-5) * ref[:, blk].abs().max().item()
-            _check(f"attention_train_bwd {mode} {part}", got[:, blk], ref[:, blk], tol,
-                   f"{'2^-10' if bf16 else '1e-5'} of max|ref|", stats, "attention_train_bwd")
-            parts.append((part, blk, tol))
+        got, got16 = got if bf16 else (got, None)
+        if bf16:
+            if not torch.equal(got16, got.to(torch.bfloat16)):
+                raise AssertionError("attention_train_bwd: the bf16 copy of dqkv is not its f32 result rounded")
+            log("[train kernels] attention_train_bwd bf16: the bf16 copy of dqkv equals its f32 result rounded")
+        parts = check_bwd(f"attention_train_bwd {mode}", got, qkv, dattn, mp, TS, ik, bf16, stats)
         if bf16:
             # the bf16 gates must tell the modes apart: the f32-mode kernels
             # (no bf16 rounding of q, k, v, the probs, dA, pd or ds) held to
             # them against the bf16 plain versions must fall outside
-            f32_fwd = lt.attention_train_fwd(qkv, mp, TS, H, ik, False)
-            f32_bwd = lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, False)
+            f32_fwd = lt.attention_train_fwd(qkv.float(), mp, TS, H, ik, False)
+            f32_bwd = lt.attention_train_bwd(qkv.float(), dattn.float(), mp, TS, H, ik, False)
             inside = []
             for part, g_, r_, tol in (("fwd", f32_fwd, ref_fwd, fwd_tol),
-                                      *((p_, f32_bwd[:, b_], ref[:, b_], t_) for p_, b_, t_ in parts)):
+                                      *((p_, f32_bwd[:, b_], r_, t_) for p_, b_, t_, r_ in parts)):
                 err = (g_ - r_).abs()
                 outside = int((err > tol).sum().item())
                 log(f"[train kernels] attention_train f32-mode kernel {part} against the bf16 plain version: "
@@ -758,14 +816,11 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
             if inside:
                 raise AssertionError(f"attention_train bf16 gates pass the f32-mode kernel on {inside}: "
                                      "they cannot tell the modes apart")
-        qs, ks, vs = (t.requires_grad_() for t in sdpa_inputs(qkv, TS, dt))
-        sdpa_out = tnf.scaled_dot_product_attention(qs, ks, vs)
-        sdpa_grad = torch.randn_like(sdpa_out)
+        sdpa_grad = torch.randn_like(qs)
         _time(f"attention_train_bwd {mode}", lambda: lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, bf16),
               lambda: lt.attention_train_bwd_plain(qkv, dattn, mp, TS, H, ik, bf16), stats, attn_bwd,
-              10 * r * TS * D, nbytes(qkv, dattn, mp, got), mode,
-              lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), sdpa_grad, retain_graph=True),
-              tag="train kernels", rows=(f"K7 {mode}",), card=True)
+              10 * r * TS * D, nbytes(qkv, dattn, mp, got, got16), mode,
+              sdpa_library(qs, ks, vs, sdpa_grad), tag="train kernels", rows=(f"K7 {mode}",))
 
         # the whole layer through the autograd Function: y, dx and the 12
         # parameter gradients, kernels against the plain chain. f32: sum
@@ -808,16 +863,16 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
         if not bf16:
             continue
 
-        # round_bf16 on the six activations the chain casts: exact (the
+        # round_bf16 on the five activations the chain casts: exact (the
         # same round-to-nearest-even as torch's cast)
         for name, a, row in (("x", x, "K6 bf16"), ("attn", ref_fwd, "K6 bf16"), ("y1", y1, "K6 bf16"),
-                             ("df", df, "K7 bf16"), ("do", do, "K7 bf16"), ("dqkv", dqkv, "K7 bf16")):
+                             ("df", df, "K7 bf16"), ("do", do, "K7 bf16")):
             got = lt.round_bf16(a)
             _check(f"round_bf16 {name} [{a.shape[0]}x{a.shape[1]}]", got, lt.round_bf16_plain(a), 0.0,
                    "exact: round to nearest even", stats, "round_bf16")
             _time(f"round_bf16 {name}", lambda: lt.round_bf16(a), lambda: lt.round_bf16_plain(a), stats,
-                  "round_bf16", 0, nbytes(a, got), None, lambda: a.to(torch.bfloat16), tag="train kernels",
-                  rows=(row,), card=True)
+                  "round_bf16", 0, nbytes(a, got), None, lib(lambda: a.to(torch.bfloat16), ".to(bfloat16)"),
+                  tag="train kernels", rows=(row,))
 
         # LayerNorm forward (LN1, LN2) and backward (LN2, LN1), and the six
         # column sums: mode-independent f32 kernels, checked once
@@ -830,7 +885,7 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
             _time(f"layernorm_train_fwd {name}", lambda: lt.layernorm_train_fwd(a, b, gm, bt),
                   lambda: lt.layernorm_train_fwd_plain(a, b, gm, bt), stats, "layernorm_train_fwd",
                   0, nbytes(a, b, gm, bt, *got), None,
-                  lambda: tnf.layer_norm(rsum, (D,), gm, bt, kc.LN_EPS), tag="train kernels",
+                  lib(lambda: tnf.layer_norm(rsum, (D,), gm, bt, kc.LN_EPS), "layer_norm"), tag="train kernels",
                   rows=("K6 bf16", "K6 f32"))
         for name, d_, nrm, rs, gm, mk, a, b in (("LN2", dy, norm2, rstd2, g2, mf, y1, ffd),
                                                 ("LN1", dy1, norm1, rstd1, g1, mo, x, od)):
@@ -841,12 +896,19 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
                        "f32 row-mean order, 1e-5 of max|ref|", stats, "layernorm_train_bwd")
             rin = (a + b).requires_grad_()
             gml, btl = gm.clone().requires_grad_(), torch.zeros_like(gm).requires_grad_()
-            ln_out = tnf.layer_norm(rin, (D,), gml, btl, kc.LN_EPS)
+
+            def ln_fwd(rin=rin, gml=gml, btl=btl):
+                return tnf.layer_norm(rin, (D,), gml, btl, kc.LN_EPS)
+
+            def ln_fwd_bwd(rin=rin, gml=gml, btl=btl, d_=d_, ln_fwd=ln_fwd):
+                with torch.enable_grad():
+                    return torch.autograd.grad(ln_fwd(), (rin, gml, btl), d_)
+
             _time(f"layernorm_train_bwd {name}", lambda: lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik),
                   lambda: lt.layernorm_train_bwd_plain(d_, nrm, rs, gm, mk, ik), stats, "layernorm_train_bwd",
                   0, nbytes(d_, nrm, rs, gm, mk, *got), None,
-                  lambda: torch.autograd.grad(ln_out, (rin, gml, btl), d_, retain_graph=True),
-                  tag="train kernels", rows=("K7 bf16", "K7 f32"))
+                  lib(ln_fwd_bwd, "layer_norm backward", base=ln_fwd), tag="train kernels",
+                  rows=("K7 bf16", "K7 f32"))
         for name, a, b in (("dg2, dbe2", dy, norm2), ("db2", df, None), ("db1", dh1, None),
                            ("dg1, dbe1", dy1, norm1), ("dbo", do, None), ("dbqkv", dqkv, None)):
             got, ref = lt.colsum(a, b), lt.colsum_plain(a, b)
@@ -858,14 +920,155 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
                        "f32 sum order, 1e-5 of sum|terms|", stats, "colsum")
             _time(f"colsum {name}", lambda: lt.colsum(a, b), lambda: lt.colsum_plain(a, b), stats, "colsum",
                   0, nbytes(a, b, *got), None,
-                  (lambda: torch.einsum("rn,rn->n", a, b)) if b is not None else (lambda: a.sum(0)),
-                  tag="train kernels", rows=("K7 bf16", "K7 f32"))
+                  lib(lambda: torch.einsum("rn,rn->n", a, b), "einsum") if b is not None
+                  else lib(lambda: a.sum(0), "sum"), tag="train kernels", rows=("K7 bf16", "K7 f32"))
     for row in ("K6 bf16", "K7 bf16", "K6 f32", "K7 f32"):
         st = stats[row]
         by = "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes"
         log(f"[train kernels] {row}, its kernels one by one at one layer's shapes: {st['launches']} launches, "
-            f"kernels {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, "
+            f"kernels {st['ms']:.4f} ms (on the card {st['card_ms']:.4f}), plain {st['plain_ms']:.4f} ms, "
+            f"library {st['library_ms']:.4f} ms (on the card {st['library_card_ms']:.4f}), "
             f"bound {st['bound_ms']:.4f} ms ({by})")
+    # a cold L2 keeps every time on the card at or above its bound: the
+    # casts, the most memory-bound kernel, show it
+    st = stats["round_bf16"]
+    log(f"[train kernels] round_bf16 on the card {st['card_ms']:.4f} ms against its bound {st['bound_ms']:.4f} ms")
+    if st["card_ms"] < st["bound_ms"]:
+        raise AssertionError("round_bf16 beats its memory bound: card_ms does not see a cold L2")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: every attention kernel at long sequences
+# ---------------------------------------------------------------------------
+
+# the shipped training length, one past each kernel's old single-tile limit
+# at dh = 128 (160: attention_train forward bf16 and backward; 166:
+# attention_f32 and the f32 training forward; 176: attention_bf16, K5 and
+# attention_int8; 208: the limit attention_int8's header once stated), and
+# 1024
+LONG_S = (145, 161, 167, 177, 209, 1024)
+LONG_B = 2  # sequences per call
+
+
+def chain_attention_operands(params: tuple, fm: tuple, x, dy, seq_len: int, inv_keep: float, bf16: bool):
+    """qkv and d(attn) as the plain training chain hands them to the
+    attention backward (bf16 in the bf16 mode), for x and dy [R, D]."""
+    seen = {}
+
+    def attn_bwd(qkv, da, *args, **kw):
+        seen["qkv"], seen["da"] = qkv, da
+        return lt.attention_train_bwd_plain(qkv, da, *args, **kw)
+
+    k = lt.PLAIN._replace(attn_bwd=attn_bwd)
+    kp = lt.cast_weight_mats(params) if bf16 else params
+    _, saved = lt.layer_train_fwd(x, kp, fm, seq_len, H, inv_keep, bf16, k)
+    lt.layer_train_bwd(dy, saved, kp, fm, seq_len, H, inv_keep, bf16, k)
+    return seen["qkv"], seen["da"]
+
+
+def long_seq_phase(seed: int, stats: dict) -> None:
+    """Each attention kernel of the port at every S of LONG_S, on LONG_B
+    sequences at full width (D=512, H=4, dh=128), against its plain version
+    under the gates of phases 3, 4 and 8: the inference kernels on random
+    QKV buffers, the training kernels on the operands the plain chain of a
+    random layer hands them (dropout 0.1), as phase 4; K5 (8 layers of a
+    random PoseNet) against 8 launches of the K3 chain, bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev, dh, ik = "cuda", D // H, 1.0 / 0.9
+    torch.manual_seed(seed)
+    stacked = l8.prepare_posenet_int8(PoseNet().to(dev), mega=True)["layers_stacked"]
+    layers = [tuple(t[i] for t in stacked) for i in range(LAYERS)]
+    train_layer = TransformerEncoderLayer(D, H, F).to(dev)
+    with torch.no_grad():  # random biases and LayerNorm parameters, as phase 4
+        for prm in train_layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape[0], generator=g, device=dev))
+    params = tuple(t.detach() for t in lt.layer_params(train_layer))
+    for s in LONG_S:
+        r = LONG_B * s
+        shape = f"[{LONG_B} seq x {H} heads, S={s}, dh={dh}]"
+        # inference attention: Q pre-scaled by 1/sqrt(dh), as the layers' QKV products leave it
+        qkv = torch.randn(r, 3 * D, generator=g, device=dev)
+        qkv[:, :D] *= dh ** -0.5
+        vmax = qkv[:, 2 * D:].abs().max().item()
+        _check(f"attention_f32 {shape}", l32.attention_f32(qkv, s, H), l32.attention_f32_plain(qkv, s, H),
+               1e-5 * vmax, "f32 sum order, 1e-5 of max|v|", stats, "attention_f32")
+        q16 = qkv.to(torch.bfloat16)
+        _check(f"attention_bf16 {shape}", kc.attention_bf16(q16, s, H), kc.attention_bf16_plain(q16, s, H),
+               2.0 ** -6 * vmax, "2^-6 max|v|: one bf16 flip per prob + output rounding", stats, "attention_bf16")
+        ref = l8.attention_int8_plain(q16, s, H)
+        cmax = l8.attention_int8_codes(q16, s, H)[-1].expand(LONG_B, H, s, dh).transpose(1, 2).reshape(r, D)
+        _check(f"attention_int8 {shape}", l8.attention_int8(q16, s, H), ref,
+               cmax / 127.0 + BF16_ULP * ref.float().abs(), "one prob code (vmax/127 of the column) + one bf16 ulp",
+               stats, "attention_int8")
+        x = torch.randn(LONG_B, s, D, generator=g, device=dev).to(torch.bfloat16)
+        k3 = x
+        for prep in layers:
+            k3 = l8.fused_encoder_layer_int8(k3, prep, H)
+        same = torch.equal(l8.fused_encoder_stack_int8(x, stacked, H), k3)
+        log(f"[long S] encoder_stack_int8 [{LONG_B}, {s}, {D}] x 8 layers against 8 launches of the K3 chain: "
+            f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"the stack kernel is not bit-identical to the K3 chain at S={s}")
+
+        # training attention
+        fm = lt.flat_masks(lt.gen_dropout_masks(g, LONG_B, s, D, F, H, 0.1), r)
+        mask = fm[0]
+        xt, dy = torch.randn(r, D, generator=g, device=dev), torch.randn(r, D, generator=g, device=dev)
+        for bf16 in (True, False):
+            mode = "bf16" if bf16 else "f32"
+            qq, dd = chain_attention_operands(params, fm, xt, dy, s, ik, bf16)
+            got = lt.attention_train_fwd(qq, mask, s, H, ik, bf16)
+            ref = lt.attention_train_fwd_plain(qq, mask, s, H, ik, bf16)
+            vmax = qq[:, 2 * D:].float().abs().max().item()
+            tol = attention_fwd_gate(qq, mask, ik, s) if bf16 else 1e-5 * ik * vmax
+            _check(f"attention_train_fwd {mode} {shape}", got, ref, tol,
+                   "per element: 2^-14 inv_keep max|v| + one bf16 flip of each pd the score sums could move"
+                   if bf16 else "1e-5 inv_keep max|v|", stats, "attention_train_fwd")
+            got = lt.attention_train_bwd(qq, dd, mask, s, H, ik, bf16)
+            got, got16 = got if bf16 else (got, None)
+            check_bwd(f"attention_train_bwd {mode} {shape}", got, qq, dd, mask, s, ik, bf16, stats)
+            if bf16 and not torch.equal(got16, got.to(torch.bfloat16)):
+                raise AssertionError(f"attention_train_bwd: the bf16 copy of dqkv is not its f32 result at S={s}")
+    torch.cuda.synchronize()
+
+
+def long_seq_timing(seed: int) -> None:
+    """Each attention kernel's time on the card alone (card_ms) at S = 145
+    (one key tile), 161 (two tiles: the sweeps for the rows' max and sum)
+    and 1024, on about the training batch's rows (9280: 64, 57 and 9
+    sequences; random inputs), and per B S^2, the attention's work. Where
+    the tiled path at 161 costs per B S^2 what the one-tile path costs at
+    145, the one-tile path does not pay for itself. K5 (8 layers, a
+    cooperative launch) by events on 4608 rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dh, ik = D // H, 1.0 / 0.9
+    torch.manual_seed(seed)
+    stacked = l8.prepare_posenet_int8(PoseNet().cuda(), mega=True)["layers_stacked"]
+    for s in (145, 161, 1024):
+        b = 9280 // s
+        qkv = torch.randn(b * s, 3 * D, generator=g, device="cuda")
+        qkv[:, :D] *= dh ** -0.5
+        q16 = qkv.to(torch.bfloat16)
+        da = torch.randn(b * s, D, generator=g, device="cuda")
+        da16 = da.to(torch.bfloat16)
+        mask = lt.gen_dropout_masks(g, b, s, D, F, H, 0.1)[0]
+        for name, fn in (("attention_f32", lambda: l32.attention_f32(qkv, s, H)),
+                         ("attention_bf16", lambda: kc.attention_bf16(q16, s, H)),
+                         ("attention_int8", lambda: l8.attention_int8(q16, s, H)),
+                         ("attention_train_fwd bf16", lambda: lt.attention_train_fwd(q16, mask, s, H, ik, True)),
+                         ("attention_train_fwd f32", lambda: lt.attention_train_fwd(qkv, mask, s, H, ik, False)),
+                         ("attention_train_bwd bf16", lambda: lt.attention_train_bwd(q16, da16, mask, s, H, ik, True)),
+                         ("attention_train_bwd f32", lambda: lt.attention_train_bwd(qkv, da, mask, s, H, ik, False))):
+            t = card_ms(fn, calls=3, reps=5)
+            log(f"[long S timing] {name} [{b} seq x {H} heads, S={s}, dh={dh}]: on the card {t:.4f} ms, "
+                f"{1e6 * t / (b * s * s):.4f} ns per B S^2")
+        bk = 4608 // s
+        x = torch.randn(bk, s, D, generator=g, device="cuda").to(torch.bfloat16)
+        t = median_ms(lambda: l8.fused_encoder_stack_int8(x, stacked, H), reps=5)
+        log(f"[long S timing] encoder_stack_int8 [{bk}, {s}, {D}] x 8 layers: by events {t:.4f} ms, "
+            f"{1e6 * t / (bk * s * s):.4f} ns per B S^2")
     torch.cuda.synchronize()
 
 
@@ -1127,8 +1330,9 @@ def write_train_tree(root: Path, body, train_seqs: int, test_seqs: int, seed: in
 def expected_train_launches(mode: str, steps: int) -> dict:
     """Per optimizer step and layer, the chain runs 12 products, one
     attention forward and backward, two LayerNorms each way and six column
-    sums, and in bf16 mode six casts of activation operands (x, attn, y1;
-    df, do, dqkv); the plain path ("") launches no kernel."""
+    sums, and in bf16 mode five casts of activation operands (x, attn, y1;
+    df, do: qkv, dattn and dqkv come as bf16 from the kernels that make
+    them); the plain path ("") launches no kernel."""
     out = dict.fromkeys(KERNELS, 0)
     if not mode:
         return out
@@ -1136,7 +1340,7 @@ def expected_train_launches(mode: str, steps: int) -> dict:
     per_layer = {gemm: 12, "attention_train_fwd": 1, "attention_train_bwd": 1,
                  "layernorm_train_fwd": 2, "layernorm_train_bwd": 2, "colsum": 6}
     if mode == "bfloat16":
-        per_layer["round_bf16"] = 6
+        per_layer["round_bf16"] = 5
     for name, k in per_layer.items():
         out[name] = k * LAYERS * steps
     return out
@@ -1159,6 +1363,7 @@ def train_timing(loop, mode: str) -> dict:
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # allocated before the steps (the model, the optimizer, earlier phases)
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -1202,11 +1407,11 @@ def train_timing(loop, mode: str) -> dict:
     step_ms = statistics.median(times)
     log(f"[train] --fused_train={mode!r}: {step_ms:.2f} ms per optimizer step (host clock, median of 10 "
         f"after 3 warm-up; batch {TB} x {frames} frames), peak memory of the steps "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above what was allocated before them")
     for name, v in ms.items():
         log(f"[train]   {name}: {v:.3f} ms (median of 20)")
     busy = device_busy(step, 5, f"--fused_train={mode!r} optimizer steps", "train")
-    return {"step_ms": step_ms, "pieces_ms": ms, "busy": busy, "steps_peak_bytes": peak}
+    return {"step_ms": step_ms, "pieces_ms": ms, "busy": busy, "steps_peak_bytes": peak, "held_bytes": held}
 
 
 def train_phase(seed: int, work: Path, body_path: Path) -> dict:
@@ -1595,6 +1800,8 @@ def main(argv=None) -> None:
     build_phase()
     stats = kernel_phase(args.seed)
     train_kernel_phase(args.seed, stats)
+    long_seq_phase(args.seed, stats)
+    long_seq_timing(args.seed)
     sl = slice_phase(args.seed, N_INT8, N_BF16)
     work = Path(".chipscratch") / "smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1619,7 +1826,7 @@ def main(argv=None) -> None:
             "launches": sum(ph["launches"][name] for ph in (sl, train, cli, bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
-            "library_ms": st["library_ms"], "card_ms": st["card_ms"],
+            "library_ms": st["library_ms"], "card_ms": st["card_ms"], "library_card_ms": st["library_card_ms"],
         })
     unused = [k["name"] for k in kernels if k["launches"] == 0]
     if unused:

@@ -1,8 +1,9 @@
 """Shared NN blocks (reference model/heads.py), PyTorch edition.
 
 The port of rohm_tpu/models/blocks.py. Parameter names follow the reference
-state_dict (as mapped in rohm_tpu/utils/convert_torch_ckpt.py), so released
-`.pt` checkpoints load without conversion. The convolution blocks compute
+state_dict (as mapped in rohm_tpu/utils/convert_torch_ckpt.py), so that a
+loader of the released `.pt` checkpoints can take them as they are; the
+port's `load_pretrained` reads only `.npz` for now. The convolution blocks compute
 in torch's [B, C, T] layout; the models transpose at their public boundary,
 which keeps the JAX package's [B, T, C].
 

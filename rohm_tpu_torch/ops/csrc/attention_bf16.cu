@@ -11,12 +11,14 @@
 //
 // Design: one block per (16-query chunk, sequence, head), reading Q, K and
 // V in place from the QKV buffer (`rohm::attention_bf16_item`,
-// layer_routines.cuh, which the whole-stack kernel runs too). K and V of
-// the whole sequence (S padded to a multiple of 16) stay in shared memory
-// with the chunk's f32 scores, bf16 probs and f32 output tile: ~103 KB at
-// S=144, dh=128, so two blocks fit on one SM. Bound: at S=144 the work is
-// small (~2.4 GFLOP per layer at B=32) and the kernel is latency-bound;
-// the 9x reload of K/V per head comes from L2.
+// layer_routines.cuh, which the whole-stack kernel runs too). K and V
+// stream through shared memory in tiles of up to 144 keys, beside the
+// chunk's f32 scores, bf16 probs and f32 output tile, so any S runs. At
+// S <= 144 (the shipped length) one tile holds every key: ~103 KB at
+// S = 144, dh = 128, two blocks per SM; a longer sequence sweeps the key
+// tiles three times (the rows' max, their sum, then the probs and P.V).
+// Bound: at S=144 the work is small (~2.4 GFLOP per layer at B=32) and the
+// kernel is latency-bound; the 9x reload of K/V per head comes from L2.
 #include "layer_routines.cuh"
 
 namespace {
@@ -24,31 +26,32 @@ namespace {
 using rohm::attn_bf16::QC;
 using rohm::attn_bf16::THREADS;
 
-template <bool NO_SOFTMAX>
+template <bool NO_SOFTMAX, bool TILED>
 __global__ void __launch_bounds__(THREADS) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S, int H, int dh,
     int s_pad) {
   extern __shared__ __align__(128) unsigned char smem[];
-  rohm::attention_bf16_item<NO_SOFTMAX>(qkv, out, S, H, dh, s_pad, blockIdx.y / H, blockIdx.y % H,
-                                        blockIdx.x * QC, smem);
+  rohm::attention_bf16_item<NO_SOFTMAX, TILED>(qkv, out, S, H, dh, s_pad, blockIdx.y / H, blockIdx.y % H,
+                                               blockIdx.x * QC, smem);
 }
 
 template <bool NO_SOFTMAX>
 int launch(const void* qkv, void* out, int B, int S, int H, int dh, cudaStream_t stream) {
   const int s_pad = (S + 15) / 16 * 16;
   const size_t smem = rohm::attn_bf16::smem_bytes(s_pad, dh);
-  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<NO_SOFTMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = rohm::attn_bf16::tiled(s_pad) ? attention_bf16_kernel<NO_SOFTMAX, true>
+                                              : attention_bf16_kernel<NO_SOFTMAX, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(s_pad / QC, B * H);
-  attention_bf16_kernel<NO_SOFTMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), S, H, dh, s_pad);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+                                          S, H, dh, s_pad);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dh must be a multiple of 16; S any length whose padded K/V fit in shared memory.
+// Any S; dh a multiple of 16 up to 256 (where a tile of 144 keys fits).
 extern "C" int rt_attention_bf16(const void* qkv, void* out, int B, int S, int H, int dh,
                                  int no_softmax, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh % 16 != 0) return (int)cudaErrorInvalidValue;

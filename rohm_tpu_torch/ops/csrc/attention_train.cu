@@ -1,10 +1,12 @@
 // attention_train: the per-(sequence, head) self-attention of the PoseNet
 // training layer, forward and backward, with dropout on the probabilities.
 //
-// Forward, out [B*S, D] from qkv [B*S, 3D] (f32, q/k/v read in place):
+// Forward, out [B*S, D] f32 from qkv [B*S, 3D] (bf16 in the bf16 mode, f32
+// in the f32 mode; q/k/v read in place):
 //   scores = c(q) . c(k)^T * scale;  p = softmax(scores) (max-subtracted f32)
 //   pd = p * (mask * inv_keep);       out = c(pd) . c(v)
-// Backward, dqkv [B*S, 3D] from qkv, dA = d(out) [B*S, D] and the mask:
+// Backward, dqkv [B*S, 3D] f32 (and in the bf16 mode, where asked, its bf16
+// copy) from qkv, dA = d(out) [B*S, D] (bf16 in the bf16 mode) and the mask:
 //   p recomputed as above; dpd = c(dA) . c(v)^T;  dv = c(pd)^T . c(dA)
 //   dp = dpd * (mask * inv_keep);   ds = (p * (dp - sum_k dp * p)) * scale
 //   dq = c(ds) . c(k);               dk = c(ds)^T . c(q)
@@ -17,74 +19,81 @@
 // Replaces the attention of rohm_tpu/ops/transformer_layer_train.py::
 // _forward_body (K6 and K7's recompute) and the attention backward of
 // _bwd_kernel (:259-301). The TPU kernel keeps every (sequence, head) of its
-// group in VMEM; an SM has 227 KB, so:
-//   forward, bf16 mode: one block per (sequence, head) reads K and V once,
-//            rounded to bf16 into shared memory (108 KB with the mask at
-//            S = 145, dh = 128: two blocks per SM, all 256 pairs of the
-//            training batch in one wave); each warp takes 16 query rows,
-//            its Q fragments straight from device memory, and runs both
-//            products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//            sums). The warp
-//            keeps its whole 16 x S score tile in registers, so the softmax
-//            is exact over the row (no online rescaling), with the rounding
-//            points of the plain version (p = e * (1 / sum), within an f32
-//            ulp of e / sum); the rounded pd passes from the accumulators of
-//            the first product into the A fragments of the second. The
-//            mask slab of the (sequence, head) is staged in shared memory
-//            with K and V. Bound: its bytes (qkv and the mask read, the
-//            output written);
-//   forward, f32 mode: one block per (48 query rows, sequence, head) with
-//            K and V in shared memory (205 KB at S = 145, dh = 128), SIMT;
-//   backward pass 1: one block per (32 query rows, sequence, head): K, V,
-//            the tile's Q then dA, its p and dp/ds rows (211 KB): writes dq
-//            and, to a scratch of [B, H, S, S] f32 each, pd and ds;
-//   backward pass 2: one block per (32 keys, sequence, head): all of the
-//            sequence's Q and dA (148 KB) and the key tile's columns of pd
-//            and ds: writes dk and dv.
-// P is recomputed from Q and K (nothing of [B, H, S, S] is kept from the
-// forward); the two-pass split keeps every sum in one block, so dq, dk and
-// dv need no atomics. Bound of the SIMT kernels: f32 FMA issue and
-// shared-memory bandwidth (2.8 GFLOP forward, 5.5 backward per layer at
-// B = 64, S = 145).
-#include "common.cuh"
+// group in VMEM; an SM has 227 KB, so the keys (or, for dk and dv, the
+// queries) stream through shared memory in tiles and any S runs. The
+// softmax is never rescaled: p is formed from the row's final max and sum,
+// found by sweeps over the key tiles (the max, then the sum) when the
+// tiles are more than one, as the plain version forms it.
+//   forward, bf16 mode: tensor cores (mma.sync m16n8k16, bf16 in, f32
+//            sums), 5 warps of 16 query rows, each keeping a 16 x 160 score
+//            tile in registers; the pd of the first product passes from its
+//            accumulators into the A fragments of the second. Up to S = 160
+//            (the shipped 145) one block per (sequence, head) stages K, V
+//            and the mask slab once (108 KB at S = 145, dh = 128: two blocks
+//            per SM, all 256 pairs of the training batch in one wave) and
+//            its warps take every row tile. A longer sequence takes one
+//            block per (80 query rows, sequence, head) and three sweeps
+//            over 160-key tiles (max, sum, then pd and P.V). Bound: its
+//            bytes (qkv and the mask read, the output written);
+//   forward, f32 mode: rohm::attn_simt::forward_block (attention_simt.cuh),
+//            SIMT, one block per (48 query rows, sequence, head), one
+//            160-key tile up to S = 160;
+//   backward, bf16 mode: no [B, H, S, S] buffer, no atomics. The score and
+//            dpd products are sequential f32 dot products on the FMA units
+//            (seq_abt: one fmaf per d, in order, which is how the plain
+//            version's f32 GEMM sums them, bit for bit), the softmax sums in
+//            the plain version's order and divides (warp_order_sum,
+//            div_rn), so p and dp are the plain version's bit for bit and
+//            the bf16 roundings of pd and ds flip only where D, a sum in
+//            another order, moves them; a tensor-core score sum moves p by
+//            an ulp often enough that a flipped ds reaches the gate of
+//            2^-10 of max|dq|. The products of the rounded operands (dq, dk,
+//            dv) run on the tensor cores. A query kernel (64 rows, 4 warps x
+//            16) stages K, V and its mask rows once up to S = 160
+//            (cp.async), keeps dp in shared memory in V's place and p in
+//            registers, then sweeps 32-key chunks for ds with dq = c(ds) .
+//            c(k); above 160 keys it sweeps 160-key tiles, restaged,
+//            recomputing p and dp in each sweep. It writes dq and, per row,
+//            max, sum and D [3, B, H, S]. A key kernel (64 keys, 4 warps x
+//            16) stages its K and V and the [S][S] mask once, sweeps 64-query
+//            tiles, recomputes p^T and dp^T from them, and accumulates dk and
+//            dv in registers. 4 S x S x dh products on the FMA units and 3 on
+//            the tensor cores per (sequence, head) at S <= 160;
+//   backward, f32 mode: SIMT. A query kernel (32 rows) sweeps key tiles
+//            (every key at once up to S = 160; else 144-key tiles, four
+//            sweeps) and writes dq and, to a scratch of [B, H, S, S] f32
+//            each, pd and ds; a key kernel (32 keys) sweeps query tiles of
+//            the scratch's columns (every query at once up to S = 176) and
+//            writes dk and dv. Bound: f32 FMA issue and shared-memory
+//            bandwidth (2.8 GFLOP forward, 5.5 backward per layer at
+//            B = 64, S = 145).
+#include "attention_simt.cuh"
 
 namespace {
 
-constexpr int RM = 4;  // rows per thread task in every product
+using rohm::attn_simt::ld4;
+using rohm::attn_simt::st4;
 
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+constexpr int RM = 4;  // rows per thread task in the SIMT products
 
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  return make_float4(rnd<BF16>(v.x), rnd<BF16>(v.y), rnd<BF16>(v.z), rnd<BF16>(v.w));
-}
-
-// rows [0, nrows) of one head's q/k/v column block -> smem [rows][ld], rounded;
-// rows in [nrows, cap) are zero
-template <bool BF16>
+// rows [0, nrows) of one head's f32 column block -> smem [rows][ld]; rows
+// in [nrows, cap) are zero
 __device__ void load_rows(float* dst, int ld, const float* src, int row_stride, int nrows, int cap,
                           int dh, int tid, int nthreads) {
   const int d4 = dh / 4;
   for (int e = tid; e < cap * d4; e += nthreads) {
     const int r = e / d4, c = (e % d4) * 4;
-    st4(dst + r * ld + c, r < nrows ? rnd4<BF16>(ld4(src + (size_t)r * row_stride + c))
-                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    st4(dst + r * ld + c, r < nrows ? ld4(src + (size_t)r * row_stride + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
   }
 }
 
-// Pt[c][g*RM + i] = (X[g*RM + i] . Y[c]) * scale for every key c < S:
+// Pt[c][g*RM + i] = (X[g*RM + i] . Y[c]) (* scale) for every key c < n:
 // thread task = (RM rows of X, one row of Y)
 __device__ void products_xy(float* Pt, int ldp, const float* X, int ldx, const float* Y, int ldy,
-                            int S, int nrows_pad, int dh, float scale, bool scaled, int tid,
+                            int n, int nrows_pad, int dh, float scale, bool scaled, int tid,
                             int nthreads) {
-  for (int t = tid; t < (nrows_pad / RM) * S; t += nthreads) {
-    const int g = t / S, c = t % S;
+  for (int t = tid; t < (nrows_pad / RM) * n; t += nthreads) {
+    const int g = t / n, c = t % n;
     const float* y = Y + c * ldy;
     const float* x = X + g * RM * ldx;
     float acc[RM];
@@ -109,91 +118,19 @@ __device__ void products_xy(float* Pt, int ldp, const float* X, int ldx, const f
   }
 }
 
-// f32 softmax of row r over its S keys (one warp), in place in Pt
-__device__ __forceinline__ void softmax_row(float* Pt, int ldp, int r, int S, int lane) {
-  float mx = -INFINITY;
-  for (int c = lane; c < S; c += 32) mx = fmaxf(mx, Pt[c * ldp + r]);
-  mx = rohm::warp_max(mx);
-  float sum = 0.0f;
-  for (int c = lane; c < S; c += 32) sum += expf(Pt[c * ldp + r] - mx);
-  sum = rohm::warp_sum(sum);
-  for (int c = lane; c < S; c += 32) Pt[c * ldp + r] = __fdiv_rn(expf(Pt[c * ldp + r] - mx), sum);
-}
-
 // ---------------------------------------------------------------------------
-// forward, f32 mode: SIMT
+// forward, f32 mode: SIMT (attention_simt.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int FQT = 48, FTHREADS = 384;
-
-__global__ void __launch_bounds__(FTHREADS) attention_train_fwd_kernel(
+__global__ void __launch_bounds__(rohm::attn_simt::THREADS) attention_train_fwd_kernel(
     const float* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out, int S,
     int H, int dh, float scale, float inv_keep) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = H * dh, row_stride = 3 * D, ldk = dh + 4, ldp = FQT + 4, d4 = dh / 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * FQT;
-  const int nq = min(FQT, S - q0);
-  float* Ks = smem;          // [S][dh + 4]
-  float* Vs = Ks + S * ldk;  // [S][dh]
-  float* Qs = Vs + S * dh;   // [FQT][dh]
-  float* Pt = Qs + FQT * dh; // [S][FQT + 4]: scores, then pd, key-major
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* base = qkv + (size_t)b * S * row_stride + h * dh;
-  const int8_t* mrow = mask + ((size_t)blockIdx.y * S + q0) * S;
-
-  load_rows<false>(Ks, ldk, base + D, row_stride, S, S, dh, tid, FTHREADS);
-  load_rows<false>(Vs, dh, base + 2 * D, row_stride, S, S, dh, tid, FTHREADS);
-  load_rows<false>(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, FQT, dh, tid, FTHREADS);
-  __syncthreads();
-  products_xy(Pt, ldp, Qs, dh, Ks, ldk, S, FQT, dh, scale, true, tid, FTHREADS);
-  __syncthreads();
-  for (int r = warp; r < nq; r += FTHREADS / 32) {
-    softmax_row(Pt, ldp, r, S, lane);
-    __syncwarp();
-    for (int c = lane; c < S; c += 32) {
-      const float keep = mrow[(size_t)r * S + c] ? inv_keep : 0.0f;
-      Pt[c * ldp + r] = __fmul_rn(Pt[c * ldp + r], keep);
-    }
-  }
-  __syncthreads();
-
-  // out = pd . v: thread task = (4 query rows, 4 output columns)
-  for (int t = tid; t < (FQT / RM) * d4; t += FTHREADS) {
-    const int g = t / d4, c = (t % d4) * 4;
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int j = 0; j < S; ++j) {
-      const float4 p = ld4(Pt + j * ldp + g * RM);
-      const float4 v = ld4(Vs + j * dh + c);
-      const float pr[RM] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        acc[i][0] = fmaf(pr[i], v.x, acc[i][0]);
-        acc[i][1] = fmaf(pr[i], v.y, acc[i][1]);
-        acc[i][2] = fmaf(pr[i], v.z, acc[i][2]);
-        acc[i][3] = fmaf(pr[i], v.w, acc[i][3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = g * RM + i;
-      if (r < nq)
-        st4(out + ((size_t)b * S + q0 + r) * D + h * dh + c,
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    }
-  }
+  rohm::attn_simt::forward_block<true>(qkv, mask, out, S, H, dh, scale, inv_keep);
 }
 
 // ---------------------------------------------------------------------------
-// forward, bf16 mode: tensor cores, one block per (sequence, head)
+// tensor-core helpers (mma.sync m16n8k16, bf16 in, f32 sums)
 // ---------------------------------------------------------------------------
-
-constexpr int TC_WARPS = 5, TC_THREADS = 32 * TC_WARPS;
-constexpr int TC_MAX_S = 160, TC_MAX_DH = 128;  // registers: a 16 x 160 score tile per warp
-constexpr int TC_ROWS = 8;                      // K/V rows per warp and staging step
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -226,10 +163,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ float2 ld2_or0(const float* p, bool ok) {
-  return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.0f, 0.0f);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -240,321 +173,951 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Fragments (lane = 4 g + q): an accumulator tile [16 x 8] holds, per
-// thread, (row g, columns 2q, 2q + 1) and (row g + 8, the same columns);
-// the A fragment of a [16 x 16] slice holds (g, 2q..), (g + 8, 2q..),
-// (g, 2q + 8..), (g + 8, 2q + 8..). So two neighbouring accumulator tiles
-// of the first product are one A fragment of the second.
-__global__ void __launch_bounds__(TC_THREADS, 2) attention_train_fwd_tc_kernel(
-    const float* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out, int S,
-    int H, int dh, float scale, float inv_keep) {
-  extern __shared__ __align__(16) __nv_bfloat16 kv[];
-  const int D = H * dh, row_stride = 3 * D;
-  const int ld = dh + 8;               // bf16 per row: 16 bytes of skew keep ldmatrix conflict-free
-  const int sp = (S + 15) / 16 * 16;   // keys (and query rows) padded to 16
-  __nv_bfloat16* Ks = kv;              // [sp][ld], rows >= S zero
-  __nv_bfloat16* Vs = kv + sp * ld;
-  int8_t* Ms = reinterpret_cast<int8_t*>(Vs + sp * ld);  // the mask slab, at its address's offset mod 16
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float* base = qkv + (size_t)b * S * row_stride + h * dh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+constexpr int TC_MAX_DH = 128;
 
-  // The first row tile's c(q) A fragments are loaded now, so that their
-  // latency overlaps the staging. Fragment (lane = 4 g + q): rows g and
-  // g + 8 of the tile, columns 16 kk + 2 q (+1) and + 8 (+9).
-  float2 qraw[TC_MAX_DH / 16][4];
-  auto load_q = [&](int t) {
-    const int r_lo = 16 * t + g, r_hi = r_lo + 8;
-    const float* q_lo = base + (size_t)r_lo * row_stride;
-    const float* q_hi = base + (size_t)r_hi * row_stride;
-#pragma unroll
-    for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
-      if (16 * kk < dh) {
-        const int c = 16 * kk + 2 * q;
-        qraw[kk][0] = ld2_or0(q_lo + c, r_lo < S);
-        qraw[kk][1] = ld2_or0(q_hi + c, r_hi < S);
-        qraw[kk][2] = ld2_or0(q_lo + c + 8, r_lo < S);
-        qraw[kk][3] = ld2_or0(q_hi + c + 8, r_hi < S);
-      }
-    }
-  };
-  load_q(warp);
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+}
 
-  // K and V, each read once, rounded to bf16: each warp takes TC_ROWS rows
-  // at a time, a lane per 4 columns, so 2 * TC_ROWS loads are in flight
-  for (int r0 = TC_ROWS * warp; r0 < sp; r0 += TC_ROWS * TC_WARPS) {
-    float4 kr[TC_ROWS], vr[TC_ROWS];
+// The A fragments of the 16 rows r0..r0+15 (rows >= S zero) of a bf16
+// row-major [rows, dh] slice (row stride `stride`), for every 16-wide step
+// of dh. Fragment (lane = 4 g + q): rows g and g + 8 of the tile, columns
+// 16 kk + 2 q (+1) and + 8 (+9).
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[TC_MAX_DH / 16][4], const __nv_bfloat16* base,
+                                             int stride, int r0, int S, int dh, int lane) {
+  const int g = lane / 4, q = lane % 4, r_lo = r0 + g, r_hi = r_lo + 8;
+  const __nv_bfloat16* lo = base + (size_t)r_lo * stride;
+  const __nv_bfloat16* hi = base + (size_t)r_hi * stride;
 #pragma unroll
-    for (int u = 0; u < TC_ROWS; ++u) {
-      const bool in = r0 + u < S && 4 * lane < dh;
-      const float* row = base + (size_t)(r0 + u) * row_stride + 4 * lane;
-      kr[u] = in ? ld4(row + D) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      vr[u] = in ? ld4(row + 2 * D) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-#pragma unroll
-    for (int u = 0; u < TC_ROWS; ++u) {
-      if (r0 + u < sp && 4 * lane < dh) {
-        *reinterpret_cast<uint2*>(Ks + (r0 + u) * ld + 4 * lane) =
-            make_uint2(pack_bf16(kr[u].x, kr[u].y), pack_bf16(kr[u].z, kr[u].w));
-        *reinterpret_cast<uint2*>(Vs + (r0 + u) * ld + 4 * lane) =
-            make_uint2(pack_bf16(vr[u].x, vr[u].y), pack_bf16(vr[u].z, vr[u].w));
-      }
+  for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
+    if (16 * kk < dh) {
+      const int c = 16 * kk + 2 * q;
+      a[kk][0] = ld_pair(lo + c, r_lo < S);
+      a[kk][1] = ld_pair(hi + c, r_hi < S);
+      a[kk][2] = ld_pair(lo + c + 8, r_lo < S);
+      a[kk][3] = ld_pair(hi + c + 8, r_hi < S);
+    } else {
+      a[kk][0] = a[kk][1] = a[kk][2] = a[kk][3] = 0u;
     }
   }
-  // this (sequence, head)'s [S][S] mask: its 16-byte aligned interior in
-  // 16-byte loads, the ragged ends byte by byte; smem keeps the address's
-  // offset mod 16, so both sides stay aligned
-  const int8_t* mslab = mask + (size_t)blockIdx.x * S * S;
-  const uintptr_t m0 = reinterpret_cast<uintptr_t>(mslab), m1 = m0 + (size_t)S * S;
+}
+
+// 16 bytes from device memory to shared memory without a trip through
+// registers (cp.async: every copy of a thread in flight at once), or 16
+// zero bytes where !valid; cp_async_wait() before the barrier that
+// publishes them
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// rows [0, nrows) of a bf16 [rows, dh] slice -> smem [rows][ld] in 16-byte
+// copies (cp.async); rows [nreal, nrows) are zero
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int stride,
+                                           int nreal, int nrows, int dh, int tid, int nthreads) {
+  const int c8 = dh / 8;
+  for (int e = tid; e < nrows * c8; e += nthreads) {
+    const int r = e / c8, c = (e % c8) * 8;
+    cp_async16(dst + r * ld + c, r < nreal ? src + (size_t)r * stride + c : src, r < nreal);
+  }
+}
+
+// n contiguous bytes from src: the 16-byte aligned interior in 16-byte
+// copies (cp.async), the ragged ends byte by byte. dst (n + 16 bytes) keeps src's
+// address offset mod 16, so both sides stay aligned: src[i] lands at
+// dst[off + i], off returned.
+__device__ __forceinline__ int copy_bytes(int8_t* dst, const int8_t* src, size_t n, int tid, int nthreads) {
+  const uintptr_t m0 = reinterpret_cast<uintptr_t>(src), m1 = m0 + n;
   const uintptr_t a0 = (m0 + 15) & ~uintptr_t(15), a1 = m1 & ~uintptr_t(15);
-  const int moff = static_cast<int>(m0 & 15);
+  const int off = static_cast<int>(m0 & 15);
   if (a0 < a1) {
-    for (int i = threadIdx.x; i < static_cast<int>((a1 - a0) / 16); i += TC_THREADS)
-      *reinterpret_cast<int4*>(Ms + moff + (a0 - m0) + 16 * i) = *reinterpret_cast<const int4*>(a0 + 16 * i);
-    if (threadIdx.x < a0 - m0) Ms[moff + threadIdx.x] = mslab[threadIdx.x];
-    if (threadIdx.x < m1 - a1) Ms[moff + (a1 - m0) + threadIdx.x] = mslab[(a1 - m0) + threadIdx.x];
+    for (int i = tid; i < static_cast<int>((a1 - a0) / 16); i += nthreads)
+      cp_async16(dst + off + (a0 - m0) + 16 * i, reinterpret_cast<const void*>(a0 + 16 * i), true);
+    if (tid < a0 - m0) dst[off + tid] = src[tid];
+    if (tid < m1 - a1) dst[off + (a1 - m0) + tid] = src[(a1 - m0) + tid];
   } else {
-    for (int i = threadIdx.x; i < S * S; i += TC_THREADS) Ms[moff + i] = mslab[i];
+    for (int i = tid; i < static_cast<int>(n); i += nthreads) dst[off + i] = src[i];
   }
-  __syncthreads();
+  return off;
+}
 
-  for (int t = warp; t < sp / 16; t += TC_WARPS) {
-    const int r_lo = 16 * t + g, r_hi = r_lo + 8;  // this thread's two query rows
-    if (t != warp) load_q(t);
-    uint32_t qa[TC_MAX_DH / 16][4];
+// acc[j] (columns 8j..8j+7, j < NJ) = A . B^T over dh, with A the warp's
+// fragments and B the rows [0, n16) of a bf16 smem tile [rows][ld]
+// (ldmatrix.x4 gives two 8-row B fragments: rows 16jp + 0..7 and + 8..15,
+// dh 16kk + 0..7 and + 8..15)
+template <int NJ>
+__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)[TC_MAX_DH / 16][4],
+                                        const __nv_bfloat16* Bs, int ld, int n16, int dh, int lane) {
 #pragma unroll
-    for (int kk = 0; kk < TC_MAX_DH / 16; ++kk)
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[kk][i] = pack_bf16(qraw[kk][i].x, qraw[kk][i].y);
+  for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
+    if (16 * kk >= dh) break;
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      if (16 * jp >= n16) break;
+      const int row = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
+      const int col = 16 * kk + (((lane >> 3) & 1) << 3);
+      uint32_t b[4];
+      ldsm_x4(b, smem_u32(Bs + row * ld + col));
+      mma_bf16(acc[2 * jp], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
 
-    // scores: s[j] is keys 8j..8j+7; ldmatrix.x4 gives two key tiles' B
-    // fragments (keys 16jp + 0..7 and + 8..15, dh 16kk + 0..7 and + 8..15)
-    float s[TC_MAX_S / 8][4];
+// eight bf16 (16 bytes) -> f32
+__device__ __forceinline__ void unpack8(float (&x)[8], uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int j = 0; j < TC_MAX_S / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// acc[j] in the accumulator layout of the mma (rows g and g + 8, columns
+// 8j + 2q, +1) = a_row . B_col over dh as a sequential f32 dot product: one
+// fmaf per d, d in order, from zero. That is how the plain version's f32
+// GEMM (cuBLAS's SIMT kernels) sums each element, so the result is its
+// result bit for bit. a_lo, a_hi: the thread's two bf16 rows (16-byte
+// aligned); B: the rows [0, n16) of a bf16 smem tile [rows][ld].
+template <int NJ>
+__device__ __forceinline__ void seq_abt(float (&acc)[NJ][4], const __nv_bfloat16* a_lo, const __nv_bfloat16* a_hi,
+                                        const __nv_bfloat16* Bs, int ld, int n16, int dh, int q) {
 #pragma unroll
-    for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
-      if (16 * kk >= dh) break;
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  const __nv_bfloat16* b0 = Bs + 2 * q * ld;
+  // two 8-deep steps per pass for a short product (dh is a multiple of 16),
+  // so that one step's loads overlap the other's FMAs
+  constexpr int U = NJ <= 4 ? 2 : 1;
+#pragma unroll 1
+  for (int d0 = 0; d0 < dh; d0 += 8 * U) {
 #pragma unroll
-      for (int jp = 0; jp < TC_MAX_S / 16; ++jp) {
-        if (16 * jp >= sp) break;
-        const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
-        const int col = 16 * kk + (((lane >> 3) & 1) << 3);
-        uint32_t kb[4];
-        ldsm_x4(kb, smem_u32(Ks + key * ld + col));
-        mma_bf16(s[2 * jp], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qa[kk], kb[2], kb[3]);
+    for (int u = 0; u < U; ++u) {
+      const int d = d0 + 8 * u;
+      float xl[8], xh[8];
+      unpack8(xl, *reinterpret_cast<const uint4*>(a_lo + d));
+      unpack8(xh, *reinterpret_cast<const uint4*>(a_hi + d));
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (8 * j >= n16) break;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float xb[8];
+          unpack8(xb, *reinterpret_cast<const uint4*>(b0 + (8 * j + e) * ld + d));
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            acc[j][e] = fmaf(xl[t], xb[t], acc[j][e]);
+            acc[j][2 + e] = fmaf(xh[t], xb[t], acc[j][2 + e]);
+          }
+        }
       }
     }
+  }
+}
 
-    // exact softmax over the row: scale after the product, keys >= S out
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+// The row sum of the plain version's softmax (torch's warp softmax), in its
+// order, over values held in the accumulator layout. That softmax gives key c
+// to lane c % 32 = 8 (j % 4) + 2q + (e & 1) of a warp, which adds its keys in
+// order from zero (v[j % 4][e & 1], summed so by the caller); the lanes then
+// meet in a butterfly of offsets 16 (j % 4 ^ 2), 8 (j % 4 ^ 1), 4 and 2 (the
+// quad's lanes q ^ 2 and q ^ 1) and 1 (e & 1). Exact for S <= 1024, where
+// that softmax runs.
+__device__ __forceinline__ float warp_order_sum(const float (&v)[4][2]) {
+  float w[4][2], x[2];
 #pragma unroll
-    for (int j = 0; j < TC_MAX_S / 8; ++j) {
+  for (int m = 0; m < 4; ++m) w[m][0] = v[m][0] + v[m ^ 2][0], w[m][1] = v[m][1] + v[m ^ 2][1];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * q + (e & 1);
-        s[j][e] = col < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-    mx_lo = quad_max(mx_lo);
-    mx_hi = quad_max(mx_hi);
-    float sum_lo = 0.0f, sum_hi = 0.0f;
-#pragma unroll
-    for (int j = 0; j < TC_MAX_S / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mx_lo);
-      s[j][1] = expf(s[j][1] - mx_lo);
-      s[j][2] = expf(s[j][2] - mx_hi);
-      s[j][3] = expf(s[j][3] - mx_hi);
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
-    }
-    sum_lo = quad_sum(sum_lo);
-    sum_hi = quad_sum(sum_hi);
-    // p = e * (1 / sum): within an f32 ulp of e / sum, and a tenth of the
-    // kernel's time cheaper than 80 IEEE divisions per thread
-    const float rs_lo = __frcp_rn(sum_lo), rs_hi = __frcp_rn(sum_hi);
+  for (int t = 0; t < 2; ++t) {
+    x[t] = w[0][t] + w[1][t];
+    x[t] += __shfl_xor_sync(0xffffffffu, x[t], 2);
+    x[t] += __shfl_xor_sync(0xffffffffu, x[t], 1);
+  }
+  return x[0] + x[1];
+}
 
-    // pd = c(p * keep), packed as the second product's A fragments; the
-    // mask is read once per element
-    uint32_t pa[TC_MAX_S / 16][4];
-#pragma unroll
-    for (int j = 0; j < TC_MAX_S / 8; ++j) {
-      float pd[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r_lo : r_hi, col = 8 * j + 2 * q + (e & 1);
-        const bool kept = row < S && col < S && Ms[moff + row * S + col];
-        pd[e] = __fmul_rn(__fmul_rn(s[j][e], e < 2 ? rs_lo : rs_hi), kept ? inv_keep : 0.0f);
-      }
-      pa[j / 2][2 * (j % 2)] = pack_bf16(pd[0], pd[1]);
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pd[2], pd[3]);
-    }
+// a / b rounded to nearest, with rb = __frcp_rn(b): one correction step of
+// the product with the reciprocal (Markstein), three instructions where the
+// IEEE division takes a call; a >= 0, b >= 1, as in a softmax
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  const float q0 = __fmul_rn(a, rb);
+  return fmaf(fmaf(-q0, b, a), rb, q0);
+}
 
-    // out = c(pd) . c(v): ldmatrix.trans gives two dh tiles' B fragments
-    // (keys 16kc + 0..7 and + 8..15, dh 16np + 0..7 and + 8..15)
-    float o[TC_MAX_DH / 8][4];
+// acc[n] (dh columns 8n..8n+7) += P . B over the k-rows [0, 16 * nk16s) of
+// a bf16 smem tile [rows][ld] (row-major [k][dh]: ldmatrix.trans), with P
+// the A fragments pa[t] of k-rows 16t..16t+15
+template <int NT>
+__device__ __forceinline__ void mma_pb(float (&acc)[TC_MAX_DH / 8][4], const uint32_t (&pa)[NT][4],
+                                       const __nv_bfloat16* Bs, int ld, int nk16s, int dh, int lane) {
 #pragma unroll
-    for (int n = 0; n < TC_MAX_DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int t = 0; t < NT; ++t) {
+    if (t >= nk16s) break;
 #pragma unroll
-    for (int kc = 0; kc < TC_MAX_S / 16; ++kc) {
-      if (16 * kc >= sp) break;
-#pragma unroll
-      for (int np = 0; np < TC_MAX_DH / 16; ++np) {
-        if (16 * np >= dh) break;
-        const int key = 16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int col = 16 * np + ((lane >> 4) << 3);
-        uint32_t vb[4];
-        ldsm_x4_t(vb, smem_u32(Vs + key * ld + col));
-        mma_bf16(o[2 * np], pa[kc], vb[0], vb[1]);
-        mma_bf16(o[2 * np + 1], pa[kc], vb[2], vb[3]);
-      }
+    for (int np = 0; np < TC_MAX_DH / 16; ++np) {
+      if (16 * np >= dh) break;
+      const int row = 16 * t + (lane & 7) + (((lane >> 3) & 1) << 3);
+      const int col = 16 * np + ((lane >> 4) << 3);
+      uint32_t b[4];
+      ldsm_x4_t(b, smem_u32(Bs + row * ld + col));
+      mma_bf16(acc[2 * np], pa[t], b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], pa[t], b[2], b[3]);
     }
+  }
+}
+
+// two neighbouring accumulator tiles (columns 16t..16t+15) -> the A
+// fragment of a 16-deep step of the next product, rounded to bf16
+// (accumulator (lane = 4 g + q): (row g, columns 2q, 2q + 1), (row g + 8,
+// the same); A: (g, 2q..), (g + 8, 2q..), (g, 2q + 8..), (g + 8, 2q + 8..))
+template <int NJ>
+__device__ __forceinline__ void to_a_frags(uint32_t (&pa)[NJ / 2][4], const float (&acc)[NJ][4]) {
 #pragma unroll
-    for (int n = 0; n < TC_MAX_DH / 8; ++n) {
-      if (8 * n >= dh) break;
-      const int col = h * dh + 8 * n + 2 * q;
-      if (r_lo < S)
-        *reinterpret_cast<float2*>(out + ((size_t)b * S + r_lo) * D + col) = make_float2(o[n][0], o[n][1]);
-      if (r_hi < S)
-        *reinterpret_cast<float2*>(out + ((size_t)b * S + r_hi) * D + col) = make_float2(o[n][2], o[n][3]);
+  for (int j = 0; j < NJ; ++j) {
+    pa[j / 2][2 * (j % 2)] = pack_bf16(acc[j][0], acc[j][1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+__device__ __forceinline__ void store_rows(float* out, __nv_bfloat16* out16, int stride, int r_lo, int S,
+                                           int col0, const float (&o)[TC_MAX_DH / 8][4], int dh, int q) {
+  const int r_hi = r_lo + 8;
+#pragma unroll
+  for (int n = 0; n < TC_MAX_DH / 8; ++n) {
+    if (8 * n >= dh) break;
+    const int col = col0 + 8 * n + 2 * q;
+    if (r_lo < S) {
+      *reinterpret_cast<float2*>(out + (size_t)r_lo * stride + col) = make_float2(o[n][0], o[n][1]);
+      if (out16) *reinterpret_cast<uint32_t*>(out16 + (size_t)r_lo * stride + col) = pack_bf16(o[n][0], o[n][1]);
+    }
+    if (r_hi < S) {
+      *reinterpret_cast<float2*>(out + (size_t)r_hi * stride + col) = make_float2(o[n][2], o[n][3]);
+      if (out16) *reinterpret_cast<uint32_t*>(out16 + (size_t)r_hi * stride + col) = pack_bf16(o[n][2], o[n][3]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward pass 1: dq, and pd / ds to the scratch
+// forward, bf16 mode: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BQT = 32, BTHREADS = 256;
+constexpr int TC_WARPS = 5, TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_KT = 160;                 // keys per tile: a 16 x 160 score tile per warp in registers
+constexpr int TC_GROUP = 16 * TC_WARPS;    // query rows per block when the keys take more than one tile
 
-template <bool BF16>
+// !TILED (S <= TC_KT): one block per (sequence, head); TILED: one per
+// (TC_GROUP query rows, sequence, head). blockIdx.x = b * H + h. Two
+// instantiations, so that each path gets the registers to itself.
+template <bool TILED>
+__global__ void __launch_bounds__(TC_THREADS, 2) attention_train_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out, int S,
+    int H, int dh, float scale, float inv_keep) {
+  extern __shared__ __align__(16) __nv_bfloat16 kv[];
+  const int D = H * dh, row_stride = 3 * D;
+  const int ld = dh + 8;  // bf16 per row: 16 bytes of skew keep ldmatrix conflict-free
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride + h * dh;
+  const int8_t* mslab = mask + (size_t)bh * S * S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  __nv_bfloat16* Ks = kv;  // [keys][ld], rows past S zero
+  uint32_t qa[TC_MAX_DH / 16][4];
+  float s[TC_KT / 8][4];
+  float o[TC_MAX_DH / 8][4];
+
+  if (!TILED) {
+    const int sp = (S + 15) / 16 * 16;  // keys (and query rows) padded to 16
+    __nv_bfloat16* Vs = kv + sp * ld;
+    int8_t* Ms = reinterpret_cast<int8_t*>(Vs + sp * ld);  // the mask slab, at its address's offset mod 16
+    // the first row tile's Q fragments load now, so that their latency
+    // overlaps the staging
+    load_a_frags(qa, base, row_stride, 16 * warp, S, dh, lane);
+    stage_rows(Ks, ld, base + D, row_stride, S, sp, dh, threadIdx.x, TC_THREADS);
+    stage_rows(Vs, ld, base + 2 * D, row_stride, S, sp, dh, threadIdx.x, TC_THREADS);
+    // this (sequence, head)'s [S][S] mask
+    const int moff = copy_bytes(Ms, mslab, (size_t)S * S, threadIdx.x, TC_THREADS);
+    cp_async_wait();
+    __syncthreads();
+
+    for (int t = warp; t < sp / 16; t += TC_WARPS) {
+      const int r_lo = 16 * t + g, r_hi = r_lo + 8;  // this thread's two query rows
+      if (t != warp) load_a_frags(qa, base, row_stride, 16 * t, S, dh, lane);
+      mma_abt(s, qa, Ks, ld, sp, dh, lane);
+      // exact softmax over the row: scale after the product, keys >= S out
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TC_KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * q + (e & 1);
+          s[j][e] = col < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
+        }
+        mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+      }
+      mx_lo = quad_max(mx_lo);
+      mx_hi = quad_max(mx_hi);
+      float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+      for (int j = 0; j < TC_KT / 8; ++j) {
+        s[j][0] = expf(s[j][0] - mx_lo);
+        s[j][1] = expf(s[j][1] - mx_lo);
+        s[j][2] = expf(s[j][2] - mx_hi);
+        s[j][3] = expf(s[j][3] - mx_hi);
+        sum_lo += s[j][0] + s[j][1];
+        sum_hi += s[j][2] + s[j][3];
+      }
+      // p = e * (1 / sum): within an f32 ulp of e / sum, and a tenth of the
+      // kernel's time cheaper than 80 IEEE divisions per thread
+      const float rs_lo = __frcp_rn(quad_sum(sum_lo)), rs_hi = __frcp_rn(quad_sum(sum_hi));
+      // pd = c(p * keep) as the second product's A fragments; the mask is
+      // read once per element
+#pragma unroll
+      for (int j = 0; j < TC_KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? r_lo : r_hi, col = 8 * j + 2 * q + (e & 1);
+          const bool kept = row < S && col < S && Ms[moff + row * S + col];
+          s[j][e] = __fmul_rn(__fmul_rn(s[j][e], e < 2 ? rs_lo : rs_hi), kept ? inv_keep : 0.0f);
+        }
+      }
+      uint32_t pa[TC_KT / 16][4];
+      to_a_frags(pa, s);
+#pragma unroll
+      for (int n = 0; n < TC_MAX_DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+      mma_pb(o, pa, Vs, ld, sp / 16, dh, lane);
+      store_rows(out + (size_t)b * S * D, nullptr, D, r_lo, S, h * dh, o, dh, q);
+    }
+    return;
+  }
+
+  // S > TC_KT: this warp's 16 rows against 160-key tiles, three sweeps
+  __nv_bfloat16* Vs = kv + TC_KT * ld;
+  const int r0 = blockIdx.y * TC_GROUP + 16 * warp, r_lo = r0 + g, r_hi = r_lo + 8;
+  load_a_frags(qa, base, row_stride, r0, S, dh, lane);
+  float mx_lo = -INFINITY, mx_hi = -INFINITY, sum_lo = 0.0f, sum_hi = 0.0f, rs_lo = 0.0f, rs_hi = 0.0f;
+#pragma unroll
+  for (int n = 0; n < TC_MAX_DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int k0 = 0; k0 < S; k0 += TC_KT) {
+      const int nk = min(TC_KT, S - k0), nk16 = (nk + 15) / 16 * 16;
+      __syncthreads();
+      stage_rows(Ks, ld, base + (size_t)k0 * row_stride + D, row_stride, nk, nk16, dh, threadIdx.x, TC_THREADS);
+      if (pass == 2)
+        stage_rows(Vs, ld, base + (size_t)k0 * row_stride + 2 * D, row_stride, nk, nk16, dh, threadIdx.x, TC_THREADS);
+      cp_async_wait();
+      __syncthreads();
+      mma_abt(s, qa, Ks, ld, nk16, dh, lane);
+#pragma unroll
+      for (int j = 0; j < TC_KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * q + (e & 1), row = e < 2 ? r_lo : r_hi;
+          const float x = col < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
+          if (pass == 0) {
+            if (e < 2) mx_lo = fmaxf(mx_lo, x);
+            else mx_hi = fmaxf(mx_hi, x);
+          } else if (pass == 1) {
+            if (e < 2) sum_lo += expf(x - mx_lo);
+            else sum_hi += expf(x - mx_hi);
+          } else {
+            const bool kept = row < S && col < S && mslab[(size_t)row * S + col];
+            s[j][e] = __fmul_rn(__fmul_rn(expf(x - (e < 2 ? mx_lo : mx_hi)), e < 2 ? rs_lo : rs_hi),
+                                kept ? inv_keep : 0.0f);
+          }
+        }
+      }
+      if (pass == 2) {
+        uint32_t pa[TC_KT / 16][4];
+        to_a_frags(pa, s);
+        mma_pb(o, pa, Vs, ld, nk16 / 16, dh, lane);
+      }
+    }
+    if (pass == 0) mx_lo = quad_max(mx_lo), mx_hi = quad_max(mx_hi);
+    if (pass == 1) rs_lo = __frcp_rn(quad_sum(sum_lo)), rs_hi = __frcp_rn(quad_sum(sum_hi));
+  }
+  store_rows(out + (size_t)b * S * D, nullptr, D, r_lo, S, h * dh, o, dh, q);
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16 mode: tensor cores, a query kernel and a key kernel
+// ---------------------------------------------------------------------------
+
+constexpr int BW_THREADS = 128;  // 4 warps of 16 rows (queries or keys)
+constexpr int BW_T = 64;         // query rows (query kernel) or keys (key kernel) per block
+constexpr int BW_KT = 160;       // keys per tile of the query kernel: S <= 160 is staged once
+constexpr int BW_C = 32;         // keys (query kernel) or queries (key kernel) per register step
+constexpr int BW_SLAB = 160;     // the key kernel stages the whole [S][S] mask up to this S
+
+// bytes per key of the query kernel's V tile, which up to S = 160 then holds
+// the warps' dp (16 rows of f32 per warp)
+__host__ __device__ inline int bwd_q_v_bytes(int dh) {
+  const int v = 2 * (dh + 8), dp = 4 * 16 * (BW_THREADS / 32);
+  return v > dp ? v : dp;
+}
+size_t bwd_q_tc_smem(int S, int dh) {
+  const size_t kt = S < BW_KT ? (S + 15) / 16 * 16 : BW_KT;
+  const size_t mask = S <= BW_KT ? (size_t)BW_T * S + 16 : (size_t)BW_T * BW_KT;
+  return kt * (sizeof(__nv_bfloat16) * (dh + 8) + bwd_q_v_bytes(dh)) + mask;
+}
+size_t bwd_kv_tc_smem(int S, int dh) {
+  const size_t mask = S <= BW_SLAB ? (size_t)S * S + 16 : (size_t)BW_T * BW_T;
+  return 4 * sizeof(__nv_bfloat16) * BW_T * (dh + 8) + sizeof(float) * 4 * BW_T + mask;
+}
+
+// Query kernel: one block per (64 query rows, sequence, head); writes dq
+// (f32, and bf16 where dqkv16 is given) and stats [3][B*H][S]: the rows'
+// max, sum and D. Each thread's two rows of Q and dA are read from device
+// memory by the FMA products. ONE (S <= 160): K, V and the rows' mask slab
+// are staged once; dp of the warp's 16 rows over every key goes to shared
+// memory in V's place (after a barrier: every warp is done with V), p stays
+// in registers (a 16 x 160 tile per warp), D = sum_k dp p (as the plain
+// version defines it), then one sweep of 32-key chunks for ds and dq +=
+// c(ds) . c(k). Above that the keys come in 160-key tiles, restaged for each
+// sweep: the rows' max, their sum, D, then ds and dq, p and dp recomputed in
+// each.
+template <bool ONE>
+__global__ void __launch_bounds__(BW_THREADS, 2) attention_train_bwd_q_tc_kernel(
+    const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dA, const int8_t* __restrict__ mask,
+    float* __restrict__ dqkv, __nv_bfloat16* __restrict__ dqkv16, float* __restrict__ stats, int S, int H,
+    int dh, float scale, float inv_keep) {
+  extern __shared__ __align__(16) __nv_bfloat16 tiles[];
+  const int kt = ONE ? (S + 15) / 16 * 16 : BW_KT, ld = dh + 8;
+  __nv_bfloat16* Ks = tiles;                                           // [kt keys][ld]
+  __nv_bfloat16* Vs = Ks + kt * ld;                                    // [kt keys][ld], then the warps' dp
+  int8_t* Ms = reinterpret_cast<int8_t*>(Vs) + kt * bwd_q_v_bytes(dh);  // the block's mask rows
+  const int D = H * dh, row_stride = 3 * D;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, q0 = blockIdx.y * BW_T, nq = min(BW_T, S - q0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8, rl_lo = 16 * warp + g, rl_hi = rl_lo + 8;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride + h * dh;
+  const __nv_bfloat16* abase = dA + (size_t)b * S * D + h * dh;
+  // the thread's rows of Q and dA (a row past S reads row S - 1; its results are dropped)
+  const __nv_bfloat16* qlo = base + (size_t)min(r_lo, S - 1) * row_stride;
+  const __nv_bfloat16* qhi = base + (size_t)min(r_hi, S - 1) * row_stride;
+  const __nv_bfloat16* alo = abase + (size_t)min(r_lo, S - 1) * D;
+  const __nv_bfloat16* ahi = abase + (size_t)min(r_hi, S - 1) * D;
+  const int8_t* mrows = mask + ((size_t)bh * S + q0) * S;  // the block's rows of the [S][S] mask
+  // mask of (row rl of the block, key cl of the tile at k0): ONE keeps the
+  // rows' slab as it lies in memory (row stride S), else a [64][160] tile
+  int moff = 0;
+  const int mld = ONE ? S : BW_KT;
+  auto stage = [&](int k0, bool with_v) {
+    const int nk = min(kt, S - k0), nk16 = (nk + 15) / 16 * 16;
+    stage_rows(Ks, ld, base + (size_t)k0 * row_stride + D, row_stride, nk, nk16, dh, tid, BW_THREADS);
+    if (!with_v) return;
+    stage_rows(Vs, ld, base + (size_t)k0 * row_stride + 2 * D, row_stride, nk, nk16, dh, tid, BW_THREADS);
+    if (ONE) {
+      moff = copy_bytes(Ms, mrows, (size_t)nq * S, tid, BW_THREADS);
+    } else {
+      for (int e = tid; e < BW_T * BW_KT; e += BW_THREADS) {
+        const int rr = e / BW_KT, cc = e % BW_KT;
+        Ms[e] = rr < nq && cc < nk ? mrows[(size_t)rr * S + k0 + cc] : 0;
+      }
+    }
+  };
+  auto keep = [&](int rl, int k0, int cl) {
+    return rl < nq && k0 + cl < S && Ms[moff + rl * mld + cl] ? inv_keep : 0.0f;
+  };
+  float mx_lo = -INFINITY, mx_hi = -INFINITY, sum_lo, sum_hi, d_lo, d_hi;
+  float vl[4][2] = {}, vh[4][2] = {};  // per-lane partial sums in the warp softmax's order (warp_order_sum)
+  float o[TC_MAX_DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < TC_MAX_DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+
+  if (ONE) {
+    stage(0, true);
+    cp_async_wait();
+    __syncthreads();
+    const bool live = q0 + 16 * warp < S;  // the warp has rows
+    float* dps = reinterpret_cast<float*>(Vs) + warp * 16 * kt;  // its dp, [kt / 8][4][32 lanes]
+    // the warp's 16 rows over every key (keys 8j..8j+7 in p[j]): dp, then p
+    float p[BW_KT / 8][4];
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      if (live) seq_abt(p, pass ? qlo : alo, pass ? qhi : ahi, pass ? Ks : Vs, ld, kt, dh, q);
+      if (pass == 1) break;
+      __syncthreads();  // every warp is done with V: its place takes the warps' dp
+      if (!live) continue;
+#pragma unroll
+      for (int j = 0; j < BW_KT / 8; ++j) {
+        if (8 * j >= kt) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dps[(4 * j + e) * 32 + lane] = __fmul_rn(p[j][e], keep(e < 2 ? rl_lo : rl_hi, 0, 8 * j + 2 * q + (e & 1)));
+      }
+    }
+    if (!live) return;  // no barrier left
+#pragma unroll
+    for (int j = 0; j < BW_KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = 8 * j + 2 * q + (e & 1) < S ? __fmul_rn(p[j][e], scale) : -INFINITY;
+      mx_lo = fmaxf(mx_lo, fmaxf(p[j][0], p[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(p[j][2], p[j][3]));
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+#pragma unroll
+    for (int j = 0; j < BW_KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[j][e] = expf(p[j][e] - mx_lo);
+        p[j][2 + e] = expf(p[j][2 + e] - mx_hi);
+        vl[j % 4][e] += p[j][e];
+        vh[j % 4][e] += p[j][2 + e];
+      }
+    }
+    sum_lo = warp_order_sum(vl);
+    sum_hi = warp_order_sum(vh);
+    const float rb_lo = __frcp_rn(sum_lo), rb_hi = __frcp_rn(sum_hi);
+#pragma unroll
+    for (int j = 0; j < BW_KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[j][e] = div_rn(p[j][e], sum_lo, rb_lo);
+        p[j][2 + e] = div_rn(p[j][2 + e], sum_hi, rb_hi);
+        vl[j % 4][e] = vh[j % 4][e] = 0.0f;
+      }
+    }
+    // D = sum_k dp p, in the same order
+#pragma unroll
+    for (int j = 0; j < BW_KT / 8; ++j) {
+      if (8 * j >= kt) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        vl[j % 4][e] += __fmul_rn(dps[(4 * j + e) * 32 + lane], p[j][e]);
+        vh[j % 4][e] += __fmul_rn(dps[(4 * j + 2 + e) * 32 + lane], p[j][2 + e]);
+      }
+    }
+    d_lo = warp_order_sum(vl);
+    d_hi = warp_order_sum(vh);
+    // ds and dq += c(ds) . c(k), 32 keys at a time
+#pragma unroll
+    for (int c = 0; c < BW_KT / BW_C; ++c) {
+      if (BW_C * c >= kt) break;
+      float ds[BW_C / 8][4];
+#pragma unroll
+      for (int j = 0; j < BW_C / 8; ++j) {
+        const int jj = BW_C / 8 * c + j;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dp = 8 * jj < kt ? dps[(4 * jj + e) * 32 + lane] : 0.0f;
+          ds[j][e] = __fmul_rn(__fmul_rn(p[jj][e], __fsub_rn(dp, e < 2 ? d_lo : d_hi)), scale);
+        }
+      }
+      uint32_t pa[BW_C / 16][4];
+      to_a_frags(pa, ds);
+      mma_pb(o, pa, Ks + BW_C * c * ld, ld, min(BW_C, kt - BW_C * c) / 16, dh, lane);
+    }
+  } else {
+    // the rows' max (pass 0) and sum (pass 1) over 160-key tiles
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int k0 = 0; k0 < S; k0 += kt) {
+        __syncthreads();
+        stage(k0, false);
+        cp_async_wait();
+        __syncthreads();
+        float s[BW_KT / 8][4];
+        seq_abt(s, qlo, qhi, Ks, ld, (min(kt, S - k0) + 15) / 16 * 16, dh, q);
+#pragma unroll
+        for (int j = 0; j < BW_KT / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = k0 + 8 * j + 2 * q + (e & 1) < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
+            if (pass == 0) {
+              if (e < 2) mx_lo = fmaxf(mx_lo, x);
+              else mx_hi = fmaxf(mx_hi, x);
+            } else {  // the tiles hold whole 32-key groups: key k0 + 8j + .. is lane (8j + ..) % 32's
+              if (e < 2) vl[j % 4][e] += expf(x - mx_lo);
+              else vh[j % 4][e - 2] += expf(x - mx_hi);
+            }
+          }
+        }
+      }
+      if (pass == 0) mx_lo = quad_max(mx_lo), mx_hi = quad_max(mx_hi);
+    }
+    sum_lo = warp_order_sum(vl);
+    sum_hi = warp_order_sum(vh);
+    const float rb_lo = __frcp_rn(sum_lo), rb_hi = __frcp_rn(sum_hi);
+    // D = sum_k dp p (pass 0), then ds and dq (pass 1), 32 keys at a time
+    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) vl[m][0] = vl[m][1] = vh[m][0] = vh[m][1] = 0.0f;
+      for (int k0 = 0; k0 < S; k0 += kt) {
+        const int nk16 = (min(kt, S - k0) + 15) / 16 * 16;
+        __syncthreads();
+        stage(k0, true);
+        cp_async_wait();
+        __syncthreads();
+        for (int kc = 0; kc < nk16; kc += BW_C) {
+          const int n16 = min(BW_C, nk16 - kc);
+          float s[BW_C / 8][4], dpd[BW_C / 8][4];
+          seq_abt(s, qlo, qhi, Ks + kc * ld, ld, n16, dh, q);
+          seq_abt(dpd, alo, ahi, Vs + kc * ld, ld, n16, dh, q);
+#pragma unroll
+          for (int j = 0; j < BW_C / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int cl = kc + 8 * j + 2 * q + (e & 1);  // the key within the tile
+              const bool lo = e < 2;
+              const float x = k0 + cl < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
+              const float pp = lo ? div_rn(expf(x - mx_lo), sum_lo, rb_lo) : div_rn(expf(x - mx_hi), sum_hi, rb_hi);
+              const float dp = __fmul_rn(dpd[j][e], keep(lo ? rl_lo : rl_hi, k0, cl));
+              if (pass == 0) {
+                if (lo) vl[j][e] += __fmul_rn(dp, pp);
+                else vh[j][e - 2] += __fmul_rn(dp, pp);
+              } else {
+                s[j][e] = __fmul_rn(__fmul_rn(pp, __fsub_rn(dp, lo ? d_lo : d_hi)), scale);
+              }
+            }
+          }
+          if (pass == 1) {  // dq += c(ds) . c(k) over the chunk's keys
+            uint32_t pa[BW_C / 16][4];
+            to_a_frags(pa, s);
+            mma_pb(o, pa, Ks + kc * ld, ld, n16 / 16, dh, lane);
+          }
+        }
+      }
+      if (pass == 0) d_lo = warp_order_sum(vl), d_hi = warp_order_sum(vh);
+    }
+  }
+  if (q == 0) {
+    const size_t n = (size_t)gridDim.x * S, i = (size_t)bh * S;
+    if (r_lo < S) stats[i + r_lo] = mx_lo, stats[n + i + r_lo] = sum_lo, stats[2 * n + i + r_lo] = d_lo;
+    if (r_hi < S) stats[i + r_hi] = mx_hi, stats[n + i + r_hi] = sum_hi, stats[2 * n + i + r_hi] = d_hi;
+  }
+  store_rows(dqkv + (size_t)b * S * row_stride, dqkv16 ? dqkv16 + (size_t)b * S * row_stride : nullptr,
+             row_stride, r_lo, S, h * dh, o, dh, q);
+}
+
+// Key kernel: one block per (64 keys, sequence, head), the keys' K and V
+// staged once (and, up to S = 160, the whole [S][S] mask); sweeps 64-query
+// tiles (Q, dA and the rows' stats staged), each warp computing for its 16
+// keys s^T = k . q^T and dpd^T = v . dA^T on 32 queries at a time with the
+// query kernel's sequential products, p^T from the rows' max and sum, then
+// dv += c(pd^T) . c(dA) and dk += c(ds^T) . c(q) on the tensor cores, the
+// sums in registers.
+__global__ void __launch_bounds__(BW_THREADS, 2) attention_train_bwd_kv_tc_kernel(
+    const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dA, const int8_t* __restrict__ mask,
+    const float* __restrict__ stats, float* __restrict__ dqkv, __nv_bfloat16* __restrict__ dqkv16, int S, int H,
+    int dh, float scale, float inv_keep) {
+  extern __shared__ __align__(16) __nv_bfloat16 tiles[];
+  const int ld = dh + 8;
+  __nv_bfloat16* Ks = tiles;            // [BW_T keys][ld]
+  __nv_bfloat16* Vs = Ks + BW_T * ld;   // [BW_T keys][ld]
+  __nv_bfloat16* Qs = Vs + BW_T * ld;   // [BW_T queries][ld]
+  __nv_bfloat16* As = Qs + BW_T * ld;   // [BW_T queries][ld]
+  float* St = reinterpret_cast<float*>(As + BW_T * ld);  // [4][BW_T]: the queries' max, sum, 1 / sum, D
+  int8_t* Ms = reinterpret_cast<int8_t*>(St + 4 * BW_T);   // the mask slab, or [BW_T queries][BW_T keys]
+  const int D = H * dh, row_stride = 3 * D;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, k0 = blockIdx.y * BW_T;
+  const int nk = min(BW_T, S - k0), nk16 = (nk + 15) / 16 * 16;
+  const bool slab = S <= BW_SLAB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride + h * dh;
+  const __nv_bfloat16* abase = dA + (size_t)b * S * D + h * dh;
+  const int8_t* mslab = mask + (size_t)bh * S * S;
+  const size_t nstat = (size_t)gridDim.x * S;
+  const float* st = stats + (size_t)bh * S;
+  stage_rows(Ks, ld, base + (size_t)k0 * row_stride + D, row_stride, nk, nk16, dh, tid, BW_THREADS);
+  stage_rows(Vs, ld, base + (size_t)k0 * row_stride + 2 * D, row_stride, nk, nk16, dh, tid, BW_THREADS);
+  const int moff = slab ? copy_bytes(Ms, mslab, (size_t)S * S, tid, BW_THREADS) : 0;
+  // the thread's two keys (rows g and g + 8 of the warp's 16)
+  const __nv_bfloat16* klo = Ks + (16 * warp + g) * ld;
+  const __nv_bfloat16* vlo = Vs + (16 * warp + g) * ld;
+  float dk[TC_MAX_DH / 8][4], dv[TC_MAX_DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < TC_MAX_DH / 8; ++n)
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
+
+  for (int t0 = 0; t0 < S; t0 += BW_T) {
+    const int nq = min(BW_T, S - t0), nq16 = (nq + 15) / 16 * 16;
+    __syncthreads();
+    stage_rows(Qs, ld, base + (size_t)t0 * row_stride, row_stride, nq, nq16, dh, tid, BW_THREADS);
+    stage_rows(As, ld, abase + (size_t)t0 * D, D, nq, nq16, dh, tid, BW_THREADS);
+    if (!slab) {
+      for (int e = tid; e < BW_T * BW_T; e += BW_THREADS) {
+        const int rr = e / BW_T, cc = e % BW_T;
+        Ms[e] = rr < nq && cc < nk ? mslab[(size_t)(t0 + rr) * S + k0 + cc] : 0;
+      }
+    }
+    for (int rr = tid; rr < BW_T; rr += BW_THREADS) {
+      const bool ok = rr < nq;
+      const float sum = ok ? st[nstat + t0 + rr] : 1.0f;
+      St[rr] = ok ? st[t0 + rr] : 0.0f;
+      St[BW_T + rr] = sum;
+      St[2 * BW_T + rr] = __frcp_rn(sum);
+      St[3 * BW_T + rr] = ok ? st[2 * nstat + t0 + rr] : 0.0f;
+    }
+    cp_async_wait();
+    __syncthreads();
+    if (16 * warp >= nk16) continue;  // no keys for this warp (it still meets every barrier)
+    // the mask of (query ql of the tile, key kl of the block)
+    const int8_t* mt = slab ? Ms + moff + (size_t)t0 * S + k0 : Ms;
+    const int mld = slab ? S : BW_T;
+    for (int qc = 0; qc < nq16; qc += BW_C) {
+      const int n16 = min(BW_C, nq16 - qc);
+      float s[BW_C / 8][4], dpd[BW_C / 8][4];
+      seq_abt(s, klo, klo + 8 * ld, Qs + qc * ld, ld, n16, dh, q);
+      seq_abt(dpd, vlo, vlo + 8 * ld, As + qc * ld, ld, n16, dh, q);
+      // s -> pd^T, dpd -> ds^T (key rows g and g + 8 of the warp, queries by column)
+#pragma unroll
+      for (int j = 0; j < BW_C / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = 16 * warp + g + (e < 2 ? 0 : 8), ql = qc + 8 * j + 2 * q + (e & 1);
+          const bool ok = kl < nk && ql < nq;
+          const float p =
+              ok ? div_rn(expf(__fmul_rn(s[j][e], scale) - St[ql]), St[BW_T + ql], St[2 * BW_T + ql]) : 0.0f;
+          const float keep = ok && mt[ql * mld + kl] ? inv_keep : 0.0f;
+          const float dp = __fmul_rn(dpd[j][e], keep);
+          s[j][e] = __fmul_rn(p, keep);
+          dpd[j][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, St[3 * BW_T + ql])), scale);
+        }
+      }
+      uint32_t pa[BW_C / 16][4], sa[BW_C / 16][4];
+      to_a_frags(pa, s);
+      to_a_frags(sa, dpd);
+      mma_pb(dv, pa, As + qc * ld, ld, n16 / 16, dh, lane);
+      mma_pb(dk, sa, Qs + qc * ld, ld, n16 / 16, dh, lane);
+    }
+  }
+  const int r_lo = k0 + 16 * warp + g;
+  float* rows = dqkv + (size_t)b * S * row_stride;
+  __nv_bfloat16* rows16 = dqkv16 ? dqkv16 + (size_t)b * S * row_stride : nullptr;
+  store_rows(rows, rows16, row_stride, r_lo, S, D + h * dh, dk, dh, q);
+  store_rows(rows, rows16, row_stride, r_lo, S, 2 * D + h * dh, dv, dh, q);
+}
+
+// ---------------------------------------------------------------------------
+// backward, f32 mode: SIMT, queries then keys through a pd / ds scratch
+// ---------------------------------------------------------------------------
+
+constexpr int BQT = 32, BKT = 32, BTHREADS = 256;  // one 4 x 4 task per thread at dh = 128
+constexpr int BWD_ONE = 160;   // S <= 160: every key staged once, Q and then dA in one buffer
+constexpr int BWD_KT = 144;    // keys per tile above that, beside separate Q and dA tiles
+constexpr int BWD_QT = 176;    // queries per tile of the key kernel
+
+size_t bwd_q_smem(int S, int dh) {
+  const bool one = S <= BWD_ONE;
+  const size_t kt = one ? S : BWD_KT;
+  return sizeof(float) * (2 * kt * (dh + 4) + (one ? 1 : 2) * (size_t)BQT * dh + 2 * kt * (BQT + 4) + 3 * BQT);
+}
+size_t bwd_kv_smem(int S, int dh) {
+  const size_t qt = S < BWD_QT ? S : BWD_QT;
+  return sizeof(float) * (2 * qt * dh + 2 * qt * (BKT + 4));
+}
+
+// Query kernel: one block per (32 query rows, sequence, head); writes dq and
+// pd, ds rows to the scratch. ONE (S <= BWD_ONE) and the tiled sweeps are
+// two instantiations, so that the shipped lengths run the one-tile code
+// alone.
+template <bool ONE>
 __global__ void __launch_bounds__(BTHREADS) attention_train_bwd_q_kernel(
     const float* __restrict__ qkv, const float* __restrict__ dA, const int8_t* __restrict__ mask,
     float* __restrict__ dqkv, float* __restrict__ pd_out, float* __restrict__ ds_out, int S, int H,
     int dh, float scale, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool one = ONE;
+  const int kt = one ? S : BWD_KT;
   const int D = H * dh, row_stride = 3 * D, ldk = dh + 4, ldp = BQT + 4, d4 = dh / 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * BQT;
   const int nq = min(BQT, S - q0);
-  float* Ks = smem;            // [S][dh + 4]
-  float* Vs = Ks + S * ldk;    // [S][dh + 4]
-  float* Xs = Vs + S * ldk;    // [BQT][dh]: the tile's Q, then its dA
-  float* Pt = Xs + BQT * dh;   // [S][BQT + 4]: p
-  float* Dt = Pt + S * ldp;    // [S][BQT + 4]: dpd, then ds
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* Ks = smem;                          // [kt][dh + 4]
+  float* Vs = Ks + kt * ldk;                 // [kt][dh + 4]
+  float* Qs = Vs + kt * ldk;                 // [BQT][dh]: the tile's Q
+  float* As = one ? Qs : Qs + BQT * dh;      // [BQT][dh]: its dA (in Q's place once the scores are made)
+  float* Pt = As + BQT * dh;                 // [kt][BQT + 4]: p
+  float* Dt = Pt + kt * ldp;                 // [kt][BQT + 4]: dpd, then ds
+  float* rmax = Dt + kt * ldp;               // per row: max, sum, D
+  float* rsum = rmax + BQT;
+  float* rd = rsum + BQT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nwarps = BTHREADS / 32;
   const float* base = qkv + (size_t)b * S * row_stride + h * dh;
+  const float* abase = dA + ((size_t)b * S + q0) * D + h * dh;
   const size_t sq0 = (size_t)blockIdx.y * S + q0;  // first (b, h, query) row of the [B,H,S,S] arrays
   const int8_t* mrow = mask + sq0 * S;
 
-  load_rows<BF16>(Ks, ldk, base + D, row_stride, S, S, dh, tid, BTHREADS);
-  load_rows<BF16>(Vs, ldk, base + 2 * D, row_stride, S, S, dh, tid, BTHREADS);
-  load_rows<BF16>(Xs, dh, base + (size_t)q0 * row_stride, row_stride, nq, BQT, dh, tid, BTHREADS);
-  __syncthreads();
-  products_xy(Pt, ldp, Xs, dh, Ks, ldk, S, BQT, dh, scale, true, tid, BTHREADS);
-  __syncthreads();
-  for (int r = warp; r < nq; r += BTHREADS / 32) softmax_row(Pt, ldp, r, S, lane);
-  load_rows<BF16>(Xs, dh, dA + ((size_t)b * S + q0) * D + h * dh, D, nq, BQT, dh, tid, BTHREADS);
-  __syncthreads();
-  products_xy(Dt, ldp, Xs, dh, Vs, ldk, S, BQT, dh, 1.0f, false, tid, BTHREADS);
-  __syncthreads();
-  for (int r = warp; r < nq; r += BTHREADS / 32) {
-    float rs = 0.0f;
-    for (int c = lane; c < S; c += 32) {
-      const float keep = mrow[(size_t)r * S + c] ? inv_keep : 0.0f;
-      rs += __fmul_rn(__fmul_rn(Dt[c * ldp + r], keep), Pt[c * ldp + r]);
-    }
-    rs = rohm::warp_sum(rs);
-    for (int c = lane; c < S; c += 32) {
-      const float keep = mrow[(size_t)r * S + c] ? inv_keep : 0.0f;
-      const float p = Pt[c * ldp + r];
-      const float dp = __fmul_rn(Dt[c * ldp + r], keep);
-      const float ds = rnd<BF16>(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, rs)), scale));
-      Dt[c * ldp + r] = ds;
-      ds_out[(sq0 + r) * S + c] = ds;
-      pd_out[(sq0 + r) * S + c] = rnd<BF16>(__fmul_rn(p, keep));
-    }
-  }
-  // rows >= nq of Dt hold products of zero rows (never stored below)
-  __syncthreads();
+  // the tile [k0, k0 + nk): scores (and dpd) for the block's rows
+  auto tile = [&](int k0, int nk, bool with_v) {
+    __syncthreads();
+    load_rows(Ks, ldk, base + (size_t)k0 * row_stride + D, row_stride, nk, nk, dh, tid, BTHREADS);
+    if (with_v) load_rows(Vs, ldk, base + (size_t)k0 * row_stride + 2 * D, row_stride, nk, nk, dh, tid, BTHREADS);
+    __syncthreads();
+    products_xy(Pt, ldp, Qs, dh, Ks, ldk, nk, BQT, dh, scale, true, tid, BTHREADS);
+    if (with_v) products_xy(Dt, ldp, As, dh, Vs, ldk, nk, BQT, dh, 1.0f, false, tid, BTHREADS);
+    __syncthreads();
+  };
+  auto keep = [&](int r, int c) { return mrow[(size_t)r * S + c] ? inv_keep : 0.0f; };
 
-  // dq = c(ds) . c(k): thread task = (4 query rows, 4 columns)
-  for (int t = tid; t < (BQT / RM) * d4; t += BTHREADS) {
-    const int g = t / d4, c = (t % d4) * 4;
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int j = 0; j < S; ++j) {
-      const float4 s4 = ld4(Dt + j * ldp + g * RM);
-      const float4 k = ld4(Ks + j * ldk + c);
-      const float sr[RM] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        acc[i][0] = fmaf(sr[i], k.x, acc[i][0]);
-        acc[i][1] = fmaf(sr[i], k.y, acc[i][1]);
-        acc[i][2] = fmaf(sr[i], k.z, acc[i][2]);
-        acc[i][3] = fmaf(sr[i], k.w, acc[i][3]);
+  if (one) {
+    // every key at once: p, then dA in Q's place, dpd, then D and ds per row
+    load_rows(Ks, ldk, base + D, row_stride, S, S, dh, tid, BTHREADS);
+    load_rows(Vs, ldk, base + 2 * D, row_stride, S, S, dh, tid, BTHREADS);
+    load_rows(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, BQT, dh, tid, BTHREADS);
+    __syncthreads();
+    products_xy(Pt, ldp, Qs, dh, Ks, ldk, S, BQT, dh, scale, true, tid, BTHREADS);
+    __syncthreads();
+    for (int r = warp; r < nq; r += nwarps) {
+      float mx = -INFINITY;
+      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, Pt[c * ldp + r]);
+      mx = rohm::warp_max(mx);
+      float sum = 0.0f;
+      for (int c = lane; c < S; c += 32) sum += expf(Pt[c * ldp + r] - mx);
+      sum = rohm::warp_sum(sum);
+      for (int c = lane; c < S; c += 32) Pt[c * ldp + r] = __fdiv_rn(expf(Pt[c * ldp + r] - mx), sum);
+    }
+    load_rows(As, dh, abase, D, nq, BQT, dh, tid, BTHREADS);
+    __syncthreads();
+    products_xy(Dt, ldp, As, dh, Vs, ldk, S, BQT, dh, 1.0f, false, tid, BTHREADS);
+    __syncthreads();
+    for (int r = warp; r < nq; r += nwarps) {
+      float d = 0.0f;
+      for (int c = lane; c < S; c += 32) d += __fmul_rn(__fmul_rn(Dt[c * ldp + r], keep(r, c)), Pt[c * ldp + r]);
+      d = rohm::warp_sum(d);
+      for (int c = lane; c < S; c += 32) {
+        const float p = Pt[c * ldp + r], kp = keep(r, c);
+        const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(__fmul_rn(Dt[c * ldp + r], kp), d)), scale);
+        Dt[c * ldp + r] = ds;
+        ds_out[(sq0 + r) * S + c] = ds;
+        pd_out[(sq0 + r) * S + c] = __fmul_rn(p, kp);
       }
     }
+  } else {
+    load_rows(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, BQT, dh, tid, BTHREADS);
+    load_rows(As, dh, abase, D, nq, BQT, dh, tid, BTHREADS);
+    if (tid < BQT) rmax[tid] = -INFINITY, rsum[tid] = 0.0f, rd[tid] = 0.0f;
+    // sweeps: 0 the rows' max, 1 their sum, 2 D = sum dp p (and pd to the scratch)
+    for (int pass = 0; pass < 3; ++pass) {
+      for (int k0 = 0; k0 < S; k0 += BWD_KT) {
+        const int nk = min(BWD_KT, S - k0);
+        tile(k0, nk, pass == 2);
+        for (int r = warp; r < nq; r += nwarps) {
+          const float mx = rmax[r];
+          float v = pass == 0 ? -INFINITY : 0.0f;
+          for (int c = lane; c < nk; c += 32) {
+            const float x = Pt[c * ldp + r];
+            if (pass == 0) {
+              v = fmaxf(v, x);
+            } else if (pass == 1) {
+              v += expf(x - mx);
+            } else {
+              const float p = __fdiv_rn(expf(x - mx), rsum[r]), kp = keep(r, k0 + c);
+              v += __fmul_rn(__fmul_rn(Dt[c * ldp + r], kp), p);
+              pd_out[(sq0 + r) * S + k0 + c] = __fmul_rn(p, kp);
+            }
+          }
+          v = pass == 0 ? rohm::warp_max(v) : rohm::warp_sum(v);
+          if (lane == 0) {
+            if (pass == 0) rmax[r] = fmaxf(mx, v);
+            else if (pass == 1) rsum[r] += v;
+            else rd[r] += v;
+          }
+        }
+      }
+    }
+  }
+
+  // (multi-tile: ds = (p (dp - D)) scale per row, to the scratch) dq +=
+  // ds . k: thread task = (4 query rows, 4 columns), its sums over the keys
+  // in order j = 0, 1, ...
+  const int tasks = (BQT / RM) * d4, g = tid / d4, c4 = (tid % d4) * 4;
+  float acc[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < S; k0 += kt) {
+    const int nk = min(kt, S - k0);
+    if (!one) {
+      tile(k0, nk, true);
+      for (int r = warp; r < nq; r += nwarps) {
+        const float mx = rmax[r], sum = rsum[r], d = rd[r];
+        for (int c = lane; c < nk; c += 32) {
+          const float p = __fdiv_rn(expf(Pt[c * ldp + r] - mx), sum), kp = keep(r, k0 + c);
+          const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(__fmul_rn(Dt[c * ldp + r], kp), d)), scale);
+          Dt[c * ldp + r] = ds;
+          ds_out[(sq0 + r) * S + k0 + c] = ds;
+        }
+      }
+    }
+    // rows >= nq of Dt hold products of zero rows (never stored below)
+    __syncthreads();
+    if (tid < tasks) {
+      for (int j = 0; j < nk; ++j) {
+        const float4 s4 = ld4(Dt + j * ldp + g * RM);
+        const float4 k = ld4(Ks + j * ldk + c4);
+        const float sr[RM] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          acc[i][0] = fmaf(sr[i], k.x, acc[i][0]);
+          acc[i][1] = fmaf(sr[i], k.y, acc[i][1]);
+          acc[i][2] = fmaf(sr[i], k.z, acc[i][2]);
+          acc[i][3] = fmaf(sr[i], k.w, acc[i][3]);
+        }
+      }
+    }
+  }
+  if (tid < tasks) {
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int r = g * RM + i;
       if (r < nq)
-        st4(dqkv + ((size_t)b * S + q0 + r) * row_stride + h * dh + c,
+        st4(dqkv + ((size_t)b * S + q0 + r) * row_stride + h * dh + c4,
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward pass 2: dk and dv of a tile of keys
-// ---------------------------------------------------------------------------
-
-constexpr int BKT = 32;
-
-template <bool BF16>
+// Key kernel: one block per (32 keys, sequence, head); sweeps query tiles
+// of Q, dA and the key tile's columns of pd and ds (ONE: every query at
+// once, S <= BWD_QT); writes dk and dv.
+template <bool ONE>
 __global__ void __launch_bounds__(BTHREADS) attention_train_bwd_kv_kernel(
     const float* __restrict__ qkv, const float* __restrict__ dA, const float* __restrict__ pd,
     const float* __restrict__ ds, float* __restrict__ dqkv, int S, int H, int dh) {
   extern __shared__ __align__(16) float smem[];
+  const int qt = ONE ? S : BWD_QT;
   const int D = H * dh, row_stride = 3 * D, ldt = BKT + 4, d4 = dh / 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H, k0 = blockIdx.x * BKT;
   const int nk = min(BKT, S - k0);
-  float* Qs = smem;            // [S][dh]
-  float* As = Qs + S * dh;     // [S][dh]
-  float* Pk = As + S * dh;     // [S][BKT + 4]: pd[q][k0 + kc]
-  float* Sk = Pk + S * ldt;    // [S][BKT + 4]: ds[q][k0 + kc]
+  float* Qs = smem;             // [qt][dh]
+  float* As = Qs + qt * dh;     // [qt][dh]
+  float* Pk = As + qt * dh;     // [qt][BKT + 4]: pd[q][k0 + kc]
+  float* Sk = Pk + qt * ldt;    // [qt][BKT + 4]: ds[q][k0 + kc]
   const int tid = threadIdx.x;
   const float* base = qkv + (size_t)b * S * row_stride + h * dh;
-
-  load_rows<BF16>(Qs, dh, base, row_stride, S, S, dh, tid, BTHREADS);
-  load_rows<BF16>(As, dh, dA + (size_t)b * S * D + h * dh, D, S, S, dh, tid, BTHREADS);
   const size_t s0 = (size_t)blockIdx.y * S * S;
-  for (int e = tid; e < S * BKT; e += BTHREADS) {
-    const int q = e / BKT, kc = e % BKT;
-    const bool in = kc < nk;
-    Pk[q * ldt + kc] = in ? pd[s0 + (size_t)q * S + k0 + kc] : 0.0f;
-    Sk[q * ldt + kc] = in ? ds[s0 + (size_t)q * S + k0 + kc] : 0.0f;
-  }
-  __syncthreads();
+  // thread task = (4 keys, 4 columns): dv = pd^T . dA, dk = ds^T . q, summed
+  // over the queries in order
+  const int tasks = (BKT / RM) * d4, g = tid / d4, c4 = (tid % d4) * 4;
+  float av[RM][4], ak[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) av[i][j] = ak[i][j] = 0.0f;
 
-  // thread task = (4 keys, 4 columns): dv = pd^T . dA, dk = ds^T . q
-  for (int t = tid; t < (BKT / RM) * d4; t += BTHREADS) {
-    const int g = t / d4, c = (t % d4) * 4;
-    float av[RM][4], ak[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) av[i][j] = ak[i][j] = 0.0f;
-    for (int q = 0; q < S; ++q) {
+  for (int t0 = 0; t0 < (ONE ? 1 : S); t0 += qt) {
+    const int nq = ONE ? S : min(qt, S - t0);
+    if (!ONE) __syncthreads();
+    load_rows(Qs, dh, base + (size_t)t0 * row_stride, row_stride, nq, nq, dh, tid, BTHREADS);
+    load_rows(As, dh, dA + ((size_t)b * S + t0) * D + h * dh, D, nq, nq, dh, tid, BTHREADS);
+    for (int e = tid; e < nq * BKT; e += BTHREADS) {
+      const int q = e / BKT, kc = e % BKT;
+      const bool in = kc < nk;
+      Pk[q * ldt + kc] = in ? pd[s0 + (size_t)(t0 + q) * S + k0 + kc] : 0.0f;
+      Sk[q * ldt + kc] = in ? ds[s0 + (size_t)(t0 + q) * S + k0 + kc] : 0.0f;
+    }
+    __syncthreads();
+    if (tid >= tasks) continue;
+    for (int q = 0; q < nq; ++q) {
       const float4 p4 = ld4(Pk + q * ldt + g * RM);
       const float4 s4 = ld4(Sk + q * ldt + g * RM);
-      const float4 a = ld4(As + q * dh + c);
-      const float4 x = ld4(Qs + q * dh + c);
+      const float4 a = ld4(As + q * dh + c4);
+      const float4 x = ld4(Qs + q * dh + c4);
       const float pr[RM] = {p4.x, p4.y, p4.z, p4.w};
       const float sr[RM] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
@@ -569,26 +1132,16 @@ __global__ void __launch_bounds__(BTHREADS) attention_train_bwd_kv_kernel(
         ak[i][3] = fmaf(sr[i], x.w, ak[i][3]);
       }
     }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int kc = g * RM + i;
-      if (kc >= nk) continue;
-      float* row = dqkv + ((size_t)b * S + k0 + kc) * row_stride + h * dh + c;
-      st4(row + D, make_float4(ak[i][0], ak[i][1], ak[i][2], ak[i][3]));
-      st4(row + 2 * D, make_float4(av[i][0], av[i][1], av[i][2], av[i][3]));
-    }
   }
-}
-
-size_t fwd_smem(int S, int dh) {
-  return sizeof(float) * ((size_t)S * (dh + 4) + (size_t)S * dh + (size_t)FQT * dh +
-                          (size_t)S * (FQT + 4));
-}
-size_t bwd_q_smem(int S, int dh) {
-  return sizeof(float) * (2 * (size_t)S * (dh + 4) + (size_t)BQT * dh + 2 * (size_t)S * (BQT + 4));
-}
-size_t bwd_kv_smem(int S, int dh) {
-  return sizeof(float) * (2 * (size_t)S * dh + 2 * (size_t)S * (BKT + 4));
+  if (tid >= tasks) return;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int kc = g * RM + i;
+    if (kc >= nk) continue;
+    float* row = dqkv + ((size_t)b * S + k0 + kc) * row_stride + h * dh + c4;
+    st4(row + D, make_float4(ak[i][0], ak[i][1], ak[i][2], ak[i][3]));
+    st4(row + 2 * D, make_float4(av[i][0], av[i][1], av[i][2], av[i][3]));
+  }
 }
 
 template <typename Kernel>
@@ -596,63 +1149,90 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-bool bad_shape(int B, int S, int H, int dh) {
-  return B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh % 4 != 0;
+// as much shared memory as the SM has, so that two ~100 KB blocks share it
+template <typename Kernel>
+cudaError_t allow_two_blocks(Kernel kernel, size_t bytes) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  return err == cudaSuccess ? cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100) : err;
+}
+
+bool bad_shape(int B, int S, int H, int dh, bool bf16) {
+  return B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh % (bf16 ? 16 : 4) != 0 || dh > TC_MAX_DH;
 }
 
 }  // namespace
 
-// f32 mode: any S whose tiles fit in 227 KB of shared memory (S <= 150 at
-// dh = 128); bf16 mode: S <= 160, dh a multiple of 16 up to 128.
+// Any S; dh up to 128, a multiple of 16 in the bf16 mode (qkv bf16) and of
+// 4 in the f32 mode (qkv f32).
 extern "C" int rt_attention_train_fwd(const void* qkv, const void* mask, void* out, int B, int S,
                                       int H, int dh, float scale, float inv_keep, int bf16,
                                       void* stream) {
-  if (bad_shape(B, S, H, dh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, H, dh, bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* q = static_cast<const float*>(qkv);
   const auto* m = static_cast<const int8_t*>(mask);
   auto* o = static_cast<float*>(out);
   if (bf16) {
-    if (S > TC_MAX_S || dh % 16 || dh > TC_MAX_DH) return (int)cudaErrorInvalidValue;
-    // K and V as bf16, then the mask slab (S^2 bytes at an offset < 16)
-    const size_t smem = 2 * sizeof(__nv_bfloat16) * (size_t)((S + 15) / 16 * 16) * (dh + 8) + (size_t)S * S + 16;
-    cudaError_t err = allow_smem(attention_train_fwd_tc_kernel, smem);
-    if (err == cudaSuccess)  // as much shared memory as the SM has: two blocks share it
-      err = cudaFuncSetAttribute(attention_train_fwd_tc_kernel,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    // up to TC_KT keys: K and V of the sequence, then the mask slab (S^2
+    // bytes at an offset < 16); above: a tile of K and V
+    const size_t row = sizeof(__nv_bfloat16) * (dh + 8);
+    const size_t smem = S <= TC_KT ? 2 * row * ((S + 15) / 16 * 16) + (size_t)S * S + 16 : 2 * row * TC_KT;
+    auto kernel = S <= TC_KT ? attention_train_fwd_tc_kernel<false> : attention_train_fwd_tc_kernel<true>;
+    const cudaError_t err = allow_two_blocks(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    attention_train_fwd_tc_kernel<<<B * H, TC_THREADS, smem, s>>>(q, m, o, S, H, dh, scale, inv_keep);
+    const dim3 grid(B * H, S <= TC_KT ? 1 : (S + TC_GROUP - 1) / TC_GROUP);
+    kernel<<<grid, TC_THREADS, smem, s>>>(static_cast<const __nv_bfloat16*>(qkv), m, o, S, H, dh, scale, inv_keep);
     return (int)cudaGetLastError();
   }
-  const size_t smem = fwd_smem(S, dh);
+  const size_t smem = rohm::attn_simt::smem_bytes(S, dh);
   cudaError_t err = allow_smem(attention_train_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + FQT - 1) / FQT, B * H);
-  attention_train_fwd_kernel<<<grid, FTHREADS, smem, s>>>(q, m, o, S, H, dh, scale, inv_keep);
+  const dim3 grid((S + rohm::attn_simt::QT - 1) / rohm::attn_simt::QT, B * H);
+  attention_train_fwd_kernel<<<grid, rohm::attn_simt::THREADS, smem, s>>>(static_cast<const float*>(qkv), m, o, S,
+                                                                         H, dh, scale, inv_keep);
   return (int)cudaGetLastError();
 }
 
-// pd_scratch and ds_scratch: [B, H, S, S] f32 each, written by pass 1 and
-// read by pass 2 (stream order).
-extern "C" int rt_attention_train_bwd(const void* qkv, const void* dA, const void* mask,
-                                      void* dqkv, void* pd_scratch, void* ds_scratch, int B, int S,
-                                      int H, int dh, float scale, float inv_keep, int bf16,
-                                      void* stream) {
-  if (bad_shape(B, S, H, dh)) return (int)cudaErrorInvalidValue;
+// bf16 mode: qkv and dA bf16; dqkv f32 and, unless null, its bf16 copy
+// dqkv16; work [3, B, H, S] f32 (the rows' max, sum and D, from the query
+// kernel to the key kernel). f32 mode: qkv and dA f32; work [2, B, H,
+// S, S] f32 (pd and ds); dqkv16 unused. The two kernels run in stream order.
+extern "C" int rt_attention_train_bwd(const void* qkv, const void* dA, const void* mask, void* dqkv,
+                                      void* dqkv16, void* work, int B, int S, int H, int dh, float scale,
+                                      float inv_keep, int bf16, void* stream) {
+  if (bad_shape(B, S, H, dh, bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const int8_t*>(mask);
+  auto* out = static_cast<float*>(dqkv);
+  auto* w = static_cast<float*>(work);
+  if (bf16) {
+    const size_t smem_q = bwd_q_tc_smem(S, dh), smem_kv = bwd_kv_tc_smem(S, dh);
+    auto kq = S <= BW_KT ? attention_train_bwd_q_tc_kernel<true> : attention_train_bwd_q_tc_kernel<false>;
+    cudaError_t err = allow_two_blocks(kq, smem_q);
+    if (err == cudaSuccess) err = allow_two_blocks(attention_train_bwd_kv_tc_kernel, smem_kv);
+    if (err != cudaSuccess) return (int)err;
+    const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+    const auto* da = static_cast<const __nv_bfloat16*>(dA);
+    auto* out16 = static_cast<__nv_bfloat16*>(dqkv16);
+    const dim3 grid(B * H, (S + BW_T - 1) / BW_T);
+    kq<<<grid, BW_THREADS, smem_q, s>>>(q, da, m, out, out16, w, S, H, dh, scale, inv_keep);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    attention_train_bwd_kv_tc_kernel<<<grid, BW_THREADS, smem_kv, s>>>(q, da, m, w, out, out16, S, H, dh, scale,
+                                                                       inv_keep);
+    return (int)cudaGetLastError();
+  }
   const size_t smem_q = bwd_q_smem(S, dh), smem_kv = bwd_kv_smem(S, dh);
-  auto kq = bf16 ? attention_train_bwd_q_kernel<true> : attention_train_bwd_q_kernel<false>;
-  auto kkv = bf16 ? attention_train_bwd_kv_kernel<true> : attention_train_bwd_kv_kernel<false>;
+  auto kq = S <= BWD_ONE ? attention_train_bwd_q_kernel<true> : attention_train_bwd_q_kernel<false>;
   cudaError_t err = allow_smem(kq, smem_q);
+  auto kkv = S <= BWD_QT ? attention_train_bwd_kv_kernel<true> : attention_train_bwd_kv_kernel<false>;
   if (err == cudaSuccess) err = allow_smem(kkv, smem_kv);
   if (err != cudaSuccess) return (int)err;
   const auto* q = static_cast<const float*>(qkv);
   const auto* da = static_cast<const float*>(dA);
-  auto* pd = static_cast<float*>(pd_scratch);
-  auto* ds = static_cast<float*>(ds_scratch);
-  auto* out = static_cast<float*>(dqkv);
+  float* pd = w;
+  float* ds = w + (size_t)B * H * S * S;
   kq<<<dim3((S + BQT - 1) / BQT, B * H), BTHREADS, smem_q, s>>>(
-      q, da, static_cast<const int8_t*>(mask), out, pd, ds, S, H, dh, scale, inv_keep);
+      q, da, m, out, pd, ds, S, H, dh, scale, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kkv<<<dim3((S + BKT - 1) / BKT, B * H), BTHREADS, smem_kv, s>>>(q, da, pd, ds, out, S, H, dh);

@@ -106,7 +106,10 @@ __device__ __forceinline__ void gemm_phase(const int8_t* A, const float* rs, con
                                bar, smem);
 }
 
-// at most 128 registers a thread, so that two blocks fit on an SM
+// TILED: S past one attention tile (attn_bf16::tiled); its own instantiation,
+// so that the shipped lengths run the one-tile attention code alone. At
+// most 128 registers a thread, so that two blocks fit on an SM
+template <bool TILED>
 __global__ void __launch_bounds__(THREADS, 2) encoder_stack_int8_kernel(StackArgs p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char smem[];
@@ -141,8 +144,8 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_stack_int8_kernel(StackArg
 
     for (int i = blockIdx.x; i < attn_items; i += gridDim.x) {
       const int bh = i / chunks;
-      rohm::attention_bf16_item<false>(p.qkv, p.attn, p.S, p.H, dh, s_pad, bh / p.H, bh % p.H,
-                                       (i % chunks) * rohm::attn_bf16::QC, smem);
+      rohm::attention_bf16_item<false, TILED>(p.qkv, p.attn, p.S, p.H, dh, s_pad, bh / p.H, bh % p.H,
+                                              (i % chunks) * rohm::attn_bf16::QC, smem);
     }
     grid.sync();
     stamp(p, k);
@@ -204,16 +207,20 @@ size_t smem_bytes(int S, int dh) {
   return attn > gemm ? attn : gemm;
 }
 
+const void* stack_kernel(int S) {
+  return rohm::attn_bf16::tiled((S + 15) / 16 * 16) ? (const void*)encoder_stack_int8_kernel<true>
+                                                     : (const void*)encoder_stack_int8_kernel<false>;
+}
+
 // Blocks per SM the card holds at once for this S and dh, and the SM count.
 cudaError_t grid_size(int S, int dh, int* per_sm, int* sms) {
   const size_t smem = smem_bytes(S, dh);
-  cudaError_t err = cudaFuncSetAttribute(encoder_stack_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(stack_kernel(S), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, encoder_stack_int8_kernel, THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, stack_kernel(S), THREADS, smem);
   return err;
 }
 
@@ -267,7 +274,7 @@ extern "C" int rt_encoder_stack_int8(const void* x, void* out, const void* const
   p.B = B, p.S = S, p.D = D, p.F = F, p.H = H, p.L = L, p.eps = eps;
 
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)encoder_stack_int8_kernel, dim3(per_sm * sms),
+  err = cudaLaunchCooperativeKernel(stack_kernel(S), dim3(per_sm * sms),
                                     dim3(THREADS), args, smem_bytes(S, D / H),
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

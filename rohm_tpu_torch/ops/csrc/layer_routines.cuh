@@ -200,107 +200,175 @@ __device__ __forceinline__ void gemm_int8_tile(const int8_t* A, const float* row
 // [B*S, 3D] bf16 (1/sqrt(dh) folded into Q) -> out [B*S, D] bf16, run by
 // the whole 256-thread block. Scores Q.K^T accumulate in f32; the probs
 // are softmax in f32 rounded to bf16, or (NO_SOFTMAX) bf16(scores * 0.01);
-// P.V accumulates in f32 before the final bf16 rounding. K and V of the
-// sequence (S padded to a multiple of 16) stay in shared memory with the
-// chunk's f32 scores, bf16 probs and f32 output tile.
+// P.V accumulates in f32 before the final bf16 rounding. K and V stream
+// through shared memory in tiles of up to KT keys (S padded to a multiple
+// of 16), beside the chunk's Q, f32 scores, bf16 probs and f32 output
+// tile. When one tile holds every key (S <= 144, the shipped length) the
+// scores are computed once and the softmax comes from them; a longer
+// sequence sweeps the key tiles for the rows' max, again for their sum
+// (never rescaled), and a last time for the probs and P.V, whose f32 sums
+// carry over the tiles in the output tile. The probs are then exp(s - max)
+// / sum of the row's final max and sum at every S, as in the plain version.
 // ---------------------------------------------------------------------------
 namespace attn_bf16 {
 constexpr int QC = 16;        // query rows per item
 constexpr int THREADS = 256;  // 8 warps
+constexpr int KT = 144;       // keys per tile: two blocks per SM at dh = 128
+
+inline __host__ __device__ int tile_keys(int s_pad) { return s_pad < KT ? s_pad : KT; }
+inline __host__ __device__ bool tiled(int s_pad) { return s_pad > KT; }
 
 inline __host__ __device__ size_t smem_bytes(int s_pad, int dh) {
-  const size_t ldk = dh + 8, lds = s_pad + 4, ldp = s_pad + 8, ldo = dh + 4;
-  return 2 * (2 * s_pad * ldk + QC * ldk) + 4 * QC * lds + 2 * QC * ldp + 4 * QC * ldo;
+  const size_t kt = tile_keys(s_pad);
+  const size_t ldk = dh + 8, lds = kt + 4, ldp = kt + 8, ldo = dh + 4;
+  return 2 * (2 * kt * ldk + QC * ldk) + 4 * QC * lds + 2 * QC * ldp + 4 * QC * ldo + 4 * 2 * QC;
 }
 }  // namespace attn_bf16
 
-template <bool NO_SOFTMAX>
+// TILED: S > KT (attn_bf16::tiled); its own instantiation, so that the
+// shipped lengths run the one-tile code alone
+template <bool NO_SOFTMAX, bool TILED>
 __device__ __forceinline__ void attention_bf16_item(const __nv_bfloat16* qkv, __nv_bfloat16* out, int S,
                                                     int H, int dh, int s_pad, int b, int h, int q0,
                                                     unsigned char* smem) {
   using namespace nvcuda;
   using attn_bf16::QC;
   using attn_bf16::THREADS;
+  const int kt = TILED ? attn_bf16::KT : s_pad, nt = TILED ? (S + kt - 1) / kt : 1;
   const int D = H * dh, row_stride = 3 * D;
-  const int ldk = dh + 8, lds = s_pad + 4, ldp = s_pad + 8, ldo = dh + 4;
+  const int ldk = dh + 8, lds = kt + 4, ldp = kt + 8, ldo = dh + 4;
 
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + s_pad * ldk;
-  __nv_bfloat16* Qs = Vs + s_pad * ldk;
+  __nv_bfloat16* Vs = Ks + kt * ldk;
+  __nv_bfloat16* Qs = Vs + kt * ldk;
   float* Ss = reinterpret_cast<float*>(Qs + QC * ldk);
   __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + QC * lds);
   float* Os = reinterpret_cast<float*>(Ps + QC * ldp);
+  float* rmax = Os + QC * ldo;  // per query row: max, sum
+  float* rsum = rmax + QC;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nwarps = THREADS / 32;
   const int chunks = dh / 8;  // 16-byte chunks per head row
   const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride + h * dh;
 
-  for (int c = tid; c < s_pad * chunks; c += THREADS) {
-    const int r = c / chunks, col = (c % chunks) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < S) {
-      kv = *reinterpret_cast<const uint4*>(base + (size_t)r * row_stride + D + col);
-      vv = *reinterpret_cast<const uint4*>(base + (size_t)r * row_stride + 2 * D + col);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * ldk + col) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * ldk + col) = vv;
-  }
   for (int c = tid; c < QC * chunks; c += THREADS) {
     const int r = c / chunks, col = (c % chunks) * 8;
     uint4 qv = make_uint4(0, 0, 0, 0);
     if (q0 + r < S) qv = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * row_stride + col);
     *reinterpret_cast<uint4*>(Qs + r * ldk + col) = qv;
   }
-  __syncthreads();
-
-  // scores [QC, s_pad] = Q K^T (K read column-major as K^T)
-  for (int tile = warp; tile < s_pad / 16; tile += THREADS / 32) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < dh; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bk;
-      wmma::load_matrix_sync(a, Qs + kk, ldk);
-      wmma::load_matrix_sync(bk, Ks + tile * 16 * ldk + kk, ldk);
-      wmma::mma_sync(acc, a, bk, acc);
+  // keys [k0, k0 + nk16) of K (and V), zero past S; then scores [QC, nk16]
+  // = Q K^T (K read column-major as K^T)
+  auto tile_scores = [&](int k0, int nk16, bool with_v) {
+    __syncthreads();
+    for (int c = tid; c < nk16 * chunks; c += THREADS) {
+      const int r = c / chunks, col = (c % chunks) * 8;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (k0 + r < S) {
+        const __nv_bfloat16* row = base + (size_t)(k0 + r) * row_stride + col;
+        kv = *reinterpret_cast<const uint4*>(row + D);
+        if (with_v) vv = *reinterpret_cast<const uint4*>(row + 2 * D);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * ldk + col) = kv;
+      if (with_v) *reinterpret_cast<uint4*>(Vs + r * ldk + col) = vv;
     }
-    wmma::store_matrix_sync(Ss + tile * 16, acc, lds, wmma::mem_row_major);
+    __syncthreads();
+    for (int tile = warp; tile < nk16 / 16; tile += nwarps) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+      for (int kk = 0; kk < dh; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bk;
+        wmma::load_matrix_sync(a, Qs + kk, ldk);
+        wmma::load_matrix_sync(bk, Ks + tile * 16 * ldk + kk, ldk);
+        wmma::mma_sync(acc, a, bk, acc);
+      }
+      wmma::store_matrix_sync(Ss + tile * 16, acc, lds, wmma::mem_row_major);
+    }
+    __syncthreads();
+  };
+
+  // probs over the tile's real keys, rounded to bf16; padded keys -> 0
+  auto probs = [&](int nk, int nk16) {
+    for (int r = warp; r < QC; r += nwarps) {
+      const float* srow = Ss + r * lds;
+      if (NO_SOFTMAX) {
+        for (int c = lane; c < nk16; c += 32)
+          Ps[r * ldp + c] = __float2bfloat16_rn(c < nk ? __fmul_rn(srow[c], 0.01f) : 0.0f);
+        continue;
+      }
+      const float mx = rmax[r], sum = rsum[r];
+      for (int c = lane; c < nk16; c += 32) {
+        const float p = c < nk ? __fdiv_rn(expf(srow[c] - mx), sum) : 0.0f;
+        Ps[r * ldp + c] = __float2bfloat16_rn(p);
+      }
+    }
+  };
+
+  // the rows' max and sum over the S real keys (one warp per row); one
+  // tile: the probs from the same scores
+  if (!NO_SOFTMAX && nt == 1) {
+    tile_scores(0, s_pad, true);
+    for (int r = warp; r < QC; r += nwarps) {
+      const float* srow = Ss + r * lds;
+      float mx = -INFINITY;
+      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c]);
+      mx = warp_max(mx);
+      float sum = 0.0f;
+      for (int c = lane; c < S; c += 32) sum += expf(srow[c] - mx);
+      sum = warp_sum(sum);
+      for (int c = lane; c < s_pad; c += 32) {
+        const float p = c < S ? __fdiv_rn(expf(srow[c] - mx), sum) : 0.0f;
+        Ps[r * ldp + c] = __float2bfloat16_rn(p);
+      }
+    }
+  } else if (!NO_SOFTMAX) {
+    if (tid < QC) rmax[tid] = -INFINITY, rsum[tid] = 0.0f;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int k0 = 0; k0 < S; k0 += kt) {
+        const int nk = min(kt, S - k0);
+        tile_scores(k0, (nk + 15) / 16 * 16, false);
+        for (int r = warp; r < QC; r += nwarps) {
+          const float* srow = Ss + r * lds;
+          if (pass == 0) {
+            float mx = -INFINITY;
+            for (int c = lane; c < nk; c += 32) mx = fmaxf(mx, srow[c]);
+            mx = warp_max(mx);
+            if (lane == 0) rmax[r] = fmaxf(rmax[r], mx);
+          } else {
+            const float mx = rmax[r];
+            float sum = 0.0f;
+            for (int c = lane; c < nk; c += 32) sum += expf(srow[c] - mx);
+            sum = warp_sum(sum);
+            if (lane == 0) rsum[r] += sum;
+          }
+        }
+      }
+    }
   }
-  __syncthreads();
 
-  // probs over the S real keys, rounded to bf16; padded keys -> 0
-  for (int r = warp; r < QC; r += THREADS / 32) {
-    const float* srow = Ss + r * lds;
-    if (NO_SOFTMAX) {
-      for (int c = lane; c < s_pad; c += 32)
-        Ps[r * ldp + c] = __float2bfloat16_rn(c < S ? __fmul_rn(srow[c], 0.01f) : 0.0f);
-      continue;
+  for (int k0 = 0; k0 < (TILED ? S : 1); k0 += kt) {
+    const int nk = min(kt, S - k0), nk16 = (nk + 15) / 16 * 16;
+    if (NO_SOFTMAX || nt > 1) {
+      tile_scores(k0, nk16, true);
+      probs(nk, nk16);
     }
-    float mx = -INFINITY;
-    for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < S; c += 32) sum += expf(srow[c] - mx);
-    sum = warp_sum(sum);
-    for (int c = lane; c < s_pad; c += 32) {
-      const float p = c < S ? __fdiv_rn(expf(srow[c] - mx), sum) : 0.0f;
-      Ps[r * ldp + c] = __float2bfloat16_rn(p);
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // out [QC, dh] = P V
-  for (int tile = warp; tile < dh / 16; tile += THREADS / 32) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < s_pad; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-      wmma::load_matrix_sync(a, Ps + kk, ldp);
-      wmma::load_matrix_sync(bv, Vs + kk * ldk + tile * 16, ldk);
-      wmma::mma_sync(acc, a, bv, acc);
+    // out [QC, dh] += P V over the tile's keys
+    for (int tile = warp; tile < dh / 16; tile += nwarps) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      if (k0 == 0) wmma::fill_fragment(acc, 0.0f);
+      else wmma::load_matrix_sync(acc, Os + tile * 16, ldo, wmma::mem_row_major);
+      for (int kk = 0; kk < nk16; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
+        wmma::load_matrix_sync(a, Ps + kk, ldp);
+        wmma::load_matrix_sync(bv, Vs + kk * ldk + tile * 16, ldk);
+        wmma::mma_sync(acc, a, bv, acc);
+      }
+      wmma::store_matrix_sync(Os + tile * 16, acc, ldo, wmma::mem_row_major);
     }
-    wmma::store_matrix_sync(Os + tile * 16, acc, ldo, wmma::mem_row_major);
   }
   __syncthreads();
 

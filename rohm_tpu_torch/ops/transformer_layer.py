@@ -114,14 +114,15 @@ def attention_f32(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Tens
     buffer [B*S, 3D] f32 -> [B*S, D] f32.
 
     Replaces the per-head loop of _layer_kernel. CUDA: csrc/attention_f32.cu,
-    one block per (48 queries, sequence, head) with the sequence's f32 K and
-    V in shared memory, register-tiled products."""
+    one block per (48 queries, sequence, head), K and V streamed through
+    shared memory in tiles of up to 160 keys (any S; dh a multiple of 4 up
+    to 128), register-tiled products."""
     if qkv.device.type == "cpu":
         return attention_f32_plain(qkv, seq_len, num_heads)
     check_cuda(qkv, torch.float32, 2, "qkv")
     rows, d3 = qkv.shape
     d = d3 // 3
-    if rows % seq_len or d3 % 3 or d % num_heads or (d // num_heads) % 4:
+    if rows % seq_len or d3 % 3 or d % num_heads or (d // num_heads) % 4 or d // num_heads > 128:
         raise ValueError(f"attention_f32: bad shape {tuple(qkv.shape)} for S={seq_len}, H={num_heads}")
     out = torch.empty(rows, d, dtype=torch.float32, device=qkv.device)
     launch("rt_attention_f32", ptr(qkv), ptr(out), rows // seq_len, seq_len, num_heads,

@@ -205,8 +205,9 @@ def attention_int8(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Ten
     column, int32 P.V.
 
     Replaces `attention_int8` inside _layer_kernel_int8 (qattn=True). CUDA:
-    csrc/attention_int8.cu, one block per (48 queries, sequence, head) with
-    the head's K and V codes in shared memory, int8 WMMA for both products."""
+    csrc/attention_int8.cu, one block per (48 queries, sequence, head), K
+    and V staged and quantized in tiles of up to 176 keys (any S), int8
+    WMMA for both products."""
     if qkv.device.type == "cpu":
         return attention_int8_plain(qkv, seq_len, num_heads)
     check_cuda(qkv, torch.bfloat16, 2, "qkv")

@@ -21,17 +21,18 @@ Forward (per layer, R = B*S rows; c() = bf16 rounding in the bf16 mode):
 Backward: the 8 products of _bwd_kernel (dW as dY^T X, dX as dY W), the
 attention backward, two LayerNorm backwards and six column sums for the
 bias and LayerNorm gradients. The forward's activations are saved (about
-180 MB per layer in bf16, 230 MB in f32, at B = 64, S = 145, D = 512, F = 1024), not
+150 MB per layer in bf16, 230 MB in f32, at B = 64, S = 145, D = 512, F = 1024), not
 recomputed as K7 does: that spares a third of the step's work.
 
 In the bf16 mode every product operand lies in device memory as bf16, so
 the GEMM's TMA loads move half the bytes and round nothing: the four weight
 matrices are cast once per layer call (`cast_weight_mats`, as the TPU
 package's `_cast_weight_mats` does outside its kernel), and each activation
-operand is cast once where it is made, by the epilogue of the product that
-makes it (gld, dh1) or by `round_bf16` (x, attn, y1, df, do, dqkv). Rounding
-to nearest even is idempotent, so every product sees the values that the
-TPU kernel's c() gives it.
+operand is cast once where it is made: by the epilogue of the product that
+makes it (qkv, gld, dh1, dattn), by the attention backward (its bf16 copy
+of dqkv) or by `round_bf16` (x, attn, y1, df, do). Rounding to nearest even
+is idempotent, so every product and both attention kernels see the values
+that the TPU kernel's c() gives them.
 
 Dropout masks are int8 keep-masks drawn outside the kernels from an
 explicit torch.Generator (`gen_dropout_masks`); the TPU package draws them
@@ -70,7 +71,8 @@ def gelu_grad_as(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rnd(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).float()
+    """c(): round to bf16, computing on in f32 (in f64 for an f64 tensor)."""
+    return t.to(torch.bfloat16).to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _same(t: torch.Tensor) -> torch.Tensor:
@@ -253,18 +255,18 @@ def attention_train_fwd_plain(qkv, mask, seq_len, num_heads, inv_keep=1.0, bf16=
 def attention_train_fwd(qkv: torch.Tensor, mask: torch.Tensor, seq_len: int, num_heads: int,
                         inv_keep: float = 1.0, bf16: bool = False) -> torch.Tensor:
     """Per-(sequence, head) attention with dropout on the probabilities,
-    q/k/v read in place from the f32 QKV buffer.
+    q/k/v read in place from the QKV buffer (bf16 in the bf16 mode, which
+    rounds them anyway; f32 in the f32 mode).
 
     Replaces the attention of _forward_body (K6). CUDA:
-    csrc/attention_train.cu; bf16 mode: one block per (sequence, head) on
-    the tensor cores (S <= 160, dh a multiple of 16 up to 128); f32 mode:
-    one block per (48 queries, sequence, head), SIMT."""
+    csrc/attention_train.cu, any S: the keys stream through shared memory
+    in tiles, and a sequence longer than one tile takes two sweeps (the
+    row's max and sum, then p and P.V), so p is formed from the row's final
+    statistics as in the plain version. bf16 mode: tensor cores, dh a
+    multiple of 16 up to 128; f32 mode: SIMT, dh a multiple of 4 up to 128."""
     if qkv.device.type == "cpu":
         return attention_train_fwd_plain(qkv, mask, seq_len, num_heads, inv_keep, bf16)
-    b, dh = _attention_checks(qkv, mask, seq_len, num_heads)
-    if bf16 and (seq_len > 160 or dh % 16 or dh > 128):
-        raise ValueError(f"attention_train_fwd: bf16 mode takes S <= 160 and dh a multiple of 16 "
-                         f"up to 128, got S={seq_len}, dh={dh}")
+    b, dh = _attention_checks(qkv, mask, seq_len, num_heads, bf16)
     out = torch.empty(qkv.shape[0], qkv.shape[1] // 3, dtype=torch.float32, device=qkv.device)
     launch("rt_attention_train_fwd", ptr(qkv), ptr(mask), ptr(out), b, seq_len, num_heads, dh,
            1.0 / (dh ** 0.5), inv_keep, int(bf16), stream())
@@ -275,21 +277,23 @@ def attention_train_fwd(qkv: torch.Tensor, mask: torch.Tensor, seq_len: int, num
 attention_train_fwd.launches = 0
 
 
-def _attention_checks(qkv, mask, seq_len, num_heads) -> tuple[int, int]:
-    check_cuda(qkv, torch.float32, 2, "qkv")
+def _attention_checks(qkv, mask, seq_len, num_heads, bf16) -> tuple[int, int]:
+    check_cuda(qkv, torch.bfloat16 if bf16 else torch.float32, 2, "qkv")
     check_cuda(mask, torch.int8, 4, "mask")
     rows, d3 = qkv.shape
     dh = d3 // 3 // num_heads
     b = rows // seq_len
-    if rows % seq_len or d3 % (3 * num_heads) or dh % 4 or tuple(mask.shape) != (b, num_heads, seq_len, seq_len):
+    if (rows % seq_len or d3 % (3 * num_heads) or dh % (16 if bf16 else 4) or dh > 128
+            or tuple(mask.shape) != (b, num_heads, seq_len, seq_len)):
         raise ValueError(f"attention_train: qkv {tuple(qkv.shape)}, mask {tuple(mask.shape)} "
-                         f"for S={seq_len}, H={num_heads}")
+                         f"for S={seq_len}, H={num_heads} (dh a multiple of {16 if bf16 else 4} up to 128)")
     return b, dh
 
 
 def attention_train_bwd_plain(qkv, da, mask, seq_len, num_heads, inv_keep=1.0, bf16=False):
     """d(qkv) [B*S, 3D] from qkv, d(attn) [B*S, D] and the mask, with the
-    probabilities recomputed (_bwd_kernel :259-301)."""
+    probabilities recomputed (_bwd_kernel :259-301); in the bf16 mode with
+    its bf16 copy beside it, (dqkv, c(dqkv))."""
     rnd = _rnd if bf16 else _same
     q, k, v = (_heads(t, seq_len, num_heads) for t in qkv.split(qkv.shape[1] // 3, dim=-1))
     da = _heads(da, seq_len, num_heads)
@@ -301,29 +305,41 @@ def attention_train_bwd_plain(qkv, da, mask, seq_len, num_heads, inv_keep=1.0, b
     ds = ds * (1.0 / (q.shape[-1] ** 0.5))
     dq = rnd(ds) @ rnd(k)
     dk = rnd(ds).transpose(-1, -2) @ rnd(q)
-    return torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1)
+    dqkv = torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1).float()
+    return (dqkv, dqkv.to(torch.bfloat16)) if bf16 else dqkv
 
 
 def attention_train_bwd(qkv: torch.Tensor, da: torch.Tensor, mask: torch.Tensor, seq_len: int,
-                        num_heads: int, inv_keep: float = 1.0, bf16: bool = False) -> torch.Tensor:
-    """The attention backward (dq, dk, dv into one [B*S, 3D] buffer).
+                        num_heads: int, inv_keep: float = 1.0, bf16: bool = False):
+    """The attention backward: dq, dk and dv in one [B*S, 3D] f32 buffer,
+    and in the bf16 mode (dqkv, its bf16 copy), the copy being the
+    operand of the dWqkv and dx products. qkv and da are bf16 in the bf16
+    mode.
 
     Replaces the attention backward of _bwd_kernel (K7). CUDA:
-    csrc/attention_train.cu, two passes (queries, then keys) through a
-    [B, H, S, S] scratch of pd and ds; no atomics."""
+    csrc/attention_train.cu, any S, no atomics. bf16 mode: one kernel per
+    query tile (row statistics, D = sum dp p, dq) and one per key tile
+    (dk, dv), p recomputed from q and k, nothing of [B, H, S, S] in
+    memory; the score and dpd products are sequential f32 sums on the FMA
+    units, as the plain version's f32 GEMM forms them, and the products of
+    the rounded operands run on the tensor cores. f32 mode: SIMT, queries
+    then keys, through a [B, H, S, S] scratch of pd and ds."""
     if qkv.device.type == "cpu":
         return attention_train_bwd_plain(qkv, da, mask, seq_len, num_heads, inv_keep, bf16)
-    b, dh = _attention_checks(qkv, mask, seq_len, num_heads)
-    check_cuda(da, torch.float32, 2, "da")
+    b, dh = _attention_checks(qkv, mask, seq_len, num_heads, bf16)
+    check_cuda(da, qkv.dtype, 2, "da")
     if tuple(da.shape) != (qkv.shape[0], qkv.shape[1] // 3):
         raise ValueError(f"attention_train_bwd: da {tuple(da.shape)} for qkv {tuple(qkv.shape)}")
-    dqkv = torch.empty_like(qkv)
-    scratch = torch.empty(2, b, num_heads, seq_len, seq_len, dtype=torch.float32, device=qkv.device)
-    launch("rt_attention_train_bwd", ptr(qkv), ptr(da), ptr(mask), ptr(dqkv), ptr(scratch[0]),
-           ptr(scratch[1]), b, seq_len, num_heads, dh, 1.0 / (dh ** 0.5), inv_keep, int(bf16),
-           stream())
+    dqkv = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device)
+    dqkv16 = torch.empty(qkv.shape, dtype=torch.bfloat16, device=qkv.device) if bf16 else None
+    if bf16:  # per row: max, sum and D = sum_k dp p, from the query kernel to the key kernel
+        work = torch.empty(3, b, num_heads, seq_len, dtype=torch.float32, device=qkv.device)
+    else:  # pd and ds, from the query kernel to the key kernel
+        work = torch.empty(2, b, num_heads, seq_len, seq_len, dtype=torch.float32, device=qkv.device)
+    launch("rt_attention_train_bwd", ptr(qkv), ptr(da), ptr(mask), ptr(dqkv), ptr(dqkv16), ptr(work), b,
+           seq_len, num_heads, dh, 1.0 / (dh ** 0.5), inv_keep, int(bf16), stream())
     attention_train_bwd.launches += 1
-    return dqkv
+    return (dqkv, dqkv16) if bf16 else dqkv
 
 
 attention_train_bwd.launches = 0
@@ -498,7 +514,7 @@ def layer_train_fwd(x, params, masks, seq_len, num_heads, inv_keep, bf16, k: Ker
     c = k.cast if bf16 else _same
     g = dict(b_t=True, bf16=bf16)
     xc = c(x)
-    qkv = k.gemm(xc, wqkv, bias=bqkv, **g)
+    qkv = k.gemm(xc, wqkv, bias=bqkv, out="operand", **g)
     attn = c(k.attn_fwd(qkv, mp, seq_len, num_heads, inv_keep, bf16))
     od = k.gemm(attn, wo, bias=bo, mask=mo, inv_keep=inv_keep, **g)
     y1, norm1, rstd1 = k.ln_fwd(x, od, g1, be1)
@@ -532,9 +548,9 @@ def layer_train_bwd(dy, saved, params, masks, seq_len, num_heads, inv_keep, bf16
     doc = c(do)
     dwo = k.gemm(doc, attn, a_t=True, **g)
     dbo = k.colsum(do)
-    dattn = k.gemm(doc, wo, **g)
+    dattn = k.gemm(doc, wo, out="operand", **g)
     dqkv = k.attn_bwd(qkv, dattn, mp, seq_len, num_heads, inv_keep, bf16)
-    dqkvc = c(dqkv)
+    dqkv, dqkvc = dqkv if bf16 else (dqkv, dqkv)
     dwqkv = k.gemm(dqkvc, xc, a_t=True, **g)
     dbqkv = k.colsum(dqkv)
     dx = k.gemm(dqkvc, wqkv, add=dr1, **g)

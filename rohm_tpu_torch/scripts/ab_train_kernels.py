@@ -1,4 +1,4 @@
-"""A/B of the training layer's bf16 kernels between two checkouts, on one card.
+"""A/B of the port's attention kernels and the training layer between two checkouts, on one card.
 
     python -m rohm_tpu_torch.scripts.ab_train_kernels --other DIR [--seed 0]
 
@@ -8,17 +8,23 @@ measurement process per checkout in the order other / this / this / other,
 each on that checkout's own package and kernels (built at first use), so
 the two versions are compared on the same card in turns. Each process
 times, at the training shapes (64 clips x 145 tokens, D=512, H=4, F=1024,
-dropout 0.1, random weights from --seed): `attention_train_fwd` in the bf16
-mode and the 12 `gemm_train` products of one layer as that checkout's chain
-calls them, on the card alone (a CUDA graph of 10 calls, replayed); and the
-layer's bf16 forward and backward (CUDA events around one call, and on the
-card alone). It prints one JSON line per process, then a table with the
-card's name and power limit. It runs only on a CUDA device.
+dropout 0.1, random weights from --seed): `attention_train_fwd` and
+`attention_train_bwd` in both modes and the 12 `gemm_train` products of one
+bf16 layer as that checkout's chain calls them, and the layer's bf16
+forward and backward; at the inference shapes (32 clips x 144 tokens):
+`attention_f32`, `attention_bf16`, `attention_int8` and the whole-stack
+`encoder_stack_int8` (8 layers). Each is timed with CUDA events around
+one call and on the card alone with a cold L2 (card_ms: a CUDA graph of
+10 calls, each after a 128 MB write, less a graph of the writes alone);
+K5's cooperative launch by events only. It prints one JSON line per
+process, then a table with the card's name and power limit. It runs only
+on a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -46,20 +52,56 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _card_ms(fn, calls: int = 10) -> float:
-    """fn's time on the card alone: a CUDA graph of `calls` calls, replayed."""
+FLUSH_BYTES = 128 * 2**20  # over twice the H100's 50 MB L2
+
+
+@functools.cache
+def _flush_buffer():
     import torch
 
+    return torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+
+def card_ms(fn, calls: int = 10, reps: int = 20) -> float:
+    """fn's time on the card alone, with a cold L2: a CUDA graph of `calls`
+    calls of fn, each after a 128 MB write that evicts the L2 (so every
+    call finds its inputs in device memory, as a layer's chain does), and
+    beside it a graph of the writes alone. The two replay in turns; the
+    median of their differences over `reps` pairs, per call. No host
+    launch cost is inside a replay. chip_smoke.py times with this too."""
+    import torch
+
+    flush = _flush_buffer()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fn()  # warm-up before capture
+        flush.zero_()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    return _median_ms(graph.replay) / calls
+    graphs = []
+    for with_fn in (True, False):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                flush.zero_()
+                if with_fn:
+                    fn()
+        graphs.append(graph)
+    for graph in graphs:
+        graph.replay()
+    diffs = []
+    for _ in range(reps):
+        times = []
+        for graph in graphs:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        diffs.append((times[0] - times[1]) / calls)
+    del graphs
+    return statistics.median(diffs)
 
 
 def measure(seed: int) -> dict:
@@ -68,7 +110,11 @@ def measure(seed: int) -> dict:
     cast_weight_mats) or round f32 operands inside each product."""
     import torch
 
+    from rohm_tpu_torch.models import PoseNet
     from rohm_tpu_torch.models.blocks import TransformerEncoderLayer
+    from rohm_tpu_torch.ops import kernel_common as kc
+    from rohm_tpu_torch.ops import transformer_layer as l32
+    from rohm_tpu_torch.ops import transformer_layer_int8 as l8
     from rohm_tpu_torch.ops import transformer_layer_train as lt
 
     if not torch.cuda.is_available():
@@ -95,6 +141,9 @@ def measure(seed: int) -> dict:
     both = {"out": "both"} if staged else {}
     _, saved = lt.layer_train_fwd(x, kp, fm, TS, H, ik, True, P)
     xs, qkv, attn, y1s, norm1, rstd1, h1, gld, norm2, rstd2 = saved
+    # qkv, dattn and dqkv's copy bf16 in memory (the attention kernels take bf16 in the bf16 mode)
+    bf16_qkv = qkv.dtype == torch.bfloat16
+    operand = {"out": "operand"} if bf16_qkv else {}
     dr2, df = P.ln_bwd(dy, norm2, rstd2, g2, mf, ik)
     dfc = c(df)
     dh1 = P.gemm(dfc, w2, bf16=True, mask=mh, inv_keep=ik, gelu=2, aux=h1, **both)
@@ -102,9 +151,11 @@ def measure(seed: int) -> dict:
     dy1 = P.gemm(dh1c, w1, bf16=True, add=dr2)
     dr1, do = P.ln_bwd(dy1, norm1, rstd1, g1, mo, ik)
     doc = c(do)
-    dqkvc = c(P.attn_bwd(qkv, P.gemm(doc, wo, bf16=True), mp, TS, H, ik, True))
+    dattn = P.gemm(doc, wo, bf16=True, **operand)
+    dqkv = P.attn_bwd(qkv, dattn, mp, TS, H, ik, True)
+    dqkvc = dqkv[1] if bf16_qkv else c(dqkv)  # the bf16 copy beside dqkv, or dqkv cast
     products = [
-        dict(a=xs, b=wq, b_t=True, bias=bqkv),
+        dict(a=xs, b=wq, b_t=True, bias=bqkv, **operand),
         dict(a=attn, b=wo, b_t=True, bias=bo, mask=mo, inv_keep=ik),
         dict(a=y1s, b=w1, b_t=True, bias=b1, mask=mh, inv_keep=ik, gelu=1, **({"out": "operand"} if staged else {})),
         dict(a=gld, b=w2, b_t=True, bias=b2, mask=mf, inv_keep=ik),
@@ -113,7 +164,7 @@ def measure(seed: int) -> dict:
         dict(a=dh1c, b=y1s, a_t=True),
         dict(a=dh1c, b=w1, add=dr2),
         dict(a=doc, b=attn, a_t=True),
-        dict(a=doc, b=wo),
+        dict(a=doc, b=wo, **operand),
         dict(a=dqkvc, b=xs, a_t=True),
         dict(a=dqkvc, b=wq, add=dr1),
     ]
@@ -125,6 +176,31 @@ def measure(seed: int) -> dict:
     def attention():
         lt.attention_train_fwd(qkv, mp, TS, H, ik, True)
 
+    def attention_bwd():
+        lt.attention_train_bwd(qkv, dattn, mp, TS, H, ik, True)
+
+    qkv32, dattn32 = qkv.float(), dattn.float()
+
+    def attention_f32_mode():
+        lt.attention_train_fwd(qkv32, mp, TS, H, ik, False)
+
+    def attention_bwd_f32_mode():
+        lt.attention_train_bwd(qkv32, dattn32, mp, TS, H, ik, False)
+
+    # the inference attention kernels and K5 at 32 x 144
+    b_inf, s_inf = 32, 144
+    qkv_i = torch.randn(b_inf * s_inf, 3 * D, generator=g, device="cuda")
+    qkv_i[:, :D] *= (D // H) ** -0.5
+    qkv_i16 = qkv_i.to(torch.bfloat16)
+    torch.manual_seed(seed)
+    stacked = l8.prepare_posenet_int8(PoseNet().cuda(), mega=True)["layers_stacked"]
+    x_inf = torch.randn(b_inf, s_inf, D, generator=g, device="cuda").to(torch.bfloat16)
+    inference = {
+        "attention_f32": lambda: l32.attention_f32(qkv_i, s_inf, H),
+        "attention_bf16": lambda: kc.attention_bf16(qkv_i16, s_inf, H),
+        "attention_int8": lambda: l8.attention_int8(qkv_i16, s_inf, H),
+    }
+
     def fwd():
         return lt.layer_train_fwd(x, kp, fm, TS, H, ik, True)
 
@@ -133,13 +209,27 @@ def measure(seed: int) -> dict:
     def bwd():
         lt.layer_train_bwd(dy, saved_k, kp, fm, TS, H, ik, True)
 
-    return {
-        "tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged,
-        "attention_fwd_card_ms": _card_ms(attention), "attention_fwd_ms": _median_ms(attention),
-        "gemm_12_card_ms": _card_ms(gemms), "gemm_12_ms": _median_ms(gemms),
-        "layer_fwd_ms": _median_ms(fwd), "layer_fwd_card_ms": _card_ms(fwd),
-        "layer_bwd_ms": _median_ms(bwd), "layer_bwd_card_ms": _card_ms(bwd),
-    }
+    out = {"tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged, "bf16_qkv": bf16_qkv}
+    for name, fn in (("attention_fwd", attention), ("attention_bwd", attention_bwd),
+                     ("attention_fwd_f32_mode", attention_f32_mode), ("attention_bwd_f32_mode", attention_bwd_f32_mode),
+                     ("gemm_12", gemms), ("layer_fwd", fwd), ("layer_bwd", bwd), *inference.items()):
+        out[f"{name}_card_ms"], out[f"{name}_ms"] = card_ms(fn), _median_ms(fn)
+    # device time per kernel of the two attention backwards (torch.profiler)
+    for name, fn in (("attention_bwd", attention_bwd), ("attention_bwd_f32_mode", attention_bwd_f32_mode)):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        out[f"{name}_kernels_us"] = {e.key.split("(__nv_bfloat16")[0].split("(float")[0][-70:]: e.self_device_time_total / 10
+                                     for e in prof.key_averages()
+                                     if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total}
+    torch.cuda.reset_peak_memory_stats()
+    bwd()
+    out["layer_bwd_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["encoder_stack_int8_ms"] = _median_ms(lambda: l8.fused_encoder_stack_int8(x_inf, stacked, H))
+    return out
 
 
 def main(argv=None) -> list:
@@ -166,7 +256,7 @@ def main(argv=None) -> list:
         res = {"run": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(res), flush=True)
         runs.append(res)
-    keys = [k for k in runs[0] if k.endswith("_ms")]
+    keys = [k for k in runs[0] if k.endswith(("_ms", "_mib"))]
     print(f"{card}; ms, runs in order " + " / ".join(r["run"] for r in runs))
     for k in keys:
         print(f"{k:24s} " + " / ".join(f"{r[k]:.4f}" for r in runs))

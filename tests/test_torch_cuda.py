@@ -127,16 +127,17 @@ def test_bf16_attention_forward_on_the_tensor_cores():
     d = h * dh
     qkv = 0.7 * torch.randn(b * s, 3 * d, device="cuda", generator=g)
     mask = (torch.rand(b, h, s, s, device="cuda", generator=g) < 0.9).to(torch.int8)
+    qkv = qkv.to(torch.bfloat16)  # the bf16 mode's QKV buffer
     got = lt.attention_train_fwd(qkv, mask, s, h, ik, bf16=True)
     ref = lt.attention_train_fwd_plain(qkv, mask, s, h, ik, bf16=True)
-    q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2).to(torch.bfloat16).float() for t in qkv.split(d, -1))
+    q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2).float() for t in qkv.split(d, -1))
     scale = dh ** -0.5
     pd = torch.softmax((q @ k.transpose(-1, -2)) * scale, -1) * (mask.float() * ik)
     rel = 2.0 * (2.0 ** -16 * scale * (q.abs() @ k.abs().transpose(-1, -2))).amax(-1, keepdim=True) + 2.0 ** -20
     flip = (pd * (1 + rel)).to(torch.bfloat16).float() - (pd * (1 - rel)).to(torch.bfloat16).float()
     gate = 2.0 ** -14 * ik * v.abs().max() + (flip @ v.abs()).transpose(1, 2).reshape(b * s, d)
     assert ((got - ref).abs() <= gate).all()
-    f32_mode = lt.attention_train_fwd(qkv, mask, s, h, ik, bf16=False)
+    f32_mode = lt.attention_train_fwd(qkv.float(), mask, s, h, ik, bf16=False)
     assert not ((f32_mode - ref).abs() <= gate).all()
 
 
@@ -178,3 +179,125 @@ def test_new_kernel_modes_match_plain_on_cuda():
     p = ((q @ k.transpose(-1, -2)) * 0.01).to(torch.bfloat16).float().abs()
     pv = (p @ v.abs()).transpose(1, 2).reshape(2 * 144, 64)
     assert ((got - ref).abs() <= 2.0 ** -8 * pv + 2.0 ** -7 * ref.abs() + 1e-6).all()
+
+
+def _bwd_within_gate(got, qkv, da, mask, s, h, ik, bf16):
+    """dq, dk and dv each within chip_smoke.check_bwd's gate against the
+    plain version in f32: 1e-5 (f32 mode) or 2^-10 (bf16 mode) of max|ref|.
+    Returns, per part, the tolerance and the reference."""
+    d = qkv.shape[1] // 3
+    ref = lt.attention_train_bwd_plain(qkv, da, mask, s, h, ik, bf16)
+    ref = ref[0] if bf16 else ref
+    out = []
+    for i in range(3):
+        blk = slice(i * d, (i + 1) * d)
+        tol = (2.0 ** -10 if bf16 else 1e-5) * ref[:, blk].abs().max()
+        assert ((got[:, blk] - ref[:, blk]).abs() <= tol).all()
+        out.append((tol, ref[:, blk]))
+    return out
+
+
+def _chain_operands(b, s, d, h, f, bf16, seed):
+    """qkv and d(attn) as the plain training chain of a random layer hands
+    them to the attention backward (dropout 0.1), and the probs' mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    layer = TransformerEncoderLayer(d, h, f).cuda()
+    with torch.no_grad():
+        for prm in layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape, device="cuda", generator=g))
+    params = tuple(t.detach() for t in lt.layer_params(layer))
+    fm = lt.flat_masks(lt.gen_dropout_masks(g, b, s, d, f, h, 0.1), b * s)
+    seen = {}
+
+    def attn_bwd(qkv, da, *args, **kw):
+        seen["qkv"], seen["da"] = qkv, da
+        return lt.attention_train_bwd_plain(qkv, da, *args, **kw)
+
+    k = lt.PLAIN._replace(attn_bwd=attn_bwd)
+    kp = lt.cast_weight_mats(params) if bf16 else params
+    x, dy = (torch.randn(b * s, d, device="cuda", generator=g) for _ in range(2))
+    _, saved = lt.layer_train_fwd(x, kp, fm, s, h, 1.0 / 0.9, bf16, k)
+    lt.layer_train_bwd(dy, saved, kp, fm, s, h, 1.0 / 0.9, bf16, k)
+    return seen["qkv"], seen["da"], fm[0]
+
+
+@pytest.mark.parametrize("s", [97, 145])
+def test_bf16_attention_backward(s):
+    """attention_train_bwd in the bf16 mode (a query kernel and a key
+    kernel, no [B, H, S, S] buffer) on the operands the plain chain hands
+    it, at an odd S and at the training layer's 145 (dh = 128, 16
+    sequences x 2 heads, dropout 0.1): dq, dk and dv within the gate of
+    _bwd_within_gate, the bf16 copy of dqkv its f32 result rounded, and the
+    f32-mode kernel, which rounds nothing, outside that gate."""
+    b, d, h, f, ik = 16, 256, 2, 512, 1.0 / 0.9
+    qkv, da, mask = _chain_operands(b, s, d, h, f, True, s)
+    assert qkv.dtype == da.dtype == torch.bfloat16
+    got, got16 = lt.attention_train_bwd(qkv, da, mask, s, h, ik, True)
+    assert torch.equal(got16, got.to(torch.bfloat16))
+    f32_mode = lt.attention_train_bwd(qkv.float(), da.float(), mask, s, h, ik, False)
+    outside = 0
+    for i, (tol, ref) in enumerate(_bwd_within_gate(got, qkv, da, mask, s, h, ik, True)):
+        outside += int(((f32_mode[:, i * d:(i + 1) * d] - ref).abs() > tol).sum().item())
+    assert outside > 0
+
+
+# the training length, one past each kernel's old single-tile limit at dh =
+# 128 (160, 166, 176), past the limit attention_int8's header once stated
+# (208), and 1024
+LONG_S = [145, 161, 167, 177, 209, 1024]
+
+
+@pytest.mark.parametrize("s", LONG_S)
+def test_attention_kernels_take_any_sequence_length(s):
+    """Every attention kernel of the port against its plain version at
+    dh = 128 (2 sequences x 2 heads), its keys streamed in tiles past the
+    length one tile holds, under chip_smoke.py's gates: attention_f32 1e-5
+    max|v| (f32 sum order); attention_bf16 2^-6 max|v| (a bf16 flip per
+    prob + the output's rounding); attention_int8 one prob code of the
+    column + one bf16 ulp; the training forward 2^-14 inv_keep max|v| plus
+    one bf16 flip of every pd whose score the tensor cores' sums could move
+    (bf16 mode), 1e-5 inv_keep max|v| (f32 mode); the backward within
+    _bwd_within_gate, on the chain's operands."""
+    b, h, dh, ik = 2, 2, 128, 1.0 / 0.9
+    d = h * dh
+    g = torch.Generator(device="cuda").manual_seed(s)
+    qkv = torch.randn(b * s, 3 * d, device="cuda", generator=g)
+    qkv[:, :d] *= dh ** -0.5
+    vmax = qkv[:, 2 * d:].abs().max().item()
+    assert ((l32.attention_f32(qkv, s, h) - l32.attention_f32_plain(qkv, s, h)).abs() <= 1e-5 * vmax).all()
+    q16 = qkv.to(torch.bfloat16)
+    err = (kc.attention_bf16(q16, s, h).float() - kc.attention_bf16_plain(q16, s, h).float()).abs()
+    assert (err <= 2.0 ** -6 * vmax).all()
+    ref = l8.attention_int8_plain(q16, s, h).float()
+    cmax = l8.attention_int8_codes(q16, s, h)[-1].expand(b, h, s, dh).transpose(1, 2).reshape(b * s, d)
+    assert ((l8.attention_int8(q16, s, h).float() - ref).abs() <= cmax / 127.0 + 2.0 ** -7 * ref.abs()).all()
+    for bf16 in (True, False):
+        qq, dd, mask = _chain_operands(b, s, d, h, 2 * d, bf16, s)
+        got, ref = lt.attention_train_fwd(qq, mask, s, h, ik, bf16), lt.attention_train_fwd_plain(qq, mask, s, h, ik, bf16)
+        q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2).float() for t in qq.split(d, -1))
+        vmax = v.abs().max().item()
+        if bf16:
+            pd = torch.softmax((q @ k.transpose(-1, -2)) * dh ** -0.5, -1) * (mask.float() * ik)
+            rel = 2.0 * (2.0 ** -16 * dh ** -0.5 * (q.abs() @ k.abs().transpose(-1, -2))).amax(-1, keepdim=True) + 2.0 ** -20
+            flip = (pd * (1 + rel)).to(torch.bfloat16).float() - (pd * (1 - rel)).to(torch.bfloat16).float()
+            tol = 2.0 ** -14 * ik * vmax + (flip @ v.abs()).transpose(1, 2).reshape(b * s, d)
+        else:
+            tol = 1e-5 * ik * vmax
+        assert ((got - ref).abs() <= tol).all()
+        got = lt.attention_train_bwd(qq, dd, mask, s, h, ik, bf16)
+        _bwd_within_gate(got[0] if bf16 else got, qq, dd, mask, s, h, ik, bf16)
+
+
+@pytest.mark.parametrize("s", [177, 300])
+def test_stack_kernel_at_long_sequences_on_cuda(s):
+    """The whole-stack kernel past the length one attention tile holds (144
+    keys): bit-identical to two launches of the K3 chain at D=64 (dh=16)."""
+    torch.manual_seed(s)
+    posenet = PoseNet(latent_dim=64, ff_size=128, num_layers=2, num_heads=4).cuda()
+    stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
+    x = torch.randn(2, s, 64, device="cuda").to(torch.bfloat16)
+    ref = x
+    for i in range(2):
+        ref = l8.fused_encoder_layer_int8(ref, tuple(t[i] for t in stacked), 4)
+    assert torch.equal(l8.fused_encoder_stack_int8(x, stacked, 4), ref)

@@ -72,6 +72,41 @@ def test_staged_bf16_operands_change_no_bit(p):
     assert err <= 2e-3 * np.abs(y_j).max(), err
 
 
+def _f32_qkv_gemm(*args, out="f32", gelu=0, **kw):
+    """The products of the chain before bf16 qkv: the QKV and dattn
+    products hand over their f32 results (rounded inside the attention
+    kernels); the gelu product keeps its bf16 operand."""
+    return lt.gemm_train_plain(*args, gelu=gelu, out="f32" if out == "operand" and not gelu else out, **kw)
+
+
+def _rounded_dqkv(*args):
+    """The attention backward before its bf16 copy: dqkv f32, then cast."""
+    dqkv = lt.attention_train_bwd_plain(*args)[0]
+    return dqkv, lt.round_bf16_plain(dqkv)
+
+
+F32_QKV = lt.PLAIN._replace(gemm=_f32_qkv_gemm, attn_bwd=_rounded_dqkv)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.25])
+def test_bf16_qkv_and_dqkv_copy_change_no_bit(p):
+    """qkv and dattn in memory as bf16 (the products' bf16 copies) and the
+    attention backward's own bf16 copy of dqkv, against the chain that
+    keeps qkv and dattn f32 and casts dqkv with round_bf16: the forward
+    output, dx and the 12 parameter gradients are equal bit for bit, and
+    the staged qkv really is bf16."""
+    layer = _torch_layer(_flax_layer(4))
+    params = lt.cast_weight_mats(tuple(t.detach() for t in lt.layer_params(layer)))
+    rng = np.random.default_rng(12)
+    xt, dyt = (_t(rng.standard_normal((B * S, D)).astype(np.float32)) for _ in range(2))
+    _, masks = _jax_masks(14, p)
+    y, dx, grads, saved = _chain(lt.PLAIN, params, xt, dyt, masks, p)
+    y0, dx0, grads0, saved0 = _chain(F32_QKV, params, xt, dyt, masks, p)
+    assert saved[1].dtype == torch.bfloat16 and saved0[1].dtype == torch.float32
+    for got, ref in zip((y, dx, *grads), (y0, dx0, *grads0)):
+        assert got.dtype == torch.float32 and torch.equal(got, ref)
+
+
 def test_outputs_of_a_product():
     """`out` of a product: "operand" is the bf16 rounding of the f32 result
     in the bf16 mode and the f32 result itself in the f32 mode; "both" is
