@@ -389,7 +389,7 @@ def kernel_phase(seed: int) -> dict:
     ):
         got, ref = l16.gemm_bf16(a, w, bias, mode), l16.gemm_bf16_plain(a, w, bias, mode)
         if mode == "f32":
-            # f32 sums in another order (WMMA tiles vs cuBLAS): relative
+            # f32 sums in another order (wgmma tiles vs cuBLAS): relative
             # error ~sqrt(K) * 2^-24 of the row's magnitude
             tol = 1e-5 * ref.abs().max().item() + 1e-6
             why = "f32 accumulation order, 1e-5 of max|ref|"

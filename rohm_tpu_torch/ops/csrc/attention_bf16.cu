@@ -9,42 +9,56 @@
 // With no_softmax the probs are bf16(scores * 0.01), the `no_softmax`
 // ablation of scripts/bench_int8_layer.py::make_kernel.
 //
-// Design: one block per (16-query chunk, sequence, head), reading Q, K and
-// V in place from the QKV buffer (`rohm::attention_bf16_item`,
-// layer_routines.cuh, which the whole-stack kernel runs too). K and V
-// stream through shared memory in tiles of up to 144 keys, beside the
-// chunk's f32 scores, bf16 probs and f32 output tile, so any S runs. At
-// S <= 144 (the shipped length) one tile holds every key: ~103 KB at
-// S = 144, dh = 128, two blocks per SM; a longer sequence sweeps the key
-// tiles three times (the rows' max, their sum, then the probs and P.V).
-// Bound: at S=144 the work is small (~2.4 GFLOP per layer at B=32) and the
-// kernel is latency-bound; the 9x reload of K/V per head comes from L2.
+// Design (the routines of layer_routines.cuh, which the whole-stack kernel
+// runs too): up to S = 144 (the shipped length) one block per row item, a
+// share of at least 64 query rows of one (sequence, head) (two per head at
+// S = 144: 80 and 64 rows), one warp per 16-row chunk. K, the item's Q and
+// V are staged in shared memory once (cp.async, K first: ~98 KB at S = 144,
+// dh = 128, two blocks per SM, every item of a 32 x 4-head layer in one
+// wave); scores, probs and output stay in registers on mma.sync. A longer
+// sequence takes one 256-thread block per (16 queries, sequence, head),
+// streams K and V through shared memory in tiles of 144 keys and sweeps
+// them three times (the rows' max, their sum, then the probs and P.V).
+// Bound: its bytes (qkv read once, out written once: 5.6 us per layer at
+// B = 32, S = 144 on 3.35 TB/s); the tensor cores need 1.4 us for its
+// 1.4 GFLOP.
 #include "layer_routines.cuh"
 
 namespace {
 
 using rohm::attn_bf16::QC;
-using rohm::attn_bf16::THREADS;
 
-template <bool NO_SOFTMAX, bool TILED>
-__global__ void __launch_bounds__(THREADS) attention_bf16_kernel(
+// blockIdx.y = b * H + h; blockIdx.x: the row item (S <= 144) or the
+// 16-query chunk (TILED). DH: the row items' head width fixed at compile
+// time (128, the shipped one), or 0: any.
+template <bool NO_SOFTMAX, bool TILED, int DH>
+__global__ void __launch_bounds__(rohm::attn_bf16::THREADS) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S, int H, int dh,
     int s_pad) {
   extern __shared__ __align__(128) unsigned char smem[];
-  rohm::attention_bf16_item<NO_SOFTMAX, TILED>(qkv, out, S, H, dh, s_pad, blockIdx.y / H, blockIdx.y % H,
-                                               blockIdx.x * QC, smem);
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  if (TILED) {
+    rohm::attention_bf16_tiled_item<NO_SOFTMAX>(qkv, out, S, H, dh, b, h, blockIdx.x * QC, smem);
+  } else {
+    const int nch = rohm::attn_bf16::item_chunks(s_pad), c0 = blockIdx.x * nch;
+    rohm::attention_bf16_rows<NO_SOFTMAX, DH>(qkv, out, S, H, dh, s_pad, b, h, c0 * QC,
+                                              min(nch, s_pad / QC - c0), smem);
+  }
 }
 
 template <bool NO_SOFTMAX>
 int launch(const void* qkv, void* out, int B, int S, int H, int dh, cudaStream_t stream) {
   const int s_pad = (S + 15) / 16 * 16;
+  const bool tiled = rohm::attn_bf16::tiled(s_pad);
   const size_t smem = rohm::attn_bf16::smem_bytes(s_pad, dh);
-  auto kernel = rohm::attn_bf16::tiled(s_pad) ? attention_bf16_kernel<NO_SOFTMAX, true>
-                                              : attention_bf16_kernel<NO_SOFTMAX, false>;
+  auto kernel = tiled       ? attention_bf16_kernel<NO_SOFTMAX, true, 0>
+                : dh == 128 ? attention_bf16_kernel<NO_SOFTMAX, false, 128>
+                            : attention_bf16_kernel<NO_SOFTMAX, false, 0>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(s_pad / QC, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+  const dim3 grid(tiled ? s_pad / QC : rohm::attn_bf16::row_items(s_pad), B * H);
+  const int threads = tiled ? rohm::attn_bf16::THREADS : 32 * rohm::attn_bf16::item_chunks(s_pad);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
                                           S, H, dh, s_pad);
   return (int)cudaGetLastError();
 }

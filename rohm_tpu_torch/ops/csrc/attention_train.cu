@@ -132,46 +132,16 @@ __global__ void __launch_bounds__(rohm::attn_simt::THREADS) attention_train_fwd_
 // tensor-core helpers (mma.sync m16n8k16, bf16 in, f32 sums)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// d[16x8] += a[16x16] . b[16x8], bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+using rohm::cp_async16;
+using rohm::cp_async_wait;
+using rohm::div_rn;
+using rohm::ldsm_x4;
+using rohm::ldsm_x4_t;
+using rohm::mma_bf16;
+using rohm::pack_bf16;
+using rohm::quad_max;
+using rohm::quad_sum;
+using rohm::smem_u32;
 
 constexpr int TC_MAX_DH = 128;
 
@@ -201,18 +171,6 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[TC_MAX_DH / 16][4], c
     }
   }
 }
-
-// 16 bytes from device memory to shared memory without a trip through
-// registers (cp.async: every copy of a thread in flight at once), or 16
-// zero bytes where !valid; cp_async_wait() before the barrier that
-// publishes them
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
 
 // rows [0, nrows) of a bf16 [rows, dh] slice -> smem [rows][ld] in 16-byte
 // copies (cp.async); rows [nreal, nrows) are zero
@@ -338,14 +296,6 @@ __device__ __forceinline__ float warp_order_sum(const float (&v)[4][2]) {
     x[t] += __shfl_xor_sync(0xffffffffu, x[t], 1);
   }
   return x[0] + x[1];
-}
-
-// a / b rounded to nearest, with rb = __frcp_rn(b): one correction step of
-// the product with the reciprocal (Markstein), three instructions where the
-// IEEE division takes a call; a >= 0, b >= 1, as in a softmax
-__device__ __forceinline__ float div_rn(float a, float b, float rb) {
-  const float q0 = __fmul_rn(a, rb);
-  return fmaf(fmaf(-q0, b, a), rb, q0);
 }
 
 // acc[n] (dh columns 8n..8n+7) += P . B over the k-rows [0, 16 * nk16s) of

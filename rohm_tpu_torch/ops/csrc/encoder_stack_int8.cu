@@ -107,7 +107,7 @@ __device__ __forceinline__ void gemm_phase(const int8_t* A, const float* rs, con
 }
 
 // TILED: S past one attention tile (attn_bf16::tiled); its own instantiation,
-// so that the shipped lengths run the one-tile attention code alone. At
+// so that the shipped lengths run the row-item attention code alone. At
 // most 128 registers a thread, so that two blocks fit on an SM
 template <bool TILED>
 __global__ void __launch_bounds__(THREADS, 2) encoder_stack_int8_kernel(StackArgs p) {
@@ -117,7 +117,10 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_stack_int8_kernel(StackArg
   const int g = blockIdx.x * 2 + half, ng = gridDim.x * 2;  // this half's index, all halves
   const int R = p.B * p.S, D = p.D, F = p.F, dh = D / p.H;
   const int s_pad = (p.S + 15) / 16 * 16, chunks = s_pad / rohm::attn_bf16::QC;
-  const int attn_items = chunks * p.B * p.H;
+  // attention items per (sequence, head): its row items, or (TILED) its
+  // 16-query chunks
+  const int per_head = TILED ? chunks : rohm::attn_bf16::row_items(s_pad);
+  const int item_chunks = rohm::attn_bf16::item_chunks(s_pad);
   unsigned char* gsmem = smem + half * rohm::gemm_i8::SMEM;
   float* scratch = reinterpret_cast<float*>(smem) + half * 32;
   constexpr int T = rohm::GROUP;
@@ -142,10 +145,16 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_stack_int8_kernel(StackArg
     grid.sync();
     stamp(p, k);
 
-    for (int i = blockIdx.x; i < attn_items; i += gridDim.x) {
-      const int bh = i / chunks;
-      rohm::attention_bf16_item<false, TILED>(p.qkv, p.attn, p.S, p.H, dh, s_pad, bh / p.H, bh % p.H,
-                                              (i % chunks) * rohm::attn_bf16::QC, smem);
+    for (int i = blockIdx.x; i < per_head * p.B * p.H; i += gridDim.x) {
+      const int bh = i / per_head, k = i % per_head;
+      if (TILED) {
+        rohm::attention_bf16_tiled_item<false>(p.qkv, p.attn, p.S, p.H, dh, bh / p.H, bh % p.H,
+                                               k * rohm::attn_bf16::QC, smem);
+      } else {
+        const int c0 = k * item_chunks;
+        rohm::attention_bf16_rows<false, 0>(p.qkv, p.attn, p.S, p.H, dh, s_pad, bh / p.H, bh % p.H,
+                                         c0 * rohm::attn_bf16::QC, min(item_chunks, chunks - c0), smem);
+      }
     }
     grid.sync();
     stamp(p, k);

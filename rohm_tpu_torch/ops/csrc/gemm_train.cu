@@ -14,14 +14,10 @@
 //         product operand happens before the product: the weights are cast
 //         once per layer call, an activation by round_bf16 or by the bf16
 //         copy that the epilogue of the product making it writes (the same
-//         round-to-nearest-even values). Hopper main loop: one producer
-//         warp keeps TMA loads (cp.async.bulk.tensor, 128-byte swizzle) of
-//         64-deep k-steps in a ring of 3 stages with full and empty
-//         mbarriers; two consumer warpgroups each run wgmma.mma_async
-//         m64n128k16 on 64 rows of the 128 x 128 tile, f32 accumulators in
-//         registers. Each operand is loaded in its stored layout and the
-//         descriptors' transpose bits pick K- or MN-major. Ragged edges
-//         (rows, the K of the weight gradients) come from TMA's zero fill.
+//         round-to-nearest-even values). The Hopper main loop of
+//         wgmma_gemm.cuh (TMA ring, wgmma m64n128k16) on 128 x 128 tiles,
+//         each operand in its stored layout. Ragged edges (rows, the K of
+//         the weight gradients) come from TMA's zero fill.
 //   f32:  register-tiled SIMT FFMA (TF32 would miss the f32 mode's gate).
 // Epilogue (bf16: on the tile staged in shared memory once the main loop is
 // done, one rolled loop of coalesced float4 rows), in the TPU kernel's
@@ -49,9 +45,7 @@
 // Shapes: any M, N, K > 0 whose contiguous dimensions (N, and K or M of the
 // stored operands) are multiples of 8 (bf16: TMA's 16-byte row pitch) or 4
 // (f32: 16-byte loads); the rows (B*S, any count) are free.
-#include <cuda.h>  // CUtensorMap; the encoder itself comes from the driver at run time
-
-#include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -132,224 +126,24 @@ __device__ __forceinline__ float4 epi_apply(float4 acc, const EpiIn& in, int m, 
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using rohm::pack_bf16;
 
-// ---------------------------------------------------------------------------
-// bf16: TMA + wgmma, 128 x 128 tiles, 64-deep k-steps, a ring of 3 stages
-// ---------------------------------------------------------------------------
+// The bf16 products' epilogue on the main loop of wgmma_gemm.cuh: C (f32,
+// split > 1: this split's slice of the workspace) and / or C16 (bf16)
+struct TrainEpilogue {
+  float* C;
+  __nv_bfloat16* C16;
+  int M, N;
+  Epi epi;
 
-constexpr int TB_M = 128, TB_N = 128, TB_K = 64, STAGES = 3;
-constexpr int CONSUMERS = 256, TB_THREADS = CONSUMERS + 32;  // two warpgroups + the producer warp
-constexpr int A_BYTES = TB_M * TB_K * 2, B_BYTES = TB_N * TB_K * 2, STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int HALF_BYTES = 64 * TB_K * 2;  // 64 rows (or 64 columns) of one 64-deep tile
-constexpr int TILE_LD = TB_N + 8;  // f32 row pitch of the tile staged for the epilogue (68 KB)
-// the ring, its 2 x STAGES mbarriers, and room to align the ring to 1024
-// bytes (the 128-byte swizzle's period); 97 KB, so two blocks share an SM
-constexpr size_t TB_SMEM = (size_t)STAGES * STAGE_BYTES + 16 * STAGES + 1024;
-static_assert(TB_M * TILE_LD * 4 <= STAGES * STAGE_BYTES, "the epilogue's tile fits in the ring");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of this parity has completed. A wait of seconds is
-// a broken pipeline: trap (a launch error the wrapper reports) rather than
-// hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 2000000000ull) __trap();
-}
-
-// box (c0 = column, c1 = row) of a 2-D tensor map -> shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: 128-byte swizzle; lbo is the byte stride
-// between 64-element chunks along M/N of an MN-major operand (unused by a
-// K-major one), sbo the stride between groups of 8 rows (of M/N when
-// K-major, of K when MN-major). `addr` must sit in a 1024-aligned tile.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64x128] += A[64x16] . B[16x128]; TA / TB: A / B MN-major
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// Stage s of the ring holds A then B, each 16 KB:
-//   A K-major (X [M,K]): one box of [128 rows][64 k]; warpgroup w's 64 rows
-//     start at 8 KB * w;
-//   A MN-major (a_t, stored [K,M]): two boxes of [64 k][64 m], one per
-//     warpgroup;
-//   B K-major (b_t, W [N,K]): one box of [128 n][64 k];
-//   B MN-major (stored [K,N]): two boxes of [64 k][64 n], 8 KB apart (lbo).
-// Each row of a box is 128 bytes, swizzled in groups of 8 rows (sbo 1 KB).
-// A k16 slice starts 32 bytes further along a K-major row, 16 rows
-// (2 KB) further down an MN-major box.
-template <bool AT, bool BT>
-__global__ void __launch_bounds__(TB_THREADS, 2) gemm_bf16_kernel(
-    __grid_constant__ const CUtensorMap tma_a, __grid_constant__ const CUtensorMap tma_b,
-    float* __restrict__ C, __nv_bfloat16* __restrict__ C16, int M, int N, int K, int k_chunk, Epi epi) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = ring + STAGES * STAGE_BYTES;  // full[STAGES], then empty[STAGES]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * TB_M, n0 = blockIdx.x * TB_N;
-  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
-  const int steps = k_end > k_begin ? (k_end - k_begin + TB_K - 1) / TB_K : 0;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);                            // the producer's arrive + the bytes
-      mbar_init(bars + 8 * (STAGES + s), CONSUMERS / 32);    // one arrive per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp == CONSUMERS / 32) {  // the producer warp: one lane issues every load
-    if (lane == 0) {
-      for (int it = 0; it < steps; ++it) {
-        const int s = it % STAGES;
-        const uint32_t full = bars + 8 * s, a = ring + s * STAGE_BYTES, b = a + A_BYTES;
-        if (it >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full, STAGE_BYTES);
-        const int k = k_begin + it * TB_K;
-        if (AT) {
-          tma_load(a, &tma_a, full, m0, k);
-          tma_load(a + HALF_BYTES, &tma_a, full, m0 + 64, k);
-        } else {
-          tma_load(a, &tma_a, full, k, m0);
-        }
-        if (BT) {
-          tma_load(b, &tma_b, full, k, n0);
-        } else {
-          tma_load(b, &tma_b, full, n0, k);
-          tma_load(b + HALF_BYTES, &tma_b, full, n0 + 64, k);
-        }
-      }
-    }
-    return;
-  }
-
-  // the consumers: warpgroup wg owns rows 64 * wg .. of the tile
-  const int wg = warp / 4;
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  for (int it = 0; it < steps; ++it) {
-    const int s = it % STAGES;
-    mbar_wait(bars + 8 * s, (it / STAGES) & 1);
-    const uint32_t a = ring + s * STAGE_BYTES + wg * HALF_BYTES, b = ring + s * STAGE_BYTES + A_BYTES;
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < TB_K / 16; ++kk) {
-      const uint64_t da = AT ? smem_desc(a + kk * 2048, HALF_BYTES, 1024) : smem_desc(a + kk * 32, 16, 1024);
-      const uint64_t db = BT ? smem_desc(b + kk * 32, 16, 1024) : smem_desc(b + kk * 2048, HALF_BYTES, 1024);
-      wgmma_128<AT ? 1 : 0, BT ? 0 : 1>(acc, da, db);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + s));  // this warp is done with stage s
-  }
-
-  // The epilogue runs on the tile staged in shared memory (the ring is free
-  // once both warpgroups are done with it), as one rolled loop of float4
-  // rows: coalesced loads and stores, and one copy of its code (the same
-  // code unrolled over the accumulators ran from the instruction cache's
-  // misses). Accumulator i of thread (warp, lane) is row
-  // 16 * (warp % 4) + lane / 4 + 8 * ((i / 2) % 2), column
-  // 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the warpgroup's 64 x 128.
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-  float* tile = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)));
-  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4, c0 = 2 * (lane % 4);
-#pragma unroll
-  for (int j = 0; j < TB_N / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * TILE_LD + c0 + 8 * j) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-
-  float* out = C ? C + (size_t)blockIdx.z * M * N : nullptr;  // split-K: this split's slice
-  const bool split = gridDim.z > 1;
-#pragma unroll 1
-  for (int e = tid; e < TB_M * TB_N / 4; e += CONSUMERS) {
-    const int r = e / (TB_N / 4), c = (e % (TB_N / 4)) * 4;
-    const int m = m0 + r, n = n0 + c;  // N % 8 == 0: n < N means n + 3 < N
-    if (m >= M || n >= N) continue;
-    float4 v = *reinterpret_cast<const float4*>(tile + r * TILE_LD + c);
-    if (!split) v = epi_apply(v, epi_load(m, n, N, epi), m, n, N, epi);
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    float* out = C ? C + (size_t)blockIdx.z * M * N : nullptr;
+    if (gridDim.z == 1) v = epi_apply(v, epi_load(m, n, N, epi), m, n, N, epi);
     const size_t o = (size_t)m * N + n;
     if (out) *reinterpret_cast<float4*>(out + o) = v;
     if (C16) *reinterpret_cast<uint2*>(C16 + o) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // f32: SIMT FFMA, 128x64 block tile, 16-deep k-steps, 256 threads of 8x4
@@ -474,62 +268,12 @@ __global__ void round_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call; the library links only the
-// runtime, so the entry point is fetched from the driver once
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major bf16 matrix [rows, cols], read in boxes of box_rows x 64
-// columns (128 bytes, the swizzle's width); boxes past its edges read zeros
-bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t pitch[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, pitch, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool AT, bool BT>
 cudaError_t launch_bf16(const void* A, const void* B, float* C, __nv_bfloat16* C16, int M, int N, int K,
                         int splits, int k_chunk, const Epi& epi, cudaStream_t s) {
   CUtensorMap ta, tb;
-  const bool ok = (AT ? encode(&ta, A, K, M, 64) : encode(&ta, A, M, K, TB_M)) &&
-                  (BT ? encode(&tb, B, N, K, TB_N) : encode(&tb, B, K, N, 64));
-  if (!ok) return cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {  // 97 KB each, and as much shared memory as the SM has: two blocks share it
-    cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<AT, BT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TB_SMEM);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_bf16_kernel<AT, BT>, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  const dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M, splits);
-  gemm_bf16_kernel<AT, BT><<<grid, TB_THREADS, TB_SMEM, s>>>(ta, tb, C, C16, M, N, K, k_chunk, epi);
-  return cudaGetLastError();
+  if (!wg::encode_operands<AT, BT, 128>(&ta, &tb, A, B, M, N, K)) return cudaErrorInvalidValue;
+  return wg::launch<AT, BT, 128>(ta, tb, M, N, K, splits, k_chunk, TrainEpilogue{C, C16, M, N, epi}, s);
 }
 
 template <bool AT, bool BT>
@@ -558,7 +302,7 @@ extern "C" int rt_gemm_train(const void* A, const void* B, void* C, void* C16, i
   if (M <= 0 || N <= 0 || K <= 0 || N % align || (a_t ? M % align : K % align) || (b_t && K % align) ||
       gelu < 0 || gelu > 2)
     return (int)cudaErrorInvalidValue;
-  const int step = bf16 ? TB_K : F_K;
+  const int step = bf16 ? wg::TB_K : F_K;
   if (splits < 1 || k_chunk <= 0 || k_chunk % step || (long long)splits * k_chunk < K)
     return (int)cudaErrorInvalidValue;
   if ((!C && !C16) || (C16 && !bf16)) return (int)cudaErrorInvalidValue;

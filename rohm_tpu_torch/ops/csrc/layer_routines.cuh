@@ -196,45 +196,216 @@ __device__ __forceinline__ void gemm_int8_tile(const int8_t* A, const float* row
 }
 
 // ---------------------------------------------------------------------------
-// attention of one (16-query chunk, sequence, head) on the fused QKV buffer
-// [B*S, 3D] bf16 (1/sqrt(dh) folded into Q) -> out [B*S, D] bf16, run by
-// the whole 256-thread block. Scores Q.K^T accumulate in f32; the probs
-// are softmax in f32 rounded to bf16, or (NO_SOFTMAX) bf16(scores * 0.01);
-// P.V accumulates in f32 before the final bf16 rounding. K and V stream
-// through shared memory in tiles of up to KT keys (S padded to a multiple
-// of 16), beside the chunk's Q, f32 scores, bf16 probs and f32 output
-// tile. When one tile holds every key (S <= 144, the shipped length) the
-// scores are computed once and the softmax comes from them; a longer
-// sequence sweeps the key tiles for the rows' max, again for their sum
-// (never rescaled), and a last time for the probs and P.V, whose f32 sums
-// carry over the tiles in the output tile. The probs are then exp(s - max)
-// / sum of the row's final max and sum at every S, as in the plain version.
+// attention on the fused QKV buffer [B*S, 3D] bf16 (1/sqrt(dh) folded into
+// Q) -> out [B*S, D] bf16, per (sequence, head). Scores Q.K^T accumulate in
+// f32; the probs are softmax in f32 over the S real keys, expf(s - max) /
+// sum correctly rounded (__fdiv_rn, or div_rn in the row items: the same
+// quotient), rounded to bf16 (padded keys give 0), or
+// (NO_SOFTMAX) bf16(scores * 0.01); P.V accumulates in f32 before the final
+// bf16 rounding. Two routines, both run by a whole block:
+//  - attention_bf16_rows, S <= KT (the shipped 144): a row item, a share of
+//    at least 64 query rows of one (sequence, head) where it has that many
+//    (two items per head at S = 144). K, this item's Q rows, then V land in
+//    shared memory once (cp.async; the scores start while V lands). Each
+//    warp owns 16-row chunks: the scores of its chunk come from mma.sync
+//    m16n8k16 into registers, the row max and sum from quad shuffles over
+//    the accumulator layout, the probs are rounded to bf16 straight into
+//    the A fragments of P.V, and the output accumulates in registers, 64
+//    columns at a time, then leaves in 16-byte stores. A chunk's result
+//    depends only on its rows, so any split of the rows into items and of
+//    the chunks over warps gives the same bits.
+//  - attention_bf16_tiled_item, S > KT: one 16-query chunk per item, K and
+//    V streamed through shared memory in tiles of KT keys beside the
+//    chunk's Q, f32 scores, bf16 probs and f32 output tile; sweeps over the
+//    key tiles for the rows' max, again for their sum (never rescaled), and
+//    a last time for the probs and P.V, whose f32 sums carry over the tiles
+//    in the output tile. The probs are exp(s - max) / sum of the row's final
+//    max and sum, as in the plain version.
 // ---------------------------------------------------------------------------
 namespace attn_bf16 {
-constexpr int QC = 16;        // query rows per item
-constexpr int THREADS = 256;  // 8 warps
-constexpr int KT = 144;       // keys per tile: two blocks per SM at dh = 128
+constexpr int QC = 16;        // query rows per chunk
+constexpr int THREADS = 256;  // the tiled item's block (8 warps)
+constexpr int KT = 144;       // keys of one tile: S <= KT takes the row items
 
-inline __host__ __device__ int tile_keys(int s_pad) { return s_pad < KT ? s_pad : KT; }
 inline __host__ __device__ bool tiled(int s_pad) { return s_pad > KT; }
 
+// S <= KT: the row items of one (sequence, head), each at least 4 chunks
+// (64 rows) where the head has that many, and the chunks of the largest
+inline __host__ __device__ int row_items(int s_pad) {
+  const int n = s_pad / QC / 4;
+  return n > 1 ? n : 1;
+}
+inline __host__ __device__ int item_chunks(int s_pad) {
+  const int n = row_items(s_pad);
+  return (s_pad / QC + n - 1) / n;
+}
+
 inline __host__ __device__ size_t smem_bytes(int s_pad, int dh) {
-  const size_t kt = tile_keys(s_pad);
-  const size_t ldk = dh + 8, lds = kt + 4, ldp = kt + 8, ldo = dh + 4;
+  const size_t ldk = dh + 8;
+  if (!tiled(s_pad)) return 2 * ldk * (2 * (size_t)s_pad + (size_t)QC * item_chunks(s_pad));
+  const size_t kt = KT, lds = kt + 4, ldp = kt + 8, ldo = dh + 4;
   return 2 * (2 * kt * ldk + QC * ldk) + 4 * QC * lds + 2 * QC * ldp + 4 * QC * ldo + 4 * 2 * QC;
 }
 }  // namespace attn_bf16
 
-// TILED: S > KT (attn_bf16::tiled); its own instantiation, so that the
-// shipped lengths run the one-tile code alone
-template <bool NO_SOFTMAX, bool TILED>
-__device__ __forceinline__ void attention_bf16_item(const __nv_bfloat16* qkv, __nv_bfloat16* out, int S,
-                                                    int H, int dh, int s_pad, int b, int h, int q0,
-                                                    unsigned char* smem) {
+// Query rows [q0, q0 + 16 nch) of (sequence b, head h) against every key,
+// S <= s_pad <= KT (s_pad: S rounded up to 16), by the whole block (any
+// number of warps; a warp may take several chunks). DH > 0 fixes the head
+// width at compile time (the shared-memory offsets become constants: 14%
+// faster at dh = 128 on an H100), DH = 0 takes head_dim, any multiple of
+// 16; both give the same bits. Not inlined: its 72 score registers would
+// otherwise raise the register pressure of every phase of the whole-stack
+// kernel (two blocks per SM cap it at 128).
+template <bool NO_SOFTMAX, int DH>
+__device__ __noinline__ void attention_bf16_rows(const __nv_bfloat16* qkv, __nv_bfloat16* out, int S,
+                                                 int H, int head_dim, int s_pad, int b, int h, int q0,
+                                                 int nch, unsigned char* smem) {
+  using attn_bf16::KT;
+  using attn_bf16::QC;
+  const int dh = DH > 0 ? DH : head_dim;
+  const int D = H * dh, stride = 3 * D, ld = dh + 8;  // 16 bytes of skew: ldmatrix without bank conflicts
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [s_pad][ld], rows past S zero
+  __nv_bfloat16* Vs = Ks + s_pad * ld;                          // [s_pad][ld], rows past S zero
+  __nv_bfloat16* Qs = Vs + s_pad * ld;                          // [16 nch][ld], rows past S zero
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int nwarps = nthreads / 32, g = lane / 4, q = lane % 4, c8 = dh / 8;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * stride + h * dh;
+
+  __syncthreads();  // the block's previous item is done with the buffers
+  for (int e = tid; e < s_pad * c8; e += nthreads) {
+    const int r = e / c8, c = (e % c8) * 8;
+    cp_async16(Ks + r * ld + c, base + (size_t)(r < S ? r : 0) * stride + D + c, r < S);
+  }
+  for (int e = tid; e < nch * QC * c8; e += nthreads) {
+    const int r = e / c8, c = (e % c8) * 8, row = q0 + r;
+    cp_async16(Qs + r * ld + c, base + (size_t)(row < S ? row : 0) * stride + c, row < S);
+  }
+  cp_async_commit();
+  for (int e = tid; e < s_pad * c8; e += nthreads) {
+    const int r = e / c8, c = (e % c8) * 8;
+    cp_async16(Vs + r * ld + c, base + (size_t)(r < S ? r : 0) * stride + 2 * D + c, r < S);
+  }
+  cp_async_commit();
+  cp_async_wait_group<1>();  // K and Q
+  __syncthreads();
+
+  const int rounds = (nch + nwarps - 1) / nwarps;
+  for (int round = 0; round < rounds; ++round) {
+    const int chunk = warp + round * nwarps;
+    const bool active = chunk < nch;
+    __nv_bfloat16* Qc = Qs + chunk * QC * ld;
+    uint32_t pa[KT / 16][4];  // the probs: A fragments of P.V (keys 16t..16t+15)
+    if (active) {
+      // scores [16 x s_pad] in the accumulator layout: s[j][e] is row
+      // g + 8 (e / 2), key 8j + 2q + e % 2
+      float s[KT / 8][4];
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      for (int kk = 0; kk < dh / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, smem_u32(Qc + (lane & 15) * ld + 16 * kk + ((lane >> 4) << 3)));
+#pragma unroll
+        for (int jp = 0; jp < KT / 16; ++jp) {
+          if (16 * jp >= s_pad) break;
+          uint32_t kb[4];
+          ldsm_x4(kb, smem_u32(Ks + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * ld + 16 * kk +
+                               (((lane >> 3) & 1) << 3)));
+          mma_bf16(s[2 * jp], a, kb[0], kb[1]);
+          mma_bf16(s[2 * jp + 1], a, kb[2], kb[3]);
+        }
+      }
+      if (NO_SOFTMAX) {
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 8 * j + 2 * q + (e & 1) < S ? __fmul_rn(s[j][e], 0.01f) : 0.0f;
+      } else {
+        float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * q + (e & 1) < S) mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        mx[0] = quad_max(mx[0]);
+        mx[1] = quad_max(mx[1]);
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = 8 * j + 2 * q + (e & 1) < S ? expf(s[j][e] - mx[e / 2]) : 0.0f;
+            sum[e / 2] += s[j][e];
+          }
+        sum[0] = quad_sum(sum[0]);
+        sum[1] = quad_sum(sum[1]);
+        const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = div_rn(s[j][e], sum[e / 2], rs[e / 2]);
+      }
+      // accumulator (row g, keys 2q, 2q + 1), (row g + 8, the same) of
+      // tiles 2t and 2t + 1 -> the A fragment of keys 16t..16t+15
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+        pa[j / 2][2 * (j % 2)] = pack_bf16(s[j][0], s[j][1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[j][2], s[j][3]);
+      }
+    }
+    if (round == 0) {  // V has landed (every thread reaches this once)
+      cp_async_wait_group<0>();
+      __syncthreads();
+    }
+    if (!active) continue;
+
+    // out [16 x dh] = P.V, 64 columns at a time; each 16 x 64 block is
+    // staged as bf16 in the chunk's own Q rows (free now), then leaves in
+    // 16-byte stores
+    for (int n0 = 0; n0 < dh; n0 += 64) {
+      float o[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < KT / 16; ++t) {
+        if (16 * t >= s_pad) break;
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (n0 + 16 * np >= dh) break;
+          uint32_t vb[4];
+          ldsm_x4_t(vb, smem_u32(Vs + (16 * t + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + n0 + 16 * np +
+                                 ((lane >> 4) << 3)));
+          mma_bf16(o[2 * np], pa[t], vb[0], vb[1]);
+          mma_bf16(o[2 * np + 1], pa[t], vb[2], vb[3]);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (n0 + 8 * n >= dh) break;
+        const int col = n0 + 8 * n + 2 * q;
+        *reinterpret_cast<uint32_t*>(Qc + g * ld + col) = pack_bf16(o[n][0], o[n][1]);
+        *reinterpret_cast<uint32_t*>(Qc + (g + 8) * ld + col) = pack_bf16(o[n][2], o[n][3]);
+      }
+    }
+    __syncwarp();
+    for (int e = lane; e < QC * c8; e += 32) {
+      const int r = e / c8, c = (e % c8) * 8, row = q0 + chunk * QC + r;
+      if (row < S)
+        *reinterpret_cast<uint4*>(out + ((size_t)b * S + row) * D + h * dh + c) =
+            *reinterpret_cast<const uint4*>(Qc + r * ld + c);
+    }
+  }
+}
+
+// One 16-query chunk of (sequence b, head h), S > KT, by the whole
+// 256-thread block.
+template <bool NO_SOFTMAX>
+__device__ __forceinline__ void attention_bf16_tiled_item(const __nv_bfloat16* qkv, __nv_bfloat16* out, int S,
+                                                          int H, int dh, int b, int h, int q0,
+                                                          unsigned char* smem) {
   using namespace nvcuda;
   using attn_bf16::QC;
   using attn_bf16::THREADS;
-  const int kt = TILED ? attn_bf16::KT : s_pad, nt = TILED ? (S + kt - 1) / kt : 1;
+  constexpr int kt = attn_bf16::KT;
   const int D = H * dh, row_stride = 3 * D;
   const int ldk = dh + 8, lds = kt + 4, ldp = kt + 8, ldo = dh + 4;
 
@@ -288,41 +459,8 @@ __device__ __forceinline__ void attention_bf16_item(const __nv_bfloat16* qkv, __
     __syncthreads();
   };
 
-  // probs over the tile's real keys, rounded to bf16; padded keys -> 0
-  auto probs = [&](int nk, int nk16) {
-    for (int r = warp; r < QC; r += nwarps) {
-      const float* srow = Ss + r * lds;
-      if (NO_SOFTMAX) {
-        for (int c = lane; c < nk16; c += 32)
-          Ps[r * ldp + c] = __float2bfloat16_rn(c < nk ? __fmul_rn(srow[c], 0.01f) : 0.0f);
-        continue;
-      }
-      const float mx = rmax[r], sum = rsum[r];
-      for (int c = lane; c < nk16; c += 32) {
-        const float p = c < nk ? __fdiv_rn(expf(srow[c] - mx), sum) : 0.0f;
-        Ps[r * ldp + c] = __float2bfloat16_rn(p);
-      }
-    }
-  };
-
-  // the rows' max and sum over the S real keys (one warp per row); one
-  // tile: the probs from the same scores
-  if (!NO_SOFTMAX && nt == 1) {
-    tile_scores(0, s_pad, true);
-    for (int r = warp; r < QC; r += nwarps) {
-      const float* srow = Ss + r * lds;
-      float mx = -INFINITY;
-      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c]);
-      mx = warp_max(mx);
-      float sum = 0.0f;
-      for (int c = lane; c < S; c += 32) sum += expf(srow[c] - mx);
-      sum = warp_sum(sum);
-      for (int c = lane; c < s_pad; c += 32) {
-        const float p = c < S ? __fdiv_rn(expf(srow[c] - mx), sum) : 0.0f;
-        Ps[r * ldp + c] = __float2bfloat16_rn(p);
-      }
-    }
-  } else if (!NO_SOFTMAX) {
+  // the rows' max and sum over the S real keys (one warp per row)
+  if (!NO_SOFTMAX) {
     if (tid < QC) rmax[tid] = -INFINITY, rsum[tid] = 0.0f;
     for (int pass = 0; pass < 2; ++pass) {
       for (int k0 = 0; k0 < S; k0 += kt) {
@@ -347,11 +485,22 @@ __device__ __forceinline__ void attention_bf16_item(const __nv_bfloat16* qkv, __
     }
   }
 
-  for (int k0 = 0; k0 < (TILED ? S : 1); k0 += kt) {
+  for (int k0 = 0; k0 < S; k0 += kt) {
     const int nk = min(kt, S - k0), nk16 = (nk + 15) / 16 * 16;
-    if (NO_SOFTMAX || nt > 1) {
-      tile_scores(k0, nk16, true);
-      probs(nk, nk16);
+    tile_scores(k0, nk16, true);
+    // probs over the tile's real keys, rounded to bf16; padded keys -> 0
+    for (int r = warp; r < QC; r += nwarps) {
+      const float* srow = Ss + r * lds;
+      if (NO_SOFTMAX) {
+        for (int c = lane; c < nk16; c += 32)
+          Ps[r * ldp + c] = __float2bfloat16_rn(c < nk ? __fmul_rn(srow[c], 0.01f) : 0.0f);
+        continue;
+      }
+      const float mx = rmax[r], sum = rsum[r];
+      for (int c = lane; c < nk16; c += 32) {
+        const float p = c < nk ? __fdiv_rn(expf(srow[c] - mx), sum) : 0.0f;
+        Ps[r * ldp + c] = __float2bfloat16_rn(p);
+      }
     }
     __syncthreads();
 

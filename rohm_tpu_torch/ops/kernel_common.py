@@ -75,10 +75,11 @@ def attention_bf16(qkv: torch.Tensor, seq_len: int, num_heads: int,
 
     Replaces kernel_common.attention_bf16 inside the TPU kernels
     _layer_kernel_bf16 and _layer_kernel_int8 (and the attention of
-    scripts/bench_int8_layer.py::make_kernel). CUDA: csrc/attention_bf16.cu,
-    one block per (16 queries, sequence, head), K and V streamed through
-    shared memory in tiles of up to 144 keys (any S); latency-bound at
-    S=144."""
+    scripts/bench_int8_layer.py::make_kernel). CUDA: csrc/attention_bf16.cu;
+    up to S = 144 one block per share of at least 64 query rows of a
+    (sequence, head), K and V staged in shared memory once, scores, probs
+    and output in registers on mma.sync; longer sequences stream K and V
+    through shared memory in tiles of 144 keys. Bound by its bytes."""
     if qkv.device.type == "cpu":
         return attention_bf16_plain(qkv, seq_len, num_heads, no_softmax)
     check_cuda(qkv, torch.bfloat16, 2, "qkv")

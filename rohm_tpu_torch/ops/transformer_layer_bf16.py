@@ -53,7 +53,9 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str) -
     "gelu": + f32 bias, tanh-gelu -> bf16.
 
     Replaces the dense products of _layer_kernel_bf16. CUDA: csrc/gemm_bf16.cu,
-    WMMA tensor-core tiles; tensor-core bound at the production shapes."""
+    the Hopper main loop it shares with gemm_train (TMA ring, wgmma) on 128 x
+    128 or 128 x 64 tiles, w as stored; any M, N and K multiples of 8. Bound
+    by its bytes at the production shapes."""
     if a.device.type == "cpu":
         return gemm_bf16_plain(a, w, bias, mode)
     if mode not in GEMM_BF16_MODES:
@@ -63,7 +65,7 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str) -
     check_cuda(bias, torch.bfloat16 if mode == "qkv" else torch.float32, 1, "bias")
     m, k = a.shape
     n = w.shape[1]
-    if w.shape[0] != k or bias.shape[0] != n or n % 64 or k % 32:
+    if w.shape[0] != k or bias.shape[0] != n or n % 8 or k % 8:
         raise ValueError(f"gemm_bf16: shapes {tuple(a.shape)} @ {tuple(w.shape)} unsupported")
     out_dtype = torch.float32 if mode == "f32" else torch.bfloat16
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)

@@ -1,4 +1,4 @@
-"""A/B of the port's attention kernels and the training layer between two checkouts, on one card.
+"""A/B of the port's attention kernels, GEMMs and layers between two checkouts, on one card.
 
     python -m rohm_tpu_torch.scripts.ab_train_kernels --other DIR [--seed 0]
 
@@ -10,10 +10,15 @@ the two versions are compared on the same card in turns. Each process
 times, at the training shapes (64 clips x 145 tokens, D=512, H=4, F=1024,
 dropout 0.1, random weights from --seed): `attention_train_fwd` and
 `attention_train_bwd` in both modes and the 12 `gemm_train` products of one
-bf16 layer as that checkout's chain calls them, and the layer's bf16
-forward and backward; at the inference shapes (32 clips x 144 tokens):
-`attention_f32`, `attention_bf16`, `attention_int8` and the whole-stack
-`encoder_stack_int8` (8 layers). Each is timed with CUDA events around
+bf16 layer as that checkout's chain calls them (and a digest of their
+outputs, which must agree bit for bit where the products' code is meant
+not to change), and the layer's bf16 forward and backward; at the
+inference shapes (32 clips x 144 tokens): `attention_f32`,
+`attention_bf16`, `attention_int8`, the four `gemm_bf16` products of a
+bf16 layer (each, their sum, and the host's microseconds to enqueue one),
+the bf16 and int8 inference layers (`fused_encoder_layer_bf16` / `_int8`),
+and the whole-stack `encoder_stack_int8` (8 layers, with its phases from
+the global timer at its barriers). Each is timed with CUDA events around
 one call and on the card alone with a cold L2 (card_ms: a CUDA graph of
 10 calls, each after a 128 MB write, less a graph of the writes alone);
 K5's cooperative launch by events only. It prints one JSON line per
@@ -25,11 +30,13 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 THIS_TREE = Path(__file__).resolve().parents[2]
@@ -114,12 +121,14 @@ def measure(seed: int) -> dict:
     from rohm_tpu_torch.models.blocks import TransformerEncoderLayer
     from rohm_tpu_torch.ops import kernel_common as kc
     from rohm_tpu_torch.ops import transformer_layer as l32
+    from rohm_tpu_torch.ops import transformer_layer_bf16 as l16
     from rohm_tpu_torch.ops import transformer_layer_int8 as l8
     from rohm_tpu_torch.ops import transformer_layer_train as lt
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the A/B measures the card")
     staged = hasattr(lt, "round_bf16")
+    torch.manual_seed(seed)  # the layers' initial weights
     g = torch.Generator(device="cuda").manual_seed(seed)
     layer = TransformerEncoderLayer(D, H, F).cuda()
     with torch.no_grad():
@@ -170,8 +179,12 @@ def measure(seed: int) -> dict:
     ]
 
     def gemms():
-        for kw in products:
-            lt.gemm_train(bf16=True, **kw)
+        return [lt.gemm_train(bf16=True, **kw) for kw in products]
+
+    digest = hashlib.sha256()
+    for res in gemms():
+        for t in res if isinstance(res, tuple) else (res,):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
 
     def attention():
         lt.attention_train_fwd(qkv, mp, TS, H, ik, True)
@@ -200,6 +213,27 @@ def measure(seed: int) -> dict:
         "attention_bf16": lambda: kc.attention_bf16(qkv_i16, s_inf, H),
         "attention_int8": lambda: l8.attention_int8(qkv_i16, s_inf, H),
     }
+    # the bf16 and int8 inference layers of a random layer (biases and
+    # LayerNorm parameters moved off their initial values), and the four
+    # gemm_bf16 products of the bf16 one on operands of its scale
+    inf_layer = TransformerEncoderLayer(D, H, F).cuda()
+    with torch.no_grad():
+        for prm in inf_layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape[0], generator=g, device="cuda"))
+    p16, p8 = l16.prepare_layer_bf16(inf_layer), l8.prepare_layer_int8(inf_layer)
+    rows = b_inf * s_inf
+    a_d, a_f = (torch.randn(rows, n, generator=g, device="cuda").to(torch.bfloat16) for n in (D, F))
+    x2 = x_inf.reshape(rows, D)
+    gemm_bf16 = {
+        "gemm_bf16_qkv": lambda: l16.gemm_bf16(x2, p16[0], p16[1], "qkv"),
+        "gemm_bf16_out": lambda: l16.gemm_bf16(a_d, p16[2], p16[3], "f32"),
+        "gemm_bf16_ff1": lambda: l16.gemm_bf16(x2, p16[6], p16[7], "gelu"),
+        "gemm_bf16_ff2": lambda: l16.gemm_bf16(a_f, p16[8], p16[9], "f32"),
+    }
+    inference.update(gemm_bf16)
+    inference["layer_bf16_inf"] = lambda: l16.fused_encoder_layer_bf16(x_inf, p16, H)
+    inference["layer_int8_inf"] = lambda: l8.fused_encoder_layer_int8(x_inf, p8, H)
 
     def fwd():
         return lt.layer_train_fwd(x, kp, fm, TS, H, ik, True)
@@ -209,11 +243,24 @@ def measure(seed: int) -> dict:
     def bwd():
         lt.layer_train_bwd(dy, saved_k, kp, fm, TS, H, ik, True)
 
-    out = {"tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged, "bf16_qkv": bf16_qkv}
+    out = {"tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged, "bf16_qkv": bf16_qkv,
+           "gemm_12_digest": digest.hexdigest()[:16]}
     for name, fn in (("attention_fwd", attention), ("attention_bwd", attention_bwd),
                      ("attention_fwd_f32_mode", attention_f32_mode), ("attention_bwd_f32_mode", attention_bwd_f32_mode),
                      ("gemm_12", gemms), ("layer_fwd", fwd), ("layer_bwd", bwd), *inference.items()):
         out[f"{name}_card_ms"], out[f"{name}_ms"] = card_ms(fn), _median_ms(fn)
+    out["gemm_bf16_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_bf16)
+    # the host's time to enqueue one gemm_bf16 call (wrapper, checks,
+    # allocation, launch), with the card kept ahead of it
+    fn = gemm_bf16["gemm_bf16_qkv"]
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    out["gemm_bf16_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
     # device time per kernel of the two attention backwards (torch.profiler)
     for name, fn in (("attention_bwd", attention_bwd), ("attention_bwd_f32_mode", attention_bwd_f32_mode)):
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -229,6 +276,12 @@ def measure(seed: int) -> dict:
     bwd()
     out["layer_bwd_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     out["encoder_stack_int8_ms"] = _median_ms(lambda: l8.fused_encoder_stack_int8(x_inf, stacked, H))
+    stamps = torch.zeros(2 + 9 * 8, dtype=torch.int64, device="cuda")
+    l8.fused_encoder_stack_int8(x_inf, stacked, H, phase_ns=stamps)
+    gaps = (stamps[1:] - stamps[:-1]).tolist()
+    for j, name in enumerate(l8.STACK_PHASES):
+        out[f"encoder_stack_int8_{name.replace(' ', '_')}_us"] = sum(gaps[1 + 9 * i + j] for i in range(8)) / 1e3
+    out["encoder_stack_int8_grid"] = list(l8.stack_grid(s_inf, D // H))
     return out
 
 
@@ -256,10 +309,12 @@ def main(argv=None) -> list:
         res = {"run": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(res), flush=True)
         runs.append(res)
-    keys = [k for k in runs[0] if k.endswith(("_ms", "_mib"))]
+    keys = [k for k in runs[0] if k.endswith(("_ms", "_mib", "_us")) and isinstance(runs[0][k], float)]
     print(f"{card}; ms, runs in order " + " / ".join(r["run"] for r in runs))
     for k in keys:
-        print(f"{k:24s} " + " / ".join(f"{r[k]:.4f}" for r in runs))
+        print(f"{k:36s} " + " / ".join(f"{r[k]:.4f}" if k in r else "-" for r in runs))
+    for k in ("gemm_12_digest", "encoder_stack_int8_grid"):
+        print(f"{k:36s} " + " / ".join(str(r.get(k, "-")) for r in runs))
     return runs
 
 

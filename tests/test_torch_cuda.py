@@ -301,3 +301,75 @@ def test_stack_kernel_at_long_sequences_on_cuda(s):
     for i in range(2):
         ref = l8.fused_encoder_layer_int8(ref, tuple(t[i] for t in stacked), 4)
     assert torch.equal(l8.fused_encoder_stack_int8(x, stacked, 4), ref)
+
+
+def _gemm_bf16_within_gate(a, w, bias, mode, sum_flip=False):
+    """gemm_bf16 against its plain version under chip_smoke.py's gates: the
+    f32 result within 1e-5 of max|ref| (f32 sum order), a bf16 result
+    within one bf16 ulp of |ref| + |bias| (the sum order may flip the
+    product's bf16 rounding). With `sum_flip` (qkv with a nonzero bf16 bias)
+    also one ulp of |ref| for the rounding of the sum with the bias, which
+    a flipped product can move across a tie: the WMMA kernel this one
+    replaced shows the same two-ulp cases on the same inputs."""
+    got, ref = l16.gemm_bf16(a, w, bias, mode), l16.gemm_bf16_plain(a, w, bias, mode)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = (got.float() - ref.float()).abs()
+    if mode == "f32":
+        assert (err <= 1e-5 * ref.abs().max() + 1e-6).all()
+    else:
+        gate = 2.0 ** -7 * (ref.float().abs() + bias.float().abs()) + 1e-5
+        if sum_flip:
+            gate = gate + 2.0 ** -7 * ref.float().abs()
+        assert (err <= gate).all()
+
+
+# (M, K, N): the four products of a bf16 layer at 32 x 144 tokens (qkv, out,
+# FF1, FF2), ragged rows, one tile narrower than the kernel's tiles, and N
+# and K that are multiples of 8 but not of a tile (TMA's zero fill)
+GEMM_BF16_SHAPES = [(4608, 512, 1536), (4608, 512, 512), (4608, 512, 1024), (4608, 1024, 512),
+                    (288, 512, 1536), (4608 + 37, 1024, 512), (4608 + 37, 512, 1024), (300, 64, 64),
+                    (300, 72, 200), (300, 136, 1160)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_BF16_SHAPES)
+@pytest.mark.parametrize("mode", ["qkv", "f32", "gelu"])
+def test_gemm_bf16_shapes_on_cuda(m, k, n, mode):
+    """gemm_bf16 (TMA + wgmma) in each epilogue mode at the layer's four
+    shapes, at ragged M (288, 4608 + 37), at N = K = 64, and at N and K off
+    the tiles (both tile widths); qkv both with
+    the zero bias of a freshly built layer (chip_smoke.py's case) and with
+    a nonzero one."""
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+    w = (k ** -0.5 * torch.randn(k, n, device="cuda", generator=g)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(n, device="cuda", generator=g)
+    if mode == "qkv":
+        _gemm_bf16_within_gate(a, w, torch.zeros_like(bias).to(torch.bfloat16), mode)
+        _gemm_bf16_within_gate(a, w, bias.to(torch.bfloat16), mode, sum_flip=True)
+    else:
+        _gemm_bf16_within_gate(a, w, bias, mode)
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 143, 144, 145])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+def test_attention_bf16_lengths_and_head_widths_on_cuda(dh, s):
+    """attention_bf16 at each head width and at lengths around the chunk
+    (16) and the one-tile edge (144 keys; 145 takes the tiled path), 3
+    sequences x 2 heads: with the softmax within 2^-6 max|v| (a bf16 flip
+    per prob + the output's rounding), without it within one bf16 flip per
+    prob (2^-8 sum|p||v|) plus one bf16 ulp of the output."""
+    b, h = 3, 2
+    d = h * dh
+    g = torch.Generator(device="cuda").manual_seed(1000 * dh + s)
+    qkv = torch.randn(b * s, 3 * d, device="cuda", generator=g)
+    qkv[:, :d] *= dh ** -0.5
+    q16 = qkv.to(torch.bfloat16)
+    vmax = q16[:, 2 * d:].float().abs().max().item()
+    got = kc.attention_bf16(q16, s, h).float()
+    assert ((got - kc.attention_bf16_plain(q16, s, h).float()).abs() <= 2.0 ** -6 * vmax).all()
+    got = kc.attention_bf16(q16, s, h, no_softmax=True).float()
+    ref = kc.attention_bf16_plain(q16, s, h, no_softmax=True).float()
+    q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2).float() for t in q16.split(d, -1))
+    p = ((q @ k.transpose(-1, -2)) * 0.01).to(torch.bfloat16).float().abs()
+    pv = (p @ v.abs()).transpose(1, 2).reshape(b * s, d)
+    assert ((got - ref).abs() <= 2.0 ** -8 * pv + 2.0 ** -7 * ref.abs() + 1e-6).all()
