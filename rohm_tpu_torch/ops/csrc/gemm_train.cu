@@ -18,10 +18,15 @@
 //         wgmma_gemm.cuh (TMA ring, wgmma m64n128k16) on 128 x 128 tiles,
 //         each operand in its stored layout. Ragged edges (rows, the K of
 //         the weight gradients) come from TMA's zero fill.
-//   f32:  register-tiled SIMT FFMA (TF32 would miss the f32 mode's gate).
-// Epilogue (bf16: on the tile staged in shared memory once the main loop is
-// done, one rolled loop of coalesced float4 rows), in the TPU kernel's
-// operation order (each optional):
+//   f32:  A and B are f32. 3xTF32 on the tensor cores: the f32 main loop
+//         of f32_gemm.cuh (cp.async ring, mma.sync m16n8k8 tf32, each
+//         operand split into two TF32 values in registers; its header has
+//         the error budget against the 2e-5 sum|a||b| gate) on 64 x 64
+//         tiles, each operand in its stored layout. Ragged edges come from
+//         the copies' zero fill.
+// Epilogue (both modes: on the tile staged in shared memory once the main
+// loop is done, one rolled loop of coalesced float4 rows), in the TPU
+// kernel's operation order (each optional):
 //   v = acc (+ bias[n]); gelu == 1: aux[m,n] = v, v = gelu(v);
 //   v = v * (mask[m,n] * inv_keep); gelu == 2: v = v * gelu'(aux[m,n]);
 //   v = add[m,n] + v;  then C[m,n] = v (f32) and / or C16[m,n] = bf16(v).
@@ -40,11 +45,13 @@
 // in a fixed order (deterministic; no atomics).
 // Bound: at B*S = 9280 rows the bf16 products with an f32 result move more
 // bytes (3.35 TB/s) than their operations take on the tensor cores (989
-// TFLOP/s), the weight gradients the reverse; the f32 FMA units (67
-// TFLOP/s) bound the f32 mode; round_bf16 is bound by its bytes.
+// TFLOP/s), the weight gradients the reverse; the f32 mode is bound by its
+// operations (three TF32 passes: 495 / 3 = 165 TFLOP/s); round_bf16 is
+// bound by its bytes.
 // Shapes: any M, N, K > 0 whose contiguous dimensions (N, and K or M of the
 // stored operands) are multiples of 8 (bf16: TMA's 16-byte row pitch) or 4
-// (f32: 16-byte loads); the rows (B*S, any count) are free.
+// (f32: 16-byte copies); the rows (B*S, any count) are free.
+#include "f32_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -128,8 +135,9 @@ __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast
 
 using rohm::pack_bf16;
 
-// The bf16 products' epilogue on the main loop of wgmma_gemm.cuh: C (f32,
-// split > 1: this split's slice of the workspace) and / or C16 (bf16)
+// The products' epilogue on the main loops of wgmma_gemm.cuh (bf16) and
+// f32_gemm.cuh (f32): C (f32, split > 1: this split's slice of the
+// workspace) and / or C16 (bf16; null in the f32 mode)
 struct TrainEpilogue {
   float* C;
   __nv_bfloat16* C16;
@@ -144,101 +152,6 @@ struct TrainEpilogue {
     if (C16) *reinterpret_cast<uint2*>(C16 + o) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 };
-
-// ---------------------------------------------------------------------------
-// f32: SIMT FFMA, 128x64 block tile, 16-deep k-steps, 256 threads of 8x4
-// ---------------------------------------------------------------------------
-
-constexpr int F_M = 128, F_N = 64, F_K = 16, F_TM = 8, F_TN = 4;
-constexpr int F_THREADS = (F_M / F_TM) * (F_N / F_TN);  // 256
-constexpr int F_LDA = F_M + 4, F_LDB = F_N + 4;
-
-template <bool AT, bool BT>
-__global__ void __launch_bounds__(F_THREADS) gemm_f32_kernel(const float* __restrict__ A,
-                                                             const float* __restrict__ B,
-                                                             float* __restrict__ C, int M, int N,
-                                                             int K, int k_chunk, Epi epi) {
-  __shared__ __align__(16) float As[F_K][F_LDA];  // k-major
-  __shared__ __align__(16) float Bs[F_K][F_LDB];  // k-major
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * F_M, n0 = blockIdx.x * F_N;
-  const int ty = tid / (F_N / F_TN), tx = tid % (F_N / F_TN);
-  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
-
-  float acc[F_TM][F_TN];
-#pragma unroll
-  for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.0f;
-
-  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k0 = k_begin; k0 < k_end; k0 += F_K) {
-    if (AT) {  // stored [K][M]
-      for (int c = tid; c < F_K * F_M / 4; c += F_THREADS) {
-        const int r = c / (F_M / 4), col = (c % (F_M / 4)) * 4;
-        const int k = k0 + r, m = m0 + col;
-        *reinterpret_cast<float4*>(&As[r][col]) =
-            (k < k_end && m < M) ? ld4(A + (size_t)k * M + m) : zero4;
-      }
-    } else {  // stored [M][K]
-      for (int c = tid; c < F_M * F_K / 4; c += F_THREADS) {
-        const int r = c / (F_K / 4), k4 = (c % (F_K / 4)) * 4;
-        const int m = m0 + r, k = k0 + k4;
-        const float4 v = (m < M && k < k_end) ? ld4(A + (size_t)m * K + k) : zero4;
-        As[k4 + 0][r] = v.x;
-        As[k4 + 1][r] = v.y;
-        As[k4 + 2][r] = v.z;
-        As[k4 + 3][r] = v.w;
-      }
-    }
-    if (BT) {  // stored [N][K]
-      for (int c = tid; c < F_N * F_K / 4; c += F_THREADS) {
-        const int r = c / (F_K / 4), k4 = (c % (F_K / 4)) * 4;
-        const int n = n0 + r, k = k0 + k4;
-        const float4 v = (n < N && k < k_end) ? ld4(B + (size_t)n * K + k) : zero4;
-        Bs[k4 + 0][r] = v.x;
-        Bs[k4 + 1][r] = v.y;
-        Bs[k4 + 2][r] = v.z;
-        Bs[k4 + 3][r] = v.w;
-      }
-    } else {  // stored [K][N]
-      for (int c = tid; c < F_K * F_N / 4; c += F_THREADS) {
-        const int r = c / (F_N / 4), col = (c % (F_N / 4)) * 4;
-        const int k = k0 + r, n = n0 + col;
-        *reinterpret_cast<float4*>(&Bs[r][col]) =
-            (k < k_end && n < N) ? ld4(B + (size_t)k * N + n) : zero4;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < F_K; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * F_TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * F_TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * F_TN]);
-      const float a[F_TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[F_TN] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-      for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < F_TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = C + (size_t)blockIdx.z * M * N;
-  const bool split = gridDim.z > 1;
-  const int nb = n0 + tx * F_TN;
-  if (nb >= N) return;
-#pragma unroll
-  for (int i = 0; i < F_TM; ++i) {
-    const int m = m0 + ty * F_TM + i;
-    if (m >= M) continue;
-    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    if (!split) v = epi_apply(v, epi_load(m, nb, N, epi), m, nb, N, epi);
-    *reinterpret_cast<float4*>(out + (size_t)m * N + nb) = v;
-  }
-}
 
 // out[i] = sum_s ws[s, i] in the order s = 0, 1, ..., then the epilogue-free
 // result (split-K is used only for the plain weight-gradient products)
@@ -280,10 +193,8 @@ template <bool AT, bool BT>
 cudaError_t launch(bool bf16, const void* A, const void* B, float* C, __nv_bfloat16* C16, int M, int N,
                    int K, int splits, int k_chunk, const Epi& epi, cudaStream_t s) {
   if (bf16) return launch_bf16<AT, BT>(A, B, C, C16, M, N, K, splits, k_chunk, epi, s);
-  const dim3 grid((N + F_N - 1) / F_N, (M + F_M - 1) / F_M, splits);
-  gemm_f32_kernel<AT, BT><<<grid, F_THREADS, 0, s>>>(static_cast<const float*>(A),
-                                                     static_cast<const float*>(B), C, M, N, K, k_chunk, epi);
-  return cudaGetLastError();
+  return f32g::launch<AT, BT>(static_cast<const float*>(A), static_cast<const float*>(B), M, N, K, splits,
+                              k_chunk, TrainEpilogue{C, nullptr, M, N, epi}, s);
 }
 
 }  // namespace
@@ -297,12 +208,12 @@ extern "C" int rt_gemm_train(const void* A, const void* B, void* C, void* C16, i
                              float inv_keep, int gelu, void* aux, const void* add, int splits,
                              int k_chunk, void* workspace, void* stream) {
   // the contiguous dimension of every operand: 16-byte rows (bf16, TMA) or
-  // 16-byte loads (f32)
+  // 16-byte copies (f32)
   const int align = bf16 ? 8 : 4;
   if (M <= 0 || N <= 0 || K <= 0 || N % align || (a_t ? M % align : K % align) || (b_t && K % align) ||
       gelu < 0 || gelu > 2)
     return (int)cudaErrorInvalidValue;
-  const int step = bf16 ? wg::TB_K : F_K;
+  const int step = bf16 ? wg::TB_K : f32g::TB_K;
   if (splits < 1 || k_chunk <= 0 || k_chunk % step || (long long)splits * k_chunk < K)
     return (int)cudaErrorInvalidValue;
   if ((!C && !C16) || (C16 && !bf16)) return (int)cudaErrorInvalidValue;

@@ -63,12 +63,20 @@ def gemm_f32_plain(a, w, bias, mode: str, scale: float = 1.0, scale_cols: int = 
 
 def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str,
              scale: float = 1.0, scale_cols: int = 0) -> torch.Tensor:
-    """a [M, K] f32 @ w [N, K] f32 (a Linear weight) ^T with f32 FFMA
-    accumulation and a fused epilogue: "bias": + bias; "qkv": + bias, then
+    """a [M, K] f32 @ w [N, K] f32 (a Linear weight) ^T with f32-accurate
+    sums and a fused epilogue: "bias": + bias; "qkv": + bias, then
     columns < scale_cols times `scale`; "gelu": + bias, exact-erf gelu.
 
-    Replaces the dense products of _layer_kernel. CUDA: csrc/gemm_f32.cu,
-    register-tiled SIMT (not TF32); f32-FMA bound."""
+    Replaces the dense products of _layer_kernel. CUDA: csrc/gemm_f32.cu on
+    the f32 main loop of csrc/f32_gemm.cuh: 3xTF32 on the tensor cores
+    (each operand split into two TF32 values, three mma.sync products, the
+    small terms first), fed by a cp.async ring. Error budget: the dropped
+    terms are <= ~3 2^-21 |a||b| per product, and each 32-deep k-step's
+    partial sum is added to the running one rounded to nearest, within
+    chip_smoke.py's gate of 1e-5 max|ref| + 1e-6 against torch's f32
+    product (tests/test_torch_gemm_f32_numerics.py emulates it). Bound by
+    its operations: three TF32 passes, 165 TFLOP/s on an H100. N and K
+    multiples of 4."""
     if a.device.type == "cpu":
         return gemm_f32_plain(a, w, bias, mode, scale, scale_cols)
     if mode not in GEMM_F32_MODES:
@@ -78,7 +86,7 @@ def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str,
     check_cuda(bias, torch.float32, 1, "bias")
     m, k = a.shape
     n = w.shape[0]
-    if w.shape[1] != k or bias.shape[0] != n or n % 64 or k % 16:
+    if w.shape[1] != k or bias.shape[0] != n or n % 4 or k % 4:
         raise ValueError(f"gemm_f32: shapes {tuple(a.shape)} @ {tuple(w.shape)}^T unsupported")
     out = torch.empty(m, n, dtype=torch.float32, device=a.device)
     launch("rt_gemm_f32", ptr(a), ptr(w), ptr(bias), ptr(out), m, n, k, GEMM_F32_MODES[mode],

@@ -55,7 +55,7 @@ from rohm_tpu_torch.ops.transformer_layer import erf_as
 
 SQRT_2 = 1.4142135623730951
 INV_SQRT_2PI = 0.3989422804014327
-GEMM_TILES = {True: (128, 128, 64), False: (128, 64, 16)}  # bf16 (wgmma) / f32 (SIMT): (BM, BN, BK)
+GEMM_TILES = {True: (128, 128, 64), False: (64, 64, 32)}  # bf16 (wgmma) / f32 (3xTF32): (BM, BN, BK)
 GEMM_OUTS = ("f32", "operand", "both")
 
 
@@ -142,9 +142,10 @@ def gemm_train(a: torch.Tensor, b: torch.Tensor, a_t: bool = False, b_t: bool = 
                bf16: bool = False, bias=None, mask=None, inv_keep: float = 1.0, gelu: int = 0,
                aux=None, add=None, out: str = "f32"):
     """The training layer's dense products with fused epilogues (see
-    gemm_train_plain): bf16 operands on TMA + wgmma, or f32 operands on
-    SIMT FFMA. The epilogue writes the f32 result and, in the bf16 mode,
-    its bf16 copy as the chain asks (`out`).
+    gemm_train_plain): bf16 operands on TMA + wgmma, or f32 operands as
+    3xTF32 on mma.sync fed by a cp.async ring (csrc/f32_gemm.cuh). The
+    epilogue writes the f32 result and, in the bf16 mode, its bf16 copy as
+    the chain asks (`out`).
 
     Replaces the dense products of _forward_body and _bwd_kernel (K6, K7).
     CUDA: csrc/gemm_train.cu; a weight gradient with too few output tiles
@@ -157,7 +158,7 @@ def gemm_train(a: torch.Tensor, b: torch.Tensor, a_t: bool = False, b_t: bool = 
     m, k = (a.shape[1], a.shape[0]) if a_t else a.shape
     kb, n = (b.shape[1], b.shape[0]) if b_t else b.shape
     # the contiguous dimension of each operand and of the output: 16-byte
-    # rows for TMA (8 bf16) or 16-byte loads (4 floats); the row counts are free
+    # rows for TMA (8 bf16) or 16-byte copies (4 floats); the row counts are free
     align = 8 if bf16 else 4
     if kb != k or n % align or (m if a_t else k) % align or (b_t and k % align):
         raise ValueError(f"gemm_train: shapes {tuple(a.shape)}, {tuple(b.shape)} "

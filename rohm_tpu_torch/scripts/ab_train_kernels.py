@@ -9,16 +9,18 @@ each on that checkout's own package and kernels (built at first use), so
 the two versions are compared on the same card in turns. Each process
 times, at the training shapes (64 clips x 145 tokens, D=512, H=4, F=1024,
 dropout 0.1, random weights from --seed): `attention_train_fwd` and
-`attention_train_bwd` in both modes and the 12 `gemm_train` products of one
-bf16 layer as that checkout's chain calls them (and a digest of their
-outputs, which must agree bit for bit where the products' code is meant
-not to change), and the layer's bf16 forward and backward; at the
-inference shapes (32 clips x 144 tokens): `attention_f32`,
+`attention_train_bwd` in both modes, the 12 `gemm_train` products of one
+layer in each mode as that checkout's chain calls them (and a digest of
+the bf16 products' outputs, which must agree bit for bit where their code
+is meant not to change), and the layer's forward and backward in each
+mode; at the inference shapes (32 clips x 144 tokens): `attention_f32`,
 `attention_bf16`, `attention_int8`, the four `gemm_bf16` products of a
-bf16 layer (each, their sum, and the host's microseconds to enqueue one),
-the bf16 and int8 inference layers (`fused_encoder_layer_bf16` / `_int8`),
-and the whole-stack `encoder_stack_int8` (8 layers, with its phases from
-the global timer at its barriers). Each is timed with CUDA events around
+bf16 layer (each, their sum, and the host's microseconds to enqueue one)
+and the four `gemm_f32` products of an f32 layer (each, their sum), the
+f32, bf16 and int8 inference layers (`fused_encoder_layer`,
+`fused_encoder_layer_bf16` / `_int8`), and the whole-stack
+`encoder_stack_int8` (8 layers, with its phases from the global timer at
+its barriers). Each is timed with CUDA events around
 one call and on the card alone with a cold L2 (card_ms: a CUDA graph of
 10 calls, each after a 128 MB write, less a graph of the writes alone);
 K5's cooperative launch by events only. It prints one JSON line per
@@ -181,6 +183,34 @@ def measure(seed: int) -> dict:
     def gemms():
         return [lt.gemm_train(bf16=True, **kw) for kw in products]
 
+    # the f32 mode's 12 products on the operands of the f32 chain
+    wqf, bqkvf, wof, bof, _, _, w1f, b1f, w2f, b2f, _, _ = params
+    _, saved32 = lt.layer_train_fwd(x, params, fm, TS, H, ik, False, P)
+    x32, qkv32c, attn32, y1_32, norm1_32, rstd1_32, h1_32, gld32, norm2_32, rstd2_32 = saved32
+    dr2_32, df32 = P.ln_bwd(dy, norm2_32, rstd2_32, g2, mf, ik)
+    dh1_32 = P.gemm(df32, w2f, mask=mh, inv_keep=ik, gelu=2, aux=h1_32)
+    dy1_32 = P.gemm(dh1_32, w1f, add=dr2_32)
+    dr1_32, do32 = P.ln_bwd(dy1_32, norm1_32, rstd1_32, g1, mo, ik)
+    dattn_32 = P.gemm(do32, wof)
+    dqkv32 = P.attn_bwd(qkv32c, dattn_32, mp, TS, H, ik, False)
+    products32 = [
+        dict(a=x32, b=wqf, b_t=True, bias=bqkvf),
+        dict(a=attn32, b=wof, b_t=True, bias=bof, mask=mo, inv_keep=ik),
+        dict(a=y1_32, b=w1f, b_t=True, bias=b1f, mask=mh, inv_keep=ik, gelu=1),
+        dict(a=gld32, b=w2f, b_t=True, bias=b2f, mask=mf, inv_keep=ik),
+        dict(a=df32, b=gld32, a_t=True),
+        dict(a=df32, b=w2f, mask=mh, inv_keep=ik, gelu=2, aux=h1_32),
+        dict(a=dh1_32, b=y1_32, a_t=True),
+        dict(a=dh1_32, b=w1f, add=dr2_32),
+        dict(a=do32, b=attn32, a_t=True),
+        dict(a=do32, b=wof),
+        dict(a=dqkv32, b=x32, a_t=True),
+        dict(a=dqkv32, b=wqf, add=dr1_32),
+    ]
+
+    def gemms32():
+        return [lt.gemm_train(bf16=False, **kw) for kw in products32]
+
     digest = hashlib.sha256()
     for res in gemms():
         for t in res if isinstance(res, tuple) else (res,):
@@ -232,6 +262,21 @@ def measure(seed: int) -> dict:
         "gemm_bf16_ff2": lambda: l16.gemm_bf16(a_f, p16[8], p16[9], "f32"),
     }
     inference.update(gemm_bf16)
+    # the f32 layer's four products on its raw weights, operands f32
+    sa = inf_layer.self_attn
+    x2f, a_df, a_ff = x2.float(), a_d.float(), a_f.float()
+    ws = [t.detach() for t in (sa.in_proj_weight, sa.in_proj_bias, sa.out_proj.weight, sa.out_proj.bias,
+                               inf_layer.linear1.weight, inf_layer.linear1.bias,
+                               inf_layer.linear2.weight, inf_layer.linear2.bias)]
+    gemm_f32 = {
+        "gemm_f32_qkv": lambda: l32.gemm_f32(x2f, ws[0], ws[1], "qkv", (D // H) ** -0.5, D),
+        "gemm_f32_out": lambda: l32.gemm_f32(a_df, ws[2], ws[3], "bias"),
+        "gemm_f32_ff1": lambda: l32.gemm_f32(x2f, ws[4], ws[5], "gelu"),
+        "gemm_f32_ff2": lambda: l32.gemm_f32(a_ff, ws[6], ws[7], "bias"),
+    }
+    inference.update(gemm_f32)
+    x_inf32 = x_inf.float()
+    inference["layer_f32_inf"] = lambda: l32.fused_encoder_layer(x_inf32, inf_layer, H)
     inference["layer_bf16_inf"] = lambda: l16.fused_encoder_layer_bf16(x_inf, p16, H)
     inference["layer_int8_inf"] = lambda: l8.fused_encoder_layer_int8(x_inf, p8, H)
 
@@ -243,13 +288,24 @@ def measure(seed: int) -> dict:
     def bwd():
         lt.layer_train_bwd(dy, saved_k, kp, fm, TS, H, ik, True)
 
+    def fwd32():
+        return lt.layer_train_fwd(x, params, fm, TS, H, ik, False)
+
+    _, saved32_k = fwd32()
+
+    def bwd32():
+        lt.layer_train_bwd(dy, saved32_k, params, fm, TS, H, ik, False)
+
     out = {"tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged, "bf16_qkv": bf16_qkv,
            "gemm_12_digest": digest.hexdigest()[:16]}
     for name, fn in (("attention_fwd", attention), ("attention_bwd", attention_bwd),
                      ("attention_fwd_f32_mode", attention_f32_mode), ("attention_bwd_f32_mode", attention_bwd_f32_mode),
-                     ("gemm_12", gemms), ("layer_fwd", fwd), ("layer_bwd", bwd), *inference.items()):
+                     ("gemm_12", gemms), ("layer_fwd", fwd), ("layer_bwd", bwd), ("gemm_12_f32", gemms32),
+                     ("layer_fwd_f32", fwd32), ("layer_bwd_f32", bwd32), *inference.items()):
         out[f"{name}_card_ms"], out[f"{name}_ms"] = card_ms(fn), _median_ms(fn)
     out["gemm_bf16_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_bf16)
+    out["gemm_f32_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_f32)
+    out["gemm_f32_4_ms"] = sum(out[f"{name}_ms"] for name in gemm_f32)
     # the host's time to enqueue one gemm_bf16 call (wrapper, checks,
     # allocation, launch), with the card kept ahead of it
     fn = gemm_bf16["gemm_bf16_qkv"]

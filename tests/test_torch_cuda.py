@@ -86,11 +86,23 @@ def test_training_kernels_match_plain_on_cuda():
             assert (got - ref).abs().max().item() <= tol * ref.abs().max().item() + 1e-6
 
 
+def _gemm_train_within_gate(bf16: bool, **kw) -> None:
+    """gemm_train against its plain version under chip_smoke.py's gate for
+    a product without an epilogue: 2e-5 sum|a||b| (f32 sum order)."""
+    got = lt.gemm_train(bf16=bf16, **kw)
+    ref = lt.gemm_train_plain(bf16=bf16, **kw)
+    scale = lt.gemm_train_plain(kw["a"].abs(), kw["b"].abs(), kw.get("a_t", False), kw.get("b_t", False), bf16)
+    assert ((got - ref).abs() <= 2e-5 * scale + 1e-6).all()
+
+
 def test_training_gemm_layouts_and_split_k_on_cuda():
     """gemm_train's three layouts at ragged sizes (rows not a tile
     multiple), with a weight gradient deep enough to be split over K, in
-    both operand modes: f32 operands, and bf16 operands in memory (TMA +
-    wgmma), where the epilogue's bf16 copy is its f32 result rounded."""
+    both operand modes: f32 operands (3xTF32), and bf16 operands in memory
+    (TMA + wgmma), where the epilogue's bf16 copy is its f32 result
+    rounded. Then the three f32 layouts at the full training shapes (9280
+    rows; 512, 1024 and 1536 wide; the weight gradients split over K), and
+    each mode's launch count moves."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = 8 * 145 + 6  # 1166 rows: the K of the weight gradient
     a = torch.randn(rows, 96, device="cuda", generator=g)
@@ -101,17 +113,28 @@ def test_training_gemm_layouts_and_split_k_on_cuda():
         assert lt.plan_splits(160, 96, rows, lt.GEMM_TILES[bf16], sms)[0] > 1
         ops = [t.to(torch.bfloat16) for t in (a, w, dy)] if bf16 else [a, w, dy]
         aa, ww, dd = ops
+        counter = "launches_bf16" if bf16 else "launches_f32"
+        before = getattr(lt.gemm_train, counter)
         for kw in (dict(a=aa, b=ww, b_t=True), dict(a=dd, b=ww), dict(a=dd, b=aa, a_t=True)):
-            got = lt.gemm_train(bf16=bf16, **kw)
-            ref = lt.gemm_train_plain(bf16=bf16, **kw)
-            scale = lt.gemm_train_plain(kw["a"].abs(), kw["b"].abs(), kw.get("a_t", False),
-                                        kw.get("b_t", False), bf16)
-            assert ((got - ref).abs() <= 2e-5 * scale + 1e-6).all()
+            _gemm_train_within_gate(bf16, **kw)
+        assert getattr(lt.gemm_train, counter) == before + 3
         if bf16:
             v32, v16 = lt.gemm_train(dd, ww, bf16=True, out="both")
             assert v16.dtype == torch.bfloat16 and torch.equal(v16, v32.to(torch.bfloat16))
             x = torch.randn(rows, 96, device="cuda", generator=g)
             assert torch.equal(lt.round_bf16(x), x.to(torch.bfloat16))
+    # the f32 mode at the training layer's shapes: R = 64 x 145 rows, D =
+    # 512, F = 1024, the qkv width 1536, weights at a Linear layer's scale
+    r = 64 * 145
+    before = lt.gemm_train.launches_f32
+    for k, n in ((512, 1536), (512, 512), (512, 1024), (1024, 512)):
+        x = torch.randn(r, k, device="cuda", generator=g)
+        wt = torch.randn(n, k, device="cuda", generator=g) * k ** -0.5  # [out, in]
+        d = torch.randn(r, n, device="cuda", generator=g)
+        assert lt.plan_splits(n, k, r, lt.GEMM_TILES[False], sms)[0] > 1
+        for kw in (dict(a=x, b=wt, b_t=True), dict(a=d, b=wt), dict(a=d, b=x, a_t=True)):
+            _gemm_train_within_gate(False, **kw)
+    assert lt.gemm_train.launches_f32 == before + 12
 
 
 def test_bf16_attention_forward_on_the_tensor_cores():
@@ -348,6 +371,34 @@ def test_gemm_bf16_shapes_on_cuda(m, k, n, mode):
         _gemm_bf16_within_gate(a, w, bias.to(torch.bfloat16), mode, sum_flip=True)
     else:
         _gemm_bf16_within_gate(a, w, bias, mode)
+
+
+# (M, K, N): the four products of an f32 layer at 32 x 144 tokens (qkv, out,
+# FF1, FF2), ragged rows, and the smallest N and K the kernel takes (4: its
+# 16-byte copies) with N and K off its 64 x 64 x 32 tiles
+GEMM_F32_SHAPES = [(4608, 512, 1536), (4608, 512, 512), (4608, 512, 1024), (4608, 1024, 512),
+                   (288, 512, 1536), (4608 + 37, 1024, 512), (4608 + 37, 512, 1024), (300, 4, 4),
+                   (37, 4, 68), (300, 36, 4)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_F32_SHAPES)
+@pytest.mark.parametrize("mode", ["bias", "qkv", "gelu"])
+def test_gemm_f32_shapes_on_cuda(m, k, n, mode):
+    """gemm_f32 (3xTF32 on the tensor cores) in each epilogue mode at the
+    layer's four shapes, at ragged M (288, 4608 + 37) and at the smallest N
+    and K it takes, against its plain version under chip_smoke.py's gate,
+    1e-5 max|ref| + 1e-6; each call adds one launch."""
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a = torch.randn(m, k, device="cuda", generator=g)
+    w = (2 * torch.rand(n, k, device="cuda", generator=g) - 1) * k ** -0.5  # a Linear weight [out, in]
+    bias = 0.1 * torch.randn(n, device="cuda", generator=g)
+    scale, scale_cols = 128 ** -0.5, n // 3
+    before = l32.gemm_f32.launches
+    got = l32.gemm_f32(a, w, bias, mode, scale, scale_cols)
+    assert l32.gemm_f32.launches == before + 1
+    ref = l32.gemm_f32_plain(a, w, bias, mode, scale, scale_cols)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert ((got - ref).abs() <= 1e-5 * ref.abs().max() + 1e-6).all()
 
 
 @pytest.mark.parametrize("s", [1, 15, 16, 17, 143, 144, 145])
