@@ -525,10 +525,14 @@ def kernel_phase(seed: int) -> dict:
 
     qkv32 = l32.gemm_f32(x32, sa.in_proj_weight.detach(), sa.in_proj_bias.detach(), "qkv", scale, D)
     got, ref = l32.attention_f32(qkv32, S, H), l32.attention_f32_plain(qkv32, S, H)
-    # f32 both sides: scores, exp and P.V sums in another order
-    _check("attention_f32 [32 seq x 4 heads, S=144, dh=128]", got, ref,
-           1e-5 * qkv32[:, 2 * D:].abs().max().item(), "f32 sum order, 1e-5 of max|v|", stats,
-           "attention_f32")
+    # f32 both sides: 3xTF32 products (their dropped terms and the tensor
+    # cores' rounding of their sums), scores, exp and P.V sums in another
+    # order
+    gate = 1e-5 * qkv32[:, 2 * D:].abs().max().item()
+    _check("attention_f32 [32 seq x 4 heads, S=144, dh=128]", got, ref, gate, "f32 sum order, 1e-5 of max|v|",
+           stats, "attention_f32")
+    log(f"[kernels] attention_f32 [32 seq x 4 heads, S=144, dh=128]: worst error "
+        f"{(got - ref).abs().max().item() / gate:.4f} of its gate")
     q32, k32, v32 = sdpa_inputs(qkv32, S, torch.float32)
     _time("attention_f32", lambda: l32.attention_f32(qkv32, S, H),
           lambda: l32.attention_f32_plain(qkv32, S, H), stats, "attention_f32",
@@ -770,8 +774,8 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
 
         # attention forward, on qkv as the chain hands it over (bf16 in the
         # bf16 mode): kernel and plain round the probs at the same points
-        # and sum in f32 in other orders. f32 mode: the
-        # SIMT kernel, 1e-5 inv_keep max|v|. bf16 mode: the tensor cores'
+        # and sum in f32 in other orders. f32 mode: 3xTF32 on the tensor
+        # cores, 1e-5 inv_keep max|v|. bf16 mode: the tensor cores'
         # sums of the scores may push a pd across a bf16 rounding boundary
         # (attention_fwd_gate); the f32-mode kernel must fall outside.
         vmax = qkv[:, 2 * D:].abs().max().item()
@@ -788,7 +792,10 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
             fwd_tol = 1e-5 * ik * vmax
         _check(f"attention_train_fwd {mode} [64 seq x 4 heads, S=145, dh=128]", got, ref, fwd_tol,
                "per element: 2^-14 inv_keep max|v| + one bf16 flip of each pd the score sums could move"
-               if bf16 else "1e-5 inv_keep max|v|: expf and f32 sum order", stats, "attention_train_fwd")
+               if bf16 else "1e-5 inv_keep max|v|: 3xTF32 products, expf and f32 sum order", stats,
+               "attention_train_fwd")
+        log(f"[train kernels] attention_train_fwd {mode} [64 seq x 4 heads, S=145, dh=128]: worst error "
+            f"{((got - ref).abs() / fwd_tol).max().item():.4f} of its gate")
         ref_fwd = ref
         dt = torch.bfloat16 if bf16 else torch.float32
         qs, ks, vs = sdpa_inputs(qkv, TS, dt)
@@ -1000,8 +1007,11 @@ def long_seq_phase(seed: int, stats: dict) -> None:
         qkv = torch.randn(r, 3 * D, generator=g, device=dev)
         qkv[:, :D] *= dh ** -0.5
         vmax = qkv[:, 2 * D:].abs().max().item()
-        _check(f"attention_f32 {shape}", l32.attention_f32(qkv, s, H), l32.attention_f32_plain(qkv, s, H),
-               1e-5 * vmax, "f32 sum order, 1e-5 of max|v|", stats, "attention_f32")
+        got, ref = l32.attention_f32(qkv, s, H), l32.attention_f32_plain(qkv, s, H)
+        _check(f"attention_f32 {shape}", got, ref, 1e-5 * vmax, "f32 sum order, 1e-5 of max|v|", stats,
+               "attention_f32")
+        log(f"[long S] attention_f32 {shape}: worst error {(got - ref).abs().max().item() / (1e-5 * vmax):.4f} "
+            "of its gate")
         q16 = qkv.to(torch.bfloat16)
         _check(f"attention_bf16 {shape}", kc.attention_bf16(q16, s, H), kc.attention_bf16_plain(q16, s, H),
                2.0 ** -6 * vmax, "2^-6 max|v|: one bf16 flip per prob + output rounding", stats, "attention_bf16")
@@ -1034,6 +1044,8 @@ def long_seq_phase(seed: int, stats: dict) -> None:
             _check(f"attention_train_fwd {mode} {shape}", got, ref, tol,
                    "per element: 2^-14 inv_keep max|v| + one bf16 flip of each pd the score sums could move"
                    if bf16 else "1e-5 inv_keep max|v|", stats, "attention_train_fwd")
+            log(f"[long S] attention_train_fwd {mode} {shape}: worst error "
+                f"{((got - ref).abs() / tol).max().item():.4f} of its gate")
             got = lt.attention_train_bwd(qq, dd, mask, s, H, ik, bf16)
             got, got16 = got if bf16 else (got, None)
             check_bwd(f"attention_train_bwd {mode} {shape}", got, qq, dd, mask, s, ik, bf16, stats)

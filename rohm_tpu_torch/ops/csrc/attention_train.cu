@@ -35,9 +35,15 @@
 //            block per (80 query rows, sequence, head) and three sweeps
 //            over 160-key tiles (max, sum, then pd and P.V). Bound: its
 //            bytes (qkv and the mask read, the output written);
-//   forward, f32 mode: rohm::attn_simt::forward_block (attention_simt.cuh),
-//            SIMT, one block per (48 query rows, sequence, head), one
-//            160-key tile up to S = 160;
+//   forward, f32 mode: rohm::attn_tf32::forward_block (attention_tf32.cuh):
+//            the bf16 mode's structure with both products as 3xTF32 on
+//            the tensor cores (mma.sync m16n8k8, each operand split into
+//            two TF32 halves, a partial sum per 32-deep k-step). Up to
+//            S = 160 one block per (sequence, head) stages K and V (f32)
+//            and the mask slab once (190 KB at S = 145, dh = 128: one block
+//            per SM) and its 5 warps take the 16-row tiles in turn; a
+//            longer sequence takes one block per (160 query rows, sequence,
+//            head) and the three sweeps. Bound: its bytes;
 //   backward, bf16 mode: no [B, H, S, S] buffer, no atomics. The score and
 //            dpd products are sequential f32 dot products on the FMA units
 //            (seq_abt: one fmaf per d, in order, which is how the plain
@@ -65,14 +71,13 @@
 //            each, pd and ds; a key kernel (32 keys) sweeps query tiles of
 //            the scratch's columns (every query at once up to S = 176) and
 //            writes dk and dv. Bound: f32 FMA issue and shared-memory
-//            bandwidth (2.8 GFLOP forward, 5.5 backward per layer at
-//            B = 64, S = 145).
-#include "attention_simt.cuh"
+//            bandwidth (5.5 GFLOP per layer at B = 64, S = 145).
+#include "attention_tf32.cuh"
 
 namespace {
 
-using rohm::attn_simt::ld4;
-using rohm::attn_simt::st4;
+using rohm::ld4;
+using rohm::st4;
 
 constexpr int RM = 4;  // rows per thread task in the SIMT products
 
@@ -119,19 +124,21 @@ __device__ void products_xy(float* Pt, int ldp, const float* X, int ldx, const f
 }
 
 // ---------------------------------------------------------------------------
-// forward, f32 mode: SIMT (attention_simt.cuh)
+// forward, f32 mode: 3xTF32 on the tensor cores (attention_tf32.cuh)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(rohm::attn_simt::THREADS) attention_train_fwd_kernel(
-    const float* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out, int S,
-    int H, int dh, float scale, float inv_keep) {
-  rohm::attn_simt::forward_block<true>(qkv, mask, out, S, H, dh, scale, inv_keep);
+template <bool TILED>
+__global__ void __launch_bounds__(TILED ? rohm::attn_tf32::TILED_THREADS : rohm::attn_tf32::THREADS, 1)
+    attention_train_fwd_kernel(const float* __restrict__ qkv, const int8_t* __restrict__ mask, float* __restrict__ out,
+                               int S, int H, int dh, float scale, float inv_keep) {
+  rohm::attn_tf32::forward_block<true, TILED>(qkv, mask, out, S, H, dh, scale, inv_keep);
 }
 
 // ---------------------------------------------------------------------------
 // tensor-core helpers (mma.sync m16n8k16, bf16 in, f32 sums)
 // ---------------------------------------------------------------------------
 
+using rohm::copy_bytes;
 using rohm::cp_async16;
 using rohm::cp_async_wait;
 using rohm::div_rn;
@@ -181,25 +188,6 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, const __n
     const int r = e / c8, c = (e % c8) * 8;
     cp_async16(dst + r * ld + c, r < nreal ? src + (size_t)r * stride + c : src, r < nreal);
   }
-}
-
-// n contiguous bytes from src: the 16-byte aligned interior in 16-byte
-// copies (cp.async), the ragged ends byte by byte. dst (n + 16 bytes) keeps src's
-// address offset mod 16, so both sides stay aligned: src[i] lands at
-// dst[off + i], off returned.
-__device__ __forceinline__ int copy_bytes(int8_t* dst, const int8_t* src, size_t n, int tid, int nthreads) {
-  const uintptr_t m0 = reinterpret_cast<uintptr_t>(src), m1 = m0 + n;
-  const uintptr_t a0 = (m0 + 15) & ~uintptr_t(15), a1 = m1 & ~uintptr_t(15);
-  const int off = static_cast<int>(m0 & 15);
-  if (a0 < a1) {
-    for (int i = tid; i < static_cast<int>((a1 - a0) / 16); i += nthreads)
-      cp_async16(dst + off + (a0 - m0) + 16 * i, reinterpret_cast<const void*>(a0 + 16 * i), true);
-    if (tid < a0 - m0) dst[off + tid] = src[tid];
-    if (tid < m1 - a1) dst[off + (a1 - m0) + tid] = src[(a1 - m0) + tid];
-  } else {
-    for (int i = tid; i < static_cast<int>(n); i += nthreads) dst[off + i] = src[i];
-  }
-  return off;
 }
 
 // acc[j] (columns 8j..8j+7, j < NJ) = A . B^T over dh, with A the warp's
@@ -1133,12 +1121,13 @@ extern "C" int rt_attention_train_fwd(const void* qkv, const void* mask, void* o
     kernel<<<grid, TC_THREADS, smem, s>>>(static_cast<const __nv_bfloat16*>(qkv), m, o, S, H, dh, scale, inv_keep);
     return (int)cudaGetLastError();
   }
-  const size_t smem = rohm::attn_simt::smem_bytes(S, dh);
-  cudaError_t err = allow_smem(attention_train_fwd_kernel, smem);
+  namespace tf = rohm::attn_tf32;
+  const size_t smem = tf::smem_bytes(S, dh, true);
+  auto kernel = tf::tiled(S) ? attention_train_fwd_kernel<true> : attention_train_fwd_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + rohm::attn_simt::QT - 1) / rohm::attn_simt::QT, B * H);
-  attention_train_fwd_kernel<<<grid, rohm::attn_simt::THREADS, smem, s>>>(static_cast<const float*>(qkv), m, o, S,
-                                                                         H, dh, scale, inv_keep);
+  kernel<<<tf::grid(B, S, H), tf::tiled(S) ? tf::TILED_THREADS : tf::THREADS, smem, s>>>(
+      static_cast<const float*>(qkv), m, o, S, H, dh, scale, inv_keep);
   return (int)cudaGetLastError();
 }
 

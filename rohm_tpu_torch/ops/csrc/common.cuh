@@ -130,4 +130,48 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// n contiguous bytes from src: the 16-byte aligned interior in 16-byte
+// copies (cp.async), the ragged ends byte by byte. dst (n + 16 bytes) keeps src's
+// address offset mod 16, so both sides stay aligned: src[i] lands at
+// dst[off + i], off returned.
+__device__ __forceinline__ int copy_bytes(int8_t* dst, const int8_t* src, size_t n, int tid, int nthreads) {
+  const uintptr_t m0 = reinterpret_cast<uintptr_t>(src), m1 = m0 + n;
+  const uintptr_t a0 = (m0 + 15) & ~uintptr_t(15), a1 = m1 & ~uintptr_t(15);
+  const int off = static_cast<int>(m0 & 15);
+  if (a0 < a1) {
+    for (int i = tid; i < static_cast<int>((a1 - a0) / 16); i += nthreads)
+      cp_async16(dst + off + (a0 - m0) + 16 * i, reinterpret_cast<const void*>(a0 + 16 * i), true);
+    if (tid < a0 - m0) dst[off + tid] = src[tid];
+    if (tid < m1 - a1) dst[off + (a1 - m0) + tid] = src[(a1 - m0) + tid];
+  } else {
+    for (int i = tid; i < static_cast<int>(n); i += nthreads) dst[off + i] = src[i];
+  }
+  return off;
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 (f32_gemm.cuh and attention_tf32.cuh; the error budget is in
+// f32_gemm.cuh's head)
+// ---------------------------------------------------------------------------
+
+// x = big + small: big is x rounded to TF32 (10 explicit mantissa bits) to
+// nearest, ties away from zero, the same bits as cvt.rna.tf32.f32 for every
+// finite x; small = x - big, exact in f32, goes to the tensor cores as it is.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// d[16x8] += a[16x8] . b[8x8], tf32 in, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace rohm

@@ -76,22 +76,8 @@ namespace f32g {
 
 constexpr int TB_M = 64, TB_N = 64, TB_K = 32, STAGES = 3;
 
-// x = big + small: big is x rounded to TF32 (10 explicit mantissa bits) to
-// nearest, ties away from zero, the same bits as cvt.rna.tf32.f32 for every
-// finite x; small = x - big, exact in f32, goes to the tensor cores as it is.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
-}
-
-// d[16x8] += a[16x8] . b[8x8], tf32 in, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using rohm::mma_tf32;
+using rohm::split;
 
 __device__ __forceinline__ float4 lds128(const float* p) { return *reinterpret_cast<const float4*>(p); }
 

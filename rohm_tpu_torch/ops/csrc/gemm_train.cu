@@ -131,7 +131,7 @@ __device__ __forceinline__ float4 epi_apply(float4 acc, const EpiIn& in, int m, 
   return v;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+using rohm::ld4;
 
 using rohm::pack_bf16;
 

@@ -121,10 +121,12 @@ def attention_f32(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Tens
     """Self-attention of every (sequence, head) read in place from the QKV
     buffer [B*S, 3D] f32 -> [B*S, D] f32.
 
-    Replaces the per-head loop of _layer_kernel. CUDA: csrc/attention_f32.cu,
-    one block per (48 queries, sequence, head), K and V streamed through
-    shared memory in tiles of up to 160 keys (any S; dh a multiple of 4 up
-    to 128), register-tiled products."""
+    Replaces the per-head loop of _layer_kernel. CUDA: csrc/attention_f32.cu
+    on csrc/attention_tf32.cuh: both products on the tensor cores as 3xTF32
+    (f32 accuracy), warps of 16 query rows each holding a 16 x 160 score
+    tile in registers; up to 160 keys one block per (sequence, head) stages
+    K and V once, a longer sequence streams them in 160-key tiles (any S;
+    dh a multiple of 4 up to 128)."""
     if qkv.device.type == "cpu":
         return attention_f32_plain(qkv, seq_len, num_heads)
     check_cuda(qkv, torch.float32, 2, "qkv")

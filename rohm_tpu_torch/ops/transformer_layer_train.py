@@ -261,10 +261,11 @@ def attention_train_fwd(qkv: torch.Tensor, mask: torch.Tensor, seq_len: int, num
 
     Replaces the attention of _forward_body (K6). CUDA:
     csrc/attention_train.cu, any S: the keys stream through shared memory
-    in tiles, and a sequence longer than one tile takes two sweeps (the
-    row's max and sum, then p and P.V), so p is formed from the row's final
+    in tiles, and a sequence longer than one tile takes three sweeps (the
+    row's max, its sum, then p and P.V), so p is formed from the row's final
     statistics as in the plain version. bf16 mode: tensor cores, dh a
-    multiple of 16 up to 128; f32 mode: SIMT, dh a multiple of 4 up to 128."""
+    multiple of 16 up to 128; f32 mode: tensor cores in 3xTF32
+    (csrc/attention_tf32.cuh, f32 accuracy), dh a multiple of 4 up to 128."""
     if qkv.device.type == "cpu":
         return attention_train_fwd_plain(qkv, mask, seq_len, num_heads, inv_keep, bf16)
     b, dh = _attention_checks(qkv, mask, seq_len, num_heads, bf16)

@@ -13,14 +13,17 @@ dropout 0.1, random weights from --seed): `attention_train_fwd` and
 layer in each mode as that checkout's chain calls them (and a digest of
 the bf16 products' outputs, which must agree bit for bit where their code
 is meant not to change), and the layer's forward and backward in each
-mode; at the inference shapes (32 clips x 144 tokens): `attention_f32`,
+mode; `attention_f32` and `attention_train_fwd` in the f32 mode at 8
+sequences of 1024 tokens; at the inference shapes (32 clips x 144
+tokens): `attention_f32`,
 `attention_bf16`, `attention_int8`, the four `gemm_bf16` products of a
 bf16 layer (each, their sum, and the host's microseconds to enqueue one)
 and the four `gemm_f32` products of an f32 layer (each, their sum), the
 f32, bf16 and int8 inference layers (`fused_encoder_layer`,
 `fused_encoder_layer_bf16` / `_int8`), and the whole-stack
 `encoder_stack_int8` (8 layers, with its phases from the global timer at
-its barriers). Each is timed with CUDA events around
+its barriers), and one f32 PoseNet step (`posenet_apply_fused`, 32 x 143,
+by events). Each is timed with CUDA events around
 one call and on the card alone with a cold L2 (card_ms: a CUDA graph of
 10 calls, each after a 128 MB write, less a graph of the writes alone);
 K5's cooperative launch by events only. It prints one JSON line per
@@ -275,6 +278,14 @@ def measure(seed: int) -> dict:
         "gemm_f32_ff2": lambda: l32.gemm_f32(a_ff, ws[6], ws[7], "bias"),
     }
     inference.update(gemm_f32)
+    # the f32 attention forwards past one key tile: 8 sequences of 1024
+    # (their own generator, so that every input above stays as it was)
+    gl = torch.Generator(device="cuda").manual_seed(seed + 1)
+    qkv_l = torch.randn(8 * 1024, 3 * D, generator=gl, device="cuda")
+    qkv_l[:, :D] *= (D // H) ** -0.5
+    mask_l = (torch.rand(8, H, 1024, 1024, generator=gl, device="cuda") >= 0.1).to(torch.int8)
+    inference["attention_f32_s1024"] = lambda: l32.attention_f32(qkv_l, 1024, H)
+    inference["attention_fwd_f32_mode_s1024"] = lambda: lt.attention_train_fwd(qkv_l, mask_l, 1024, H, ik, False)
     x_inf32 = x_inf.float()
     inference["layer_f32_inf"] = lambda: l32.fused_encoder_layer(x_inf32, inf_layer, H)
     inference["layer_bf16_inf"] = lambda: l16.fused_encoder_layer_bf16(x_inf, p16, H)
@@ -331,6 +342,17 @@ def measure(seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     bwd()
     out["layer_bwd_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    # one f32 PoseNet step (8 layers, 32 x 143 frames), as the sampling loop
+    # calls it: CUDA events around the call, as chip_smoke.py times it
+    from rohm_tpu_torch.ops import embed_cond_f32, posenet_apply_fused
+
+    torch.manual_seed(seed)
+    posenet = PoseNet().cuda()
+    x_p, cond_p = (torch.randn(b_inf, s_inf - 1, 294, generator=gl, device="cuda") for _ in range(2))
+    with torch.no_grad():
+        cond_emb = embed_cond_f32(posenet, cond_p)
+        out["posenet_step_f32_ms"] = _median_ms(lambda: posenet_apply_fused(posenet, x_p, cond_p, 500,
+                                                                            cond_emb=cond_emb))
     out["encoder_stack_int8_ms"] = _median_ms(lambda: l8.fused_encoder_stack_int8(x_inf, stacked, H))
     stamps = torch.zeros(2 + 9 * 8, dtype=torch.int64, device="cuda")
     l8.fused_encoder_stack_int8(x_inf, stacked, H, phase_ns=stamps)

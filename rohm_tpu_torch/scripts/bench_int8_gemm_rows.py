@@ -86,12 +86,17 @@ gemm_skeleton.launches = 0
 def build(b: int, device) -> tuple[tuple, torch.Tensor]:
     """The probe's weights (int8, per-column scales) and a [b, S, D] bf16
     input, from np.random.default_rng(0) in the order of the JAX script's
-    `build`."""
+    `build`. The weights are drawn N(0, 1) as there, and each product's
+    column scales are divided by sqrt(K) (its depth), so that a product
+    keeps its input's scale: the timed chains feed each call's output to
+    the next, and with unit weights the carry grows ~sqrt(D)^3 sqrt(F) per
+    call and overflows bf16 from the seventh on. The int8 codes, and so
+    the work, are the JAX script's."""
     rng = np.random.default_rng(0)
 
     def qcols(*shape):
         q, s = _quant_cols(torch.from_numpy(rng.normal(size=shape).astype(np.float32)))
-        return q.contiguous().to(device), s.to(device)
+        return q.contiguous().to(device), (s / shape[0] ** 0.5).to(device)
 
     wqkv, sqkv = qcols(D, 3 * D)
     wo, so = qcols(D, D)
@@ -120,13 +125,16 @@ def time_calls(fn, x: torch.Tensor, iters: int) -> tuple[float, float]:
     Python, CUDA events around them, which counts the host's launch cost
     wherever the card waits on it; (2) the card alone: GRAPH_CALLS chained
     calls captured in one CUDA graph, replayed GRAPH_REPLAYS times (the
-    replays launch the kernels without the wrappers, so without counting)."""
+    replays launch the kernels without the wrappers, so without counting).
+    Raises if the carry of a chain is not finite at its end."""
     fn(x)  # warm-up
+    ends = []
 
     def chain(n):
         y = x
         for _ in range(n):
             y = fn(y)
+        ends.append(y)
         return y
 
     host = _elapsed(lambda: chain(iters), 1) / iters
@@ -140,6 +148,9 @@ def time_calls(fn, x: torch.Tensor, iters: int) -> tuple[float, float]:
         chain(GRAPH_CALLS)
     graph.replay()
     card = _elapsed(graph.replay, GRAPH_REPLAYS) / GRAPH_CALLS
+    for y in ends:  # the chain from Python and the captured one, as its last replay left it
+        if not torch.isfinite(y).all():
+            raise AssertionError("time_calls: the chained carry is not finite")
     return host, card
 
 

@@ -65,9 +65,9 @@ VARIANTS = {
     "tile 64x128, 4 stages": _tile(64, 128, 4),
     "64x64, 2 stages": _tile(64, 64, 2),
     "64x64, 4 stages": _tile(64, 64, 4),
-    "split by cvt.rna twice": [("f32_gemm.cuh", SPLIT, SPLITS["cvt_rna"])],
-    "split by Veltkamp (FP)": [("f32_gemm.cuh", SPLIT, SPLITS["veltkamp"])],
-    "big cut, not rounded": [("f32_gemm.cuh", SPLIT, SPLITS["big_cut"])],
+    "split by cvt.rna twice": [("common.cuh", SPLIT, SPLITS["cvt_rna"])],
+    "split by Veltkamp (FP)": [("common.cuh", SPLIT, SPLITS["veltkamp"])],
+    "big cut, not rounded": [("common.cuh", SPLIT, SPLITS["big_cut"])],
     "no partial sums": [("f32_gemm.cuh", "mma_tf32(part[i][j],", "mma_tf32(acc[i][j],")],
     "one TF32 pass": [("f32_gemm.cuh", "          mma_tf32(part[i][j], as[i], bb[0], bb[1]);\n"
                                        "          mma_tf32(part[i][j], ab[i], bs[0], bs[1]);\n", "")],
@@ -153,9 +153,9 @@ def _nvcc(args: list, what: str) -> None:
         raise RuntimeError(f"nvcc failed for {what}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
 
 
-def _load(path: Path) -> ctypes.CDLL:
+def _load(path: Path, entries: tuple) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for name in ("rt_gemm_f32", "rt_gemm_train"):
+    for name in entries:
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -163,33 +163,42 @@ def _load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def build_variants(names: list) -> dict:
-    """name -> loaded library; all nvcc processes run at once."""
+def build_libraries(edits: dict, sources: tuple, entries: tuple) -> dict:
+    """name -> loaded library of `sources` (and errors.cu) compiled from a
+    copy of csrc/ with that name's edits [(file, text, replacement)], whose
+    C `entries` the wrappers call; all nvcc processes run at once."""
     root = _build.BUILD_ROOT / "variants"
     jobs = []
-    for name in names:
+    for name, edit in edits.items():
         d = root / name.replace(" ", "_").replace(",", "").replace(".", "")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        for fname, text, repl in VARIANTS[name]:
+        for fname, text, repl in edit:
             path = d / fname
             src = path.read_text()
             if text not in src:
                 raise RuntimeError(f"variant {name!r}: {fname} no longer holds the text it edits")
             path.write_text(src.replace(text, repl))
-        objs = [d / f"{src}.o" for src in ("gemm_f32.cu", "gemm_train.cu", "errors.cu")]
+        objs = [d / f"{src}.o" for src in (*sources, "errors.cu")]
         procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", str(o), str(d / o.stem)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for o in objs]
         jobs.append((name, d, objs, procs))
     libs = {}
     for name, d, objs, procs in jobs:
         outs = [p.communicate()[0] for p in procs]
+        (d / "build.log").write_text("\n".join(outs))
         if any(p.returncode for p in procs):
             raise RuntimeError(f"variant {name!r} failed to build:\n" + "\n".join(outs)[-3000:])
         _nvcc(["-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(d / "lib.so"),
                *(str(o) for o in objs)], name)
-        libs[name] = _load(d / "lib.so")
+        libs[name] = _load(d / "lib.so", entries)
     return libs
+
+
+def build_variants(names: list) -> dict:
+    """name -> loaded library of the GEMM variant."""
+    return build_libraries({name: VARIANTS[name] for name in names}, ("gemm_f32.cu", "gemm_train.cu"),
+                           ("rt_gemm_f32", "rt_gemm_train"))
 
 
 def mma_peak() -> dict:

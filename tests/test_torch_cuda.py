@@ -312,6 +312,31 @@ def test_attention_kernels_take_any_sequence_length(s):
         _bwd_within_gate(got[0] if bf16 else got, qq, dd, mask, s, h, ik, bf16)
 
 
+@pytest.mark.parametrize("s", [144, 145, 161, 1024])
+@pytest.mark.parametrize("dh", [128, 64])
+def test_f32_attention_forwards_on_the_tensor_cores(dh, s):
+    """attention_f32 and attention_train_fwd in the f32 mode (one 3xTF32
+    routine, csrc/attention_tf32.cuh) against their plain versions, 2
+    sequences x 2 heads, at the layers' lengths, one past the 160-key tile
+    and 1024, under chip_smoke.py's gates: 1e-5 max|v|, 1e-5 inv_keep
+    max|v|; each call launches its kernel once."""
+    b, h, ik = 2, 2, 1.0 / 0.9
+    d = h * dh
+    g = torch.Generator(device="cuda").manual_seed(100 * dh + s)
+    qkv = torch.randn(b * s, 3 * d, device="cuda", generator=g)
+    vmax = qkv[:, 2 * d:].abs().max().item()
+    mask = (torch.rand(b, h, s, s, device="cuda", generator=g) >= 0.1).to(torch.int8)
+    before = lt.attention_train_fwd.launches
+    got, ref = lt.attention_train_fwd(qkv, mask, s, h, ik), lt.attention_train_fwd_plain(qkv, mask, s, h, ik)
+    assert lt.attention_train_fwd.launches == before + 1
+    assert ((got - ref).abs() <= 1e-5 * ik * vmax).all()
+    qkv[:, :d] *= dh ** -0.5  # attention_f32 takes Q pre-scaled
+    before = l32.attention_f32.launches
+    got, ref = l32.attention_f32(qkv, s, h), l32.attention_f32_plain(qkv, s, h)
+    assert l32.attention_f32.launches == before + 1
+    assert ((got - ref).abs() <= 1e-5 * vmax).all()
+
+
 @pytest.mark.parametrize("s", [177, 300])
 def test_stack_kernel_at_long_sequences_on_cuda(s):
     """The whole-stack kernel past the length one attention tile holds (144
