@@ -691,8 +691,8 @@ def check_bwd(name: str, got, qkv, da, mask, seq_len: int, inv_keep: float, bf16
     for i, part in enumerate(("dq", "dk", "dv")):
         blk = slice(i * d, (i + 1) * d)
         tol = (2.0 ** -10 if bf16 else 1e-5) * ref[:, blk].abs().max().item()
-        if bf16:
-            log(f"[kernels] {name} {part}: {(got[:, blk] - ref[:, blk]).abs().max().item() / tol:.3f} of the gate")
+        log(f"[kernels] {name} {part}: worst error {(got[:, blk] - ref[:, blk]).abs().max().item() / tol:.4f} "
+            "of its gate")
         _check(f"{name} {part}", got[:, blk], ref[:, blk], tol, f"{'2^-10' if bf16 else '1e-5'} of max|ref|",
                stats, "attention_train_bwd")
         parts.append((part, blk, tol, ref[:, blk]))

@@ -1,6 +1,7 @@
-// The f32 attention forward on the tensor cores (3xTF32), with the keys
-// streamed through shared memory in tiles: the body of attention_f32.cu
-// (K1) and of the f32 mode of attention_train.cu's forward (K6).
+// The f32 attention on the tensor cores (3xTF32), with the keys streamed
+// through shared memory in tiles: the forward, the body of attention_f32.cu
+// (K1) and of the f32 mode of attention_train.cu's forward (K6), and the
+// f32 mode of attention_train.cu's backward (K7; its own section below).
 //
 // What it computes, for one (sequence, head): scores s = Q.K^T (x scale,
 // rounded once, in TRAIN: K6's arithmetic; otherwise Q arrives pre-scaled,
@@ -244,6 +245,47 @@ __device__ __forceinline__ void store_group(float* out, int stride, int r_lo, in
   }
 }
 
+// s (scores of rows g, g + 8 against keys 0 .. KT - 1) -> p = softmax, exact
+// over the row: x scale in TRAIN (after the product, rounded once), keys >=
+// S out, the row's max, exp(s - max), its sum, p = e / sum rounded once
+template <bool TRAIN>
+__device__ __forceinline__ void row_softmax(float (&s)[NJ][4], int S, float scale, int t, float& mx_lo,
+                                            float& mx_hi, float& sum_lo, float& sum_hi) {
+  mx_lo = mx_hi = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[j][e];
+      s[j][e] = 8 * j + 2 * t + (e & 1) < S ? (TRAIN ? __fmul_rn(x, scale) : x) : -INFINITY;
+    }
+    mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+  }
+  mx_lo = quad_max(mx_lo);
+  mx_hi = quad_max(mx_hi);
+  sum_lo = sum_hi = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    s[j][0] = expf(s[j][0] - mx_lo);
+    s[j][1] = expf(s[j][1] - mx_lo);
+    s[j][2] = expf(s[j][2] - mx_hi);
+    s[j][3] = expf(s[j][3] - mx_hi);
+    sum_lo += s[j][0] + s[j][1];
+    sum_hi += s[j][2] + s[j][3];
+  }
+  sum_lo = quad_sum(sum_lo);
+  sum_hi = quad_sum(sum_hi);
+  const float rs_lo = __frcp_rn(sum_lo), rs_hi = __frcp_rn(sum_hi);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    s[j][0] = div_rn(s[j][0], sum_lo, rs_lo);
+    s[j][1] = div_rn(s[j][1], sum_lo, rs_lo);
+    s[j][2] = div_rn(s[j][2], sum_hi, rs_hi);
+    s[j][3] = div_rn(s[j][3], sum_hi, rs_hi);
+  }
+}
+
 template <bool TRAIN, bool TILED>
 __device__ inline void forward_block(const float* __restrict__ qkv, const int8_t* __restrict__ mask,
                                      float* __restrict__ out, int S, int H, int dh, float scale, float inv_keep) {
@@ -282,36 +324,8 @@ __device__ inline void forward_block(const float* __restrict__ qkv, const int8_t
       if (rt < tiles) {
         scores(s, base + (size_t)r_lo * stride, base + (size_t)r_hi * stride, r_lo < S, r_hi < S, Ks, ld, nj, dh,
                lane);
-        float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = score(s[j][e], 8 * j + 2 * t + (e & 1));
-          mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-          mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-        }
-        mx_lo = quad_max(mx_lo);
-        mx_hi = quad_max(mx_hi);
-        float sum_lo = 0.0f, sum_hi = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          s[j][0] = expf(s[j][0] - mx_lo);
-          s[j][1] = expf(s[j][1] - mx_lo);
-          s[j][2] = expf(s[j][2] - mx_hi);
-          s[j][3] = expf(s[j][3] - mx_hi);
-          sum_lo += s[j][0] + s[j][1];
-          sum_hi += s[j][2] + s[j][3];
-        }
-        sum_lo = quad_sum(sum_lo);
-        sum_hi = quad_sum(sum_hi);
-        const float rs_lo = __frcp_rn(sum_lo), rs_hi = __frcp_rn(sum_hi);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          s[j][0] = div_rn(s[j][0], sum_lo, rs_lo);
-          s[j][1] = div_rn(s[j][1], sum_lo, rs_lo);
-          s[j][2] = div_rn(s[j][2], sum_hi, rs_hi);
-          s[j][3] = div_rn(s[j][3], sum_hi, rs_hi);
-        }
+        float mx_lo, mx_hi, sum_lo, sum_hi;
+        row_softmax<TRAIN>(s, S, scale, t, mx_lo, mx_hi, sum_lo, sum_hi);
       }
       if (i == 0) {  // V and the mask have landed (every warp passes here once)
         cp_async_wait_group<0>();
@@ -393,6 +407,404 @@ __device__ inline void forward_block(const float* __restrict__ qkv, const int8_t
 #pragma unroll
   for (int m = 0; m < MAX_DH / 32; ++m)
     if (m < groups) store_group(obase, D, r_lo, S, o[m], m, dh, t);
+}
+
+// ---------------------------------------------------------------------------
+// The backward (the f32 mode of attention_train.cu's backward, K7)
+// ---------------------------------------------------------------------------
+//
+// For one (sequence, head), with p = softmax(Q.K^T x scale) as the forward
+// forms it and keep = mask x inv_keep:
+//   dpd = dA.V^T, dp = dpd keep, D = sum_k dp p (per query row),
+//   ds = p (dp - D) x scale, dq = ds.K;  dv = (p keep)^T.dA, dk = ds^T.Q.
+// Seven products, each one of the forward's two shapes, in 3xTF32 with a
+// partial sum per 32-deep k-step: A.B^T over dh (`scores`: A rows from
+// device memory, B a [rows][ld] smem tile) or a tile in the score
+// accumulators' layout times an MN-major smem operand (`pv_group`: the k
+// labels 2t and 2t + 1 of each 8 read rows 2t and 2t + 1 of the operand).
+// Two kernels, no [B, H, S, S] buffer and no atomics: dq comes from the
+// query kernel alone, dk and dv from the key kernel alone, and between them
+// go the rows' max, sum and D (work [3, B, H, S]).
+//
+// Each routine has one call site in each kernel (a loop over its two uses):
+// with two, the backward took 0.52 ms on the card at 64 x 4 x 145 against
+// 0.48, with no spill (scripts/attention_bwd_f32_variants.py, "two call
+// sites"): the larger code costs the time, not the registers.
+//
+// The mask enters both kernels as each thread's keep bits of its 80 score
+// accumulators (3 registers). The query kernel's one-tile path loads its
+// bytes before the staging copies and packs them once the copies are
+// issued (loaded after them, queued behind them, it took 4% longer: the
+// script's "keep bits after the staging"). The key kernel and the query
+// kernel's sweeps load and pack them before they issue the copies.
+//
+// Query kernel: one block per (BWD_ROWS query rows, sequence, head), warps
+// of 16 rows. Up to KT keys, V, then K are staged once; dpd = scores(dA
+// rows, V); after a barrier (every warp is done with V) dp goes to shared
+// memory in V's place, each thread's own values in its own slots (no two
+// tiles of 80 f32 a thread live at once: forward_block already takes ~250
+// registers with one); s = scores(Q rows, K), the softmax as forward_block
+// forms it, D, ds in place of p, then dq = pv_group(ds, K) one group of 32
+// dh columns at a time. Past KT keys four sweeps over KT-key tiles,
+// restaged: the rows' max, their sum, D, then ds and dq, each tile's dq
+// added to what the earlier tiles stored (the block owns its rows).
+//
+// Key kernel: one block per (BWD_ROWS keys, sequence, head), warps of 16
+// keys; a query tile (up to KT queries: every query up to S = KT) of dA and
+// Q and the queries' stats staged; dpd^T = scores(V rows, dA) -> dp^T to
+// the warp's slots; s^T = scores(K rows, Q) -> p^T from the stats, ds^T =
+// p^T (dp^T - D) x scale to the slots in dp^T's place and pd^T = p^T keep
+// in the registers; dv = pv_group(pd^T, dA), then ds^T back into the
+// registers and dk = pv_group(ds^T, Q), each group stored as it is done.
+// Past KT queries each tile's dk and dv are added to what the earlier tiles
+// stored (the block owns its keys' rows, so each sum stays in one order).
+// At S = 145, dh = 128: the query kernel 169 KB of shared memory, the key
+// kernel 222 KB (Q and dA 84 KB each, the slots 51 KB); one block per SM.
+
+constexpr int BWD_WARPS = 5;
+constexpr int BWD_ROWS = 16 * BWD_WARPS;  // query rows (query kernel) or keys (key kernel) per block
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+static_assert(KT <= BWD_THREADS, "the key kernel stages one query's stats per thread");
+
+// keys of the query kernel's tile, queries of the key kernel's: a multiple of 16
+__host__ __device__ inline int bwd_tile(int S) { return tiled(S) ? KT : keys_pad(S); }
+
+// floats of the query kernel's V tile, whose place then takes the warps' dp
+__host__ __device__ inline int bwd_v_floats(int S, int dh) {
+  const int kt = bwd_tile(S), v = kt * (dh_pad(dh) + 4), dp = BWD_ROWS * kt;
+  return v > dp ? v : dp;
+}
+
+// K, V (then dp)
+inline size_t bwd_query_smem(int S, int dh) {
+  return sizeof(float) * ((size_t)bwd_tile(S) * (dh_pad(dh) + 4) + bwd_v_floats(S, dh));
+}
+
+// dA and Q of a query tile, the warps' slots (dp^T, then ds^T), the
+// queries' (max, sum, 1 / sum, D)
+inline size_t bwd_key_smem(int S, int dh) {
+  const size_t qt = bwd_tile(S);
+  return sizeof(float) * (2 * qt * (dh_pad(dh) + 4) + (size_t)BWD_ROWS * qt + 4 * qt);
+}
+
+// blockIdx.x = the block's rows (query kernel) or keys (key kernel), blockIdx.y = b * H + h: the
+// blocks that stage one (sequence, head)'s tiles run together, so the later ones read them from L2
+inline dim3 bwd_grid(int B, int S, int H) { return dim3((S + BWD_ROWS - 1) / BWD_ROWS, B * H); }
+
+// the mask bytes of this thread's 80 accumulators of a score tile:
+// mask[row][col] of the (sequence, head)'s [S][S] int8 slab at (row, col) =
+// rc(j, e), 0 past S. 80 independent loads: issued before a tile's staging
+// copies, they are in flight while it lands (issued after them, they wait
+// behind them); keep_bits packs them once the copies are issued.
+template <typename RC>
+__device__ __forceinline__ void load_keep(int8_t (&kbytes)[NJ][4], const int8_t* mslab, int S, RC rc) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int2 x = rc(j, e);
+      const bool ok = (x.x < S) & (x.y < S);  // the load itself unconditional: all 80 in flight at once
+      const int8_t v = mslab[ok ? (size_t)x.x * S + x.y : 0];
+      kbytes[j][e] = ok ? v : 0;
+    }
+  }
+}
+
+// bit 4j + e of kb[(4j + e) / 32]: accumulator e of tile j is kept
+__device__ __forceinline__ void keep_bits(uint32_t (&kb)[3], const int8_t (&kbytes)[NJ][4]) {
+  kb[0] = kb[1] = kb[2] = 0u;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) kb[(4 * j + e) / 32] |= (uint32_t)(kbytes[j][e] != 0) << ((4 * j + e) % 32);
+  }
+}
+
+__device__ __forceinline__ float keep_of(const uint32_t (&kb)[3], int j, int e, float inv_keep) {
+  return (kb[(4 * j + e) / 32] >> ((4 * j + e) % 32)) & 1u ? inv_keep : 0.0f;
+}
+
+// the shared-memory slot of accumulator e of tile j in a warp's [16 x n]
+// tile (each thread reads back only what it wrote)
+__device__ __forceinline__ int slot(int j, int e, int lane) { return (4 * j + e) * 32 + lane; }
+
+// o (pv_group's layout) <- rows r_lo and r_lo + 8 of what store_group wrote (zeros past S)
+__device__ __forceinline__ void load_group(float (&o)[4][4], const float* in, int stride, int r_lo, int S, int m,
+                                           int dh, int t) {
+  const int c = 32 * m + 8 * t;
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_lo + 8 * h;
+    const float* row = in + (size_t)r * stride;
+    const float4 x0 = r < S && c < dh ? ld4(row + c) : z, x1 = r < S && c + 4 < dh ? ld4(row + c + 4) : z;
+    o[0][2 * h] = x0.x, o[1][2 * h] = x0.y, o[2][2 * h] = x0.z, o[3][2 * h] = x0.w;
+    o[0][2 * h + 1] = x1.x, o[1][2 * h + 1] = x1.y, o[2][2 * h + 1] = x1.z, o[3][2 * h + 1] = x1.w;
+  }
+}
+
+// dq (columns h dh of dqkv) and stats [3][B * H][S]: the rows' max, sum, D
+template <bool TILED>
+__device__ inline void bwd_query_block(const float* __restrict__ qkv, const float* __restrict__ dA,
+                                       const int8_t* __restrict__ mask, float* __restrict__ dqkv,
+                                       float* __restrict__ stats, int S, int H, int dh, float scale,
+                                       float inv_keep) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = H * dh, stride = 3 * D, ld = dh_pad(dh) + 4, groups = dh_pad(dh) / 32, kt = bwd_tile(S);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.x * BWD_ROWS, nrows = min(BWD_ROWS, S - row0);
+  const int r_lo = row0 + 16 * warp + g, r_hi = r_lo + 8;  // this thread's two query rows
+  const float* base = qkv + (size_t)b * S * stride + h * dh;
+  const float* q_lo = base + (size_t)r_lo * stride;
+  const float* q_hi = base + (size_t)r_hi * stride;
+  const float* a_lo = dA + ((size_t)b * S + r_lo) * D + h * dh;
+  const float* a_hi = a_lo + 8 * (size_t)D;
+  const int8_t* mslab = mask + (size_t)bh * S * S;
+  float* Ks = smem;
+  float* Vs = Ks + kt * ld;
+  float* dps = Vs + warp * 16 * kt;  // the warp's dp, in V's place
+  float* obase = dqkv + (size_t)b * S * stride + h * dh;
+  float s[NJ][4];
+  float mx_lo = -INFINITY, mx_hi = -INFINITY, sum_lo = 0.0f, sum_hi = 0.0f, d_lo = 0.0f, d_hi = 0.0f;
+  uint32_t kb[3];  // the keep bits of the thread's (row, key) pairs of the tile
+  int8_t kbytes[NJ][4];
+  auto keep_bytes = [&](int k0) {
+    load_keep(kbytes, mslab, S,
+              [&](int j, int e) { return make_int2(e < 2 ? r_lo : r_hi, k0 + 8 * j + 2 * t + (e & 1)); });
+  };
+  // dpd (in s) -> dp = dpd keep, to the warp's slots (keys of the tile)
+  auto dp_to_smem = [&](int nj) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dps[slot(j, e, lane)] = __fmul_rn(s[j][e], keep_of(kb, j, e, inv_keep));
+    }
+  };
+
+  if (!TILED) {
+    const int nj = kt / 8;
+    const bool live = 16 * warp < nrows;
+    if (live) keep_bytes(0);
+    // V first, in a group of its own: dpd starts when it has landed
+    stage(Vs, ld, base + 2 * D, stride, S, kt, dh);
+    cp_async_commit();
+    stage(Ks, ld, base + D, stride, S, kt, dh);
+    cp_async_commit();
+    if (live) keep_bits(kb, kbytes);
+    cp_async_wait_group<1>();
+    __syncthreads();
+    // dpd = dA.V^T (-> dp to the slots), then s = Q.K^T: one call site
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      if (live) scores(s, pass ? q_lo : a_lo, pass ? q_hi : a_hi, r_lo < S, r_hi < S, pass ? Ks : Vs, ld, nj, dh, lane);
+      if (pass) break;
+      cp_async_wait_group<0>();
+      __syncthreads();  // K has landed; every warp is done with V
+      if (live) dp_to_smem(nj);
+    }
+    if (!live) return;
+    row_softmax<true>(s, S, scale, t, mx_lo, mx_hi, sum_lo, sum_hi);
+    // D = sum_k dp p (each thread its keys in order, then the quad), then
+    // ds = p (dp - D) scale in p's place
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        d_lo += __fmul_rn(dps[slot(j, e, lane)], s[j][e]);
+        d_hi += __fmul_rn(dps[slot(j, 2 + e, lane)], s[j][2 + e]);
+      }
+    }
+    d_lo = quad_sum(d_lo);
+    d_hi = quad_sum(d_hi);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dp = j < nj ? dps[slot(j, e, lane)] : 0.0f;
+        s[j][e] = __fmul_rn(__fmul_rn(s[j][e], __fsub_rn(dp, e < 2 ? d_lo : d_hi)), scale);
+      }
+    }
+    for (int m = 0; m < groups; ++m) {
+      float o[4][4] = {};
+      pv_group(o, s, Ks, ld, m, nj, lane);
+      store_group(obase, stride, r_lo, S, o, m, dh, t);
+    }
+  } else {
+    // S > KT: four sweeps over KT-key tiles: the rows' max, their sum, D,
+    // then ds and dq (dq's sums in dqkv between tiles, as the key kernel
+    // keeps dk and dv: in registers they spilled)
+    float rs_lo = 0.0f, rs_hi = 0.0f;
+#pragma unroll 1
+    for (int pass = 0; pass < 4; ++pass) {
+      for (int k0 = 0; k0 < S; k0 += KT) {
+        const int nk = min(KT, S - k0), nj = keys_pad(nk) / 8;
+        __syncthreads();  // the previous tile (K, V, dp) is done with
+        if (pass >= 2) {  // the keep bits first, before the staging's copies queue ahead of their loads
+          keep_bytes(k0);
+          keep_bits(kb, kbytes);
+        }
+        stage(Ks, ld, base + (size_t)k0 * stride + D, stride, nk, 8 * nj, dh);
+        if (pass >= 2) stage(Vs, ld, base + (size_t)k0 * stride + 2 * D, stride, nk, 8 * nj, dh);
+        cp_async_wait();
+        __syncthreads();
+#pragma unroll 1
+        for (int which = pass >= 2 ? 0 : 1; which < 2; ++which) {  // dpd (passes 2 and 3), then s
+          scores(s, which ? q_lo : a_lo, which ? q_hi : a_hi, r_lo < S, r_hi < S, which ? Ks : Vs, ld, nj, dh, lane);
+          if (which) break;
+          __syncthreads();  // every warp is done with V
+          dp_to_smem(nj);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool lo = e < 2;
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            const float x = col < S ? __fmul_rn(s[j][e], scale) : -INFINITY;
+            if (pass == 0) {
+              if (lo) mx_lo = fmaxf(mx_lo, x);
+              else mx_hi = fmaxf(mx_hi, x);
+            } else if (pass == 1) {
+              if (lo) sum_lo += expf(x - mx_lo);
+              else sum_hi += expf(x - mx_hi);
+            } else {
+              const float p = div_rn(expf(x - (lo ? mx_lo : mx_hi)), lo ? sum_lo : sum_hi, lo ? rs_lo : rs_hi);
+              const float dp = j < nj ? dps[slot(j, e, lane)] : 0.0f;
+              if (pass == 2) {
+                if (lo) d_lo += __fmul_rn(dp, p);
+                else d_hi += __fmul_rn(dp, p);
+              } else {
+                s[j][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, lo ? d_lo : d_hi)), scale);
+              }
+            }
+          }
+        }
+        if (pass == 3) {
+          for (int m = 0; m < groups; ++m) {
+            float o[4][4] = {};
+            if (k0) load_group(o, obase, stride, r_lo, S, m, dh, t);
+            pv_group(o, s, Ks, ld, m, nj, lane);
+            store_group(obase, stride, r_lo, S, o, m, dh, t);
+          }
+        }
+      }
+      if (pass == 0) mx_lo = quad_max(mx_lo), mx_hi = quad_max(mx_hi);
+      if (pass == 1) {
+        sum_lo = quad_sum(sum_lo), sum_hi = quad_sum(sum_hi);
+        rs_lo = __frcp_rn(sum_lo), rs_hi = __frcp_rn(sum_hi);
+      }
+      if (pass == 2) d_lo = quad_sum(d_lo), d_hi = quad_sum(d_hi);
+    }
+  }
+  if (t == 0) {
+    const size_t n = (size_t)gridDim.y * S, i = (size_t)bh * S;
+    if (r_lo < S) stats[i + r_lo] = mx_lo, stats[n + i + r_lo] = sum_lo, stats[2 * n + i + r_lo] = d_lo;
+    if (r_hi < S) stats[i + r_hi] = mx_hi, stats[n + i + r_hi] = sum_hi, stats[2 * n + i + r_hi] = d_hi;
+  }
+}
+
+// dk and dv (columns D + h dh and 2 D + h dh of dqkv) from the query kernel's stats
+template <bool TILED>
+__device__ inline void bwd_key_block(const float* __restrict__ qkv, const float* __restrict__ dA,
+                                     const int8_t* __restrict__ mask, const float* __restrict__ stats,
+                                     float* __restrict__ dqkv, int S, int H, int dh, float scale, float inv_keep) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = H * dh, stride = 3 * D, ld = dh_pad(dh) + 4, groups = dh_pad(dh) / 32, qt = bwd_tile(S);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int key0 = blockIdx.x * BWD_ROWS;
+  const int k_lo = key0 + 16 * warp + g, k_hi = k_lo + 8;  // this thread's two keys
+  const bool live = 16 * warp < S - key0;
+  const float* base = qkv + (size_t)b * S * stride + h * dh;
+  const float* krow = base + (size_t)k_lo * stride + D;
+  const float* vrow = krow + D;
+  const int8_t* mslab = mask + (size_t)bh * S * S;
+  float* As = smem;                                      // [qt][ld]: dA of the query tile
+  float* Qs = As + qt * ld;                              // [qt][ld]: its Q
+  float* dps = Qs + qt * ld + warp * 16 * qt;            // the warp's dp^T, then ds^T
+  auto* St = reinterpret_cast<float4*>(Qs + qt * ld + BWD_ROWS * qt);  // [qt]: the queries' max, sum, 1 / sum, D
+  const size_t n = (size_t)gridDim.y * S;
+  const float* st = stats + (size_t)bh * S;
+  float* obase = dqkv + (size_t)b * S * stride + h * dh;
+  float s[NJ][4];
+  uint32_t kb[3];  // the keep bits of the thread's (query, key) pairs of the tile
+
+  for (int q0 = 0; q0 < S; q0 += qt) {
+    const int nq = min(qt, S - q0), nj = keys_pad(nq) / 8;
+    if (TILED) __syncthreads();  // the previous tile is done with
+    // the keep bits first, before the staging's copies are issued (after
+    // them the kernel ran 4% faster at S = 145 but 7-9% slower at S = 161 and
+    // 1024: the variants script's "keep bits after the staging")
+    if (live) {
+      int8_t kbytes[NJ][4];
+      load_keep(kbytes, mslab, S,
+                [&](int j, int e) { return make_int2(q0 + 8 * j + 2 * t + (e & 1), e < 2 ? k_lo : k_hi); });
+      keep_bits(kb, kbytes);
+    }
+    // the stats of query i (one per thread: 8 nj <= KT = blockDim.x), loaded before the staging
+    const int i = threadIdx.x;
+    const bool ok = i < nq;
+    const float mx = ok ? st[q0 + i] : 0.0f, sum = ok ? st[n + q0 + i] : 1.0f, d = ok ? st[2 * n + q0 + i] : 0.0f;
+    stage(As, ld, dA + ((size_t)b * S + q0) * D + h * dh, D, nq, 8 * nj, dh);
+    cp_async_commit();
+    stage(Qs, ld, base + (size_t)q0 * stride, stride, nq, 8 * nj, dh);
+    cp_async_commit();
+    if (i < 8 * nj) St[i] = make_float4(mx, sum, __frcp_rn(sum), d);
+    cp_async_wait_group<1>();
+    __syncthreads();  // dA and the stats have landed
+    // dpd^T = V.dA^T (-> dp^T to the slots), then s^T = K.Q^T: one call site
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* a = pass ? krow : vrow;
+      if (live) scores(s, a, a + 8 * (size_t)stride, k_lo < S, k_hi < S, pass ? Qs : As, ld, nj, dh, lane);
+      if (pass) break;
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j >= nj) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dps[slot(j, e, lane)] = __fmul_rn(s[j][e], keep_of(kb, j, e, inv_keep));
+        }
+      }
+      cp_async_wait_group<0>();
+      __syncthreads();  // Q has landed
+    }
+    if (!live) continue;  // no keys for this warp (it still met every barrier)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = 8 * j + 2 * t + (e & 1);
+        const float4 st4 = St[ql];  // max, sum, 1 / sum, D
+        const float p = q0 + ql < S ? div_rn(expf(__fmul_rn(s[j][e], scale) - st4.x), st4.y, st4.z) : 0.0f;
+        float& x = dps[slot(j, e, lane)];
+        x = __fmul_rn(__fmul_rn(p, __fsub_rn(x, st4.w)), scale);  // ds^T in dp^T's place
+        s[j][e] = __fmul_rn(p, keep_of(kb, j, e, inv_keep));    // pd^T
+      }
+    }
+    // dv += pd^T.dA, then dk += ds^T.Q (ds^T back from the slots): one call site
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = j < nj ? dps[slot(j, e, lane)] : 0.0f;
+        }
+      }
+      float* out = obase + (pass ? D : 2 * D);
+      for (int m = 0; m < groups; ++m) {
+        float o[4][4] = {};
+        if (TILED && q0) load_group(o, out, stride, k_lo, S, m, dh, t);
+        pv_group(o, s, pass ? Qs : As, ld, m, nj, lane);
+        store_group(out, stride, k_lo, S, o, m, dh, t);
+      }
+    }
+  }
 }
 
 }  // namespace attn_tf32

@@ -65,63 +65,22 @@
 //            tiles, recomputes p^T and dp^T from them, and accumulates dk and
 //            dv in registers. 4 S x S x dh products on the FMA units and 3 on
 //            the tensor cores per (sequence, head) at S <= 160;
-//   backward, f32 mode: SIMT. A query kernel (32 rows) sweeps key tiles
-//            (every key at once up to S = 160; else 144-key tiles, four
-//            sweeps) and writes dq and, to a scratch of [B, H, S, S] f32
-//            each, pd and ds; a key kernel (32 keys) sweeps query tiles of
-//            the scratch's columns (every query at once up to S = 176) and
-//            writes dk and dv. Bound: f32 FMA issue and shared-memory
-//            bandwidth (5.5 GFLOP per layer at B = 64, S = 145).
+//   backward, f32 mode: rohm::attn_tf32::bwd_query_block and bwd_key_block
+//            (attention_tf32.cuh): the bf16 mode's two kernels with all
+//            seven products as 3xTF32 on the tensor cores, the forward's
+//            routines. A query kernel (80 rows, 5 warps x 16) stages V and
+//            K once up to S = 160, keeps dp in shared memory in V's place
+//            and p in registers, and writes dq and the rows' max, sum and
+//            D [3, B, H, S]; past 160 keys it sweeps 160-key tiles four
+//            times. A key kernel (80 keys) stages dA, Q and the queries'
+//            stats per 160-query tile (once up to S = 160), recomputes p^T
+//            and dp^T, keeps ds^T in shared memory and writes dk and dv.
+//            Each thread holds the mask as keep bits of its score tile. No
+//            [B, H, S, S] buffer, no atomics. Bound: the tensor cores'
+//            3xTF32 rate (7 S x S x dh products per (sequence, head)).
 #include "attention_tf32.cuh"
 
 namespace {
-
-using rohm::ld4;
-using rohm::st4;
-
-constexpr int RM = 4;  // rows per thread task in the SIMT products
-
-// rows [0, nrows) of one head's f32 column block -> smem [rows][ld]; rows
-// in [nrows, cap) are zero
-__device__ void load_rows(float* dst, int ld, const float* src, int row_stride, int nrows, int cap,
-                          int dh, int tid, int nthreads) {
-  const int d4 = dh / 4;
-  for (int e = tid; e < cap * d4; e += nthreads) {
-    const int r = e / d4, c = (e % d4) * 4;
-    st4(dst + r * ld + c, r < nrows ? ld4(src + (size_t)r * row_stride + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
-  }
-}
-
-// Pt[c][g*RM + i] = (X[g*RM + i] . Y[c]) (* scale) for every key c < n:
-// thread task = (RM rows of X, one row of Y)
-__device__ void products_xy(float* Pt, int ldp, const float* X, int ldx, const float* Y, int ldy,
-                            int n, int nrows_pad, int dh, float scale, bool scaled, int tid,
-                            int nthreads) {
-  for (int t = tid; t < (nrows_pad / RM) * n; t += nthreads) {
-    const int g = t / n, c = t % n;
-    const float* y = Y + c * ldy;
-    const float* x = X + g * RM * ldx;
-    float acc[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) acc[i] = 0.0f;
-    for (int d = 0; d < dh; d += 4) {
-      const float4 yv = ld4(y + d);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float4 xv = ld4(x + i * ldx + d);
-        acc[i] = fmaf(xv.x, yv.x, acc[i]);
-        acc[i] = fmaf(xv.y, yv.y, acc[i]);
-        acc[i] = fmaf(xv.z, yv.z, acc[i]);
-        acc[i] = fmaf(xv.w, yv.w, acc[i]);
-      }
-    }
-    if (scaled) {
-#pragma unroll
-      for (int i = 0; i < RM; ++i) acc[i] = __fmul_rn(acc[i], scale);
-    }
-    st4(Pt + c * ldp + g * RM, make_float4(acc[0], acc[1], acc[2], acc[3]));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward, f32 mode: 3xTF32 on the tensor cores (attention_tf32.cuh)
@@ -831,255 +790,23 @@ __global__ void __launch_bounds__(BW_THREADS, 2) attention_train_bwd_kv_tc_kerne
 }
 
 // ---------------------------------------------------------------------------
-// backward, f32 mode: SIMT, queries then keys through a pd / ds scratch
+// backward, f32 mode: 3xTF32 on the tensor cores (attention_tf32.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int BQT = 32, BKT = 32, BTHREADS = 256;  // one 4 x 4 task per thread at dh = 128
-constexpr int BWD_ONE = 160;   // S <= 160: every key staged once, Q and then dA in one buffer
-constexpr int BWD_KT = 144;    // keys per tile above that, beside separate Q and dA tiles
-constexpr int BWD_QT = 176;    // queries per tile of the key kernel
-
-size_t bwd_q_smem(int S, int dh) {
-  const bool one = S <= BWD_ONE;
-  const size_t kt = one ? S : BWD_KT;
-  return sizeof(float) * (2 * kt * (dh + 4) + (one ? 1 : 2) * (size_t)BQT * dh + 2 * kt * (BQT + 4) + 3 * BQT);
-}
-size_t bwd_kv_smem(int S, int dh) {
-  const size_t qt = S < BWD_QT ? S : BWD_QT;
-  return sizeof(float) * (2 * qt * dh + 2 * qt * (BKT + 4));
+template <bool TILED>
+__global__ void __launch_bounds__(rohm::attn_tf32::BWD_THREADS, 1)
+    attention_train_bwd_query_kernel(const float* __restrict__ qkv, const float* __restrict__ dA,
+                                      const int8_t* __restrict__ mask, float* __restrict__ dqkv,
+                                      float* __restrict__ stats, int S, int H, int dh, float scale, float inv_keep) {
+  rohm::attn_tf32::bwd_query_block<TILED>(qkv, dA, mask, dqkv, stats, S, H, dh, scale, inv_keep);
 }
 
-// Query kernel: one block per (32 query rows, sequence, head); writes dq and
-// pd, ds rows to the scratch. ONE (S <= BWD_ONE) and the tiled sweeps are
-// two instantiations, so that the shipped lengths run the one-tile code
-// alone.
-template <bool ONE>
-__global__ void __launch_bounds__(BTHREADS) attention_train_bwd_q_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ dA, const int8_t* __restrict__ mask,
-    float* __restrict__ dqkv, float* __restrict__ pd_out, float* __restrict__ ds_out, int S, int H,
-    int dh, float scale, float inv_keep) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr bool one = ONE;
-  const int kt = one ? S : BWD_KT;
-  const int D = H * dh, row_stride = 3 * D, ldk = dh + 4, ldp = BQT + 4, d4 = dh / 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * BQT;
-  const int nq = min(BQT, S - q0);
-  float* Ks = smem;                          // [kt][dh + 4]
-  float* Vs = Ks + kt * ldk;                 // [kt][dh + 4]
-  float* Qs = Vs + kt * ldk;                 // [BQT][dh]: the tile's Q
-  float* As = one ? Qs : Qs + BQT * dh;      // [BQT][dh]: its dA (in Q's place once the scores are made)
-  float* Pt = As + BQT * dh;                 // [kt][BQT + 4]: p
-  float* Dt = Pt + kt * ldp;                 // [kt][BQT + 4]: dpd, then ds
-  float* rmax = Dt + kt * ldp;               // per row: max, sum, D
-  float* rsum = rmax + BQT;
-  float* rd = rsum + BQT;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nwarps = BTHREADS / 32;
-  const float* base = qkv + (size_t)b * S * row_stride + h * dh;
-  const float* abase = dA + ((size_t)b * S + q0) * D + h * dh;
-  const size_t sq0 = (size_t)blockIdx.y * S + q0;  // first (b, h, query) row of the [B,H,S,S] arrays
-  const int8_t* mrow = mask + sq0 * S;
-
-  // the tile [k0, k0 + nk): scores (and dpd) for the block's rows
-  auto tile = [&](int k0, int nk, bool with_v) {
-    __syncthreads();
-    load_rows(Ks, ldk, base + (size_t)k0 * row_stride + D, row_stride, nk, nk, dh, tid, BTHREADS);
-    if (with_v) load_rows(Vs, ldk, base + (size_t)k0 * row_stride + 2 * D, row_stride, nk, nk, dh, tid, BTHREADS);
-    __syncthreads();
-    products_xy(Pt, ldp, Qs, dh, Ks, ldk, nk, BQT, dh, scale, true, tid, BTHREADS);
-    if (with_v) products_xy(Dt, ldp, As, dh, Vs, ldk, nk, BQT, dh, 1.0f, false, tid, BTHREADS);
-    __syncthreads();
-  };
-  auto keep = [&](int r, int c) { return mrow[(size_t)r * S + c] ? inv_keep : 0.0f; };
-
-  if (one) {
-    // every key at once: p, then dA in Q's place, dpd, then D and ds per row
-    load_rows(Ks, ldk, base + D, row_stride, S, S, dh, tid, BTHREADS);
-    load_rows(Vs, ldk, base + 2 * D, row_stride, S, S, dh, tid, BTHREADS);
-    load_rows(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, BQT, dh, tid, BTHREADS);
-    __syncthreads();
-    products_xy(Pt, ldp, Qs, dh, Ks, ldk, S, BQT, dh, scale, true, tid, BTHREADS);
-    __syncthreads();
-    for (int r = warp; r < nq; r += nwarps) {
-      float mx = -INFINITY;
-      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, Pt[c * ldp + r]);
-      mx = rohm::warp_max(mx);
-      float sum = 0.0f;
-      for (int c = lane; c < S; c += 32) sum += expf(Pt[c * ldp + r] - mx);
-      sum = rohm::warp_sum(sum);
-      for (int c = lane; c < S; c += 32) Pt[c * ldp + r] = __fdiv_rn(expf(Pt[c * ldp + r] - mx), sum);
-    }
-    load_rows(As, dh, abase, D, nq, BQT, dh, tid, BTHREADS);
-    __syncthreads();
-    products_xy(Dt, ldp, As, dh, Vs, ldk, S, BQT, dh, 1.0f, false, tid, BTHREADS);
-    __syncthreads();
-    for (int r = warp; r < nq; r += nwarps) {
-      float d = 0.0f;
-      for (int c = lane; c < S; c += 32) d += __fmul_rn(__fmul_rn(Dt[c * ldp + r], keep(r, c)), Pt[c * ldp + r]);
-      d = rohm::warp_sum(d);
-      for (int c = lane; c < S; c += 32) {
-        const float p = Pt[c * ldp + r], kp = keep(r, c);
-        const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(__fmul_rn(Dt[c * ldp + r], kp), d)), scale);
-        Dt[c * ldp + r] = ds;
-        ds_out[(sq0 + r) * S + c] = ds;
-        pd_out[(sq0 + r) * S + c] = __fmul_rn(p, kp);
-      }
-    }
-  } else {
-    load_rows(Qs, dh, base + (size_t)q0 * row_stride, row_stride, nq, BQT, dh, tid, BTHREADS);
-    load_rows(As, dh, abase, D, nq, BQT, dh, tid, BTHREADS);
-    if (tid < BQT) rmax[tid] = -INFINITY, rsum[tid] = 0.0f, rd[tid] = 0.0f;
-    // sweeps: 0 the rows' max, 1 their sum, 2 D = sum dp p (and pd to the scratch)
-    for (int pass = 0; pass < 3; ++pass) {
-      for (int k0 = 0; k0 < S; k0 += BWD_KT) {
-        const int nk = min(BWD_KT, S - k0);
-        tile(k0, nk, pass == 2);
-        for (int r = warp; r < nq; r += nwarps) {
-          const float mx = rmax[r];
-          float v = pass == 0 ? -INFINITY : 0.0f;
-          for (int c = lane; c < nk; c += 32) {
-            const float x = Pt[c * ldp + r];
-            if (pass == 0) {
-              v = fmaxf(v, x);
-            } else if (pass == 1) {
-              v += expf(x - mx);
-            } else {
-              const float p = __fdiv_rn(expf(x - mx), rsum[r]), kp = keep(r, k0 + c);
-              v += __fmul_rn(__fmul_rn(Dt[c * ldp + r], kp), p);
-              pd_out[(sq0 + r) * S + k0 + c] = __fmul_rn(p, kp);
-            }
-          }
-          v = pass == 0 ? rohm::warp_max(v) : rohm::warp_sum(v);
-          if (lane == 0) {
-            if (pass == 0) rmax[r] = fmaxf(mx, v);
-            else if (pass == 1) rsum[r] += v;
-            else rd[r] += v;
-          }
-        }
-      }
-    }
-  }
-
-  // (multi-tile: ds = (p (dp - D)) scale per row, to the scratch) dq +=
-  // ds . k: thread task = (4 query rows, 4 columns), its sums over the keys
-  // in order j = 0, 1, ...
-  const int tasks = (BQT / RM) * d4, g = tid / d4, c4 = (tid % d4) * 4;
-  float acc[RM][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < S; k0 += kt) {
-    const int nk = min(kt, S - k0);
-    if (!one) {
-      tile(k0, nk, true);
-      for (int r = warp; r < nq; r += nwarps) {
-        const float mx = rmax[r], sum = rsum[r], d = rd[r];
-        for (int c = lane; c < nk; c += 32) {
-          const float p = __fdiv_rn(expf(Pt[c * ldp + r] - mx), sum), kp = keep(r, k0 + c);
-          const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(__fmul_rn(Dt[c * ldp + r], kp), d)), scale);
-          Dt[c * ldp + r] = ds;
-          ds_out[(sq0 + r) * S + k0 + c] = ds;
-        }
-      }
-    }
-    // rows >= nq of Dt hold products of zero rows (never stored below)
-    __syncthreads();
-    if (tid < tasks) {
-      for (int j = 0; j < nk; ++j) {
-        const float4 s4 = ld4(Dt + j * ldp + g * RM);
-        const float4 k = ld4(Ks + j * ldk + c4);
-        const float sr[RM] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          acc[i][0] = fmaf(sr[i], k.x, acc[i][0]);
-          acc[i][1] = fmaf(sr[i], k.y, acc[i][1]);
-          acc[i][2] = fmaf(sr[i], k.z, acc[i][2]);
-          acc[i][3] = fmaf(sr[i], k.w, acc[i][3]);
-        }
-      }
-    }
-  }
-  if (tid < tasks) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = g * RM + i;
-      if (r < nq)
-        st4(dqkv + ((size_t)b * S + q0 + r) * row_stride + h * dh + c4,
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    }
-  }
-}
-
-// Key kernel: one block per (32 keys, sequence, head); sweeps query tiles
-// of Q, dA and the key tile's columns of pd and ds (ONE: every query at
-// once, S <= BWD_QT); writes dk and dv.
-template <bool ONE>
-__global__ void __launch_bounds__(BTHREADS) attention_train_bwd_kv_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ dA, const float* __restrict__ pd,
-    const float* __restrict__ ds, float* __restrict__ dqkv, int S, int H, int dh) {
-  extern __shared__ __align__(16) float smem[];
-  const int qt = ONE ? S : BWD_QT;
-  const int D = H * dh, row_stride = 3 * D, ldt = BKT + 4, d4 = dh / 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, k0 = blockIdx.x * BKT;
-  const int nk = min(BKT, S - k0);
-  float* Qs = smem;             // [qt][dh]
-  float* As = Qs + qt * dh;     // [qt][dh]
-  float* Pk = As + qt * dh;     // [qt][BKT + 4]: pd[q][k0 + kc]
-  float* Sk = Pk + qt * ldt;    // [qt][BKT + 4]: ds[q][k0 + kc]
-  const int tid = threadIdx.x;
-  const float* base = qkv + (size_t)b * S * row_stride + h * dh;
-  const size_t s0 = (size_t)blockIdx.y * S * S;
-  // thread task = (4 keys, 4 columns): dv = pd^T . dA, dk = ds^T . q, summed
-  // over the queries in order
-  const int tasks = (BKT / RM) * d4, g = tid / d4, c4 = (tid % d4) * 4;
-  float av[RM][4], ak[RM][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) av[i][j] = ak[i][j] = 0.0f;
-
-  for (int t0 = 0; t0 < (ONE ? 1 : S); t0 += qt) {
-    const int nq = ONE ? S : min(qt, S - t0);
-    if (!ONE) __syncthreads();
-    load_rows(Qs, dh, base + (size_t)t0 * row_stride, row_stride, nq, nq, dh, tid, BTHREADS);
-    load_rows(As, dh, dA + ((size_t)b * S + t0) * D + h * dh, D, nq, nq, dh, tid, BTHREADS);
-    for (int e = tid; e < nq * BKT; e += BTHREADS) {
-      const int q = e / BKT, kc = e % BKT;
-      const bool in = kc < nk;
-      Pk[q * ldt + kc] = in ? pd[s0 + (size_t)(t0 + q) * S + k0 + kc] : 0.0f;
-      Sk[q * ldt + kc] = in ? ds[s0 + (size_t)(t0 + q) * S + k0 + kc] : 0.0f;
-    }
-    __syncthreads();
-    if (tid >= tasks) continue;
-    for (int q = 0; q < nq; ++q) {
-      const float4 p4 = ld4(Pk + q * ldt + g * RM);
-      const float4 s4 = ld4(Sk + q * ldt + g * RM);
-      const float4 a = ld4(As + q * dh + c4);
-      const float4 x = ld4(Qs + q * dh + c4);
-      const float pr[RM] = {p4.x, p4.y, p4.z, p4.w};
-      const float sr[RM] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        av[i][0] = fmaf(pr[i], a.x, av[i][0]);
-        av[i][1] = fmaf(pr[i], a.y, av[i][1]);
-        av[i][2] = fmaf(pr[i], a.z, av[i][2]);
-        av[i][3] = fmaf(pr[i], a.w, av[i][3]);
-        ak[i][0] = fmaf(sr[i], x.x, ak[i][0]);
-        ak[i][1] = fmaf(sr[i], x.y, ak[i][1]);
-        ak[i][2] = fmaf(sr[i], x.z, ak[i][2]);
-        ak[i][3] = fmaf(sr[i], x.w, ak[i][3]);
-      }
-    }
-  }
-  if (tid >= tasks) return;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kc = g * RM + i;
-    if (kc >= nk) continue;
-    float* row = dqkv + ((size_t)b * S + k0 + kc) * row_stride + h * dh + c4;
-    st4(row + D, make_float4(ak[i][0], ak[i][1], ak[i][2], ak[i][3]));
-    st4(row + 2 * D, make_float4(av[i][0], av[i][1], av[i][2], av[i][3]));
-  }
+template <bool TILED>
+__global__ void __launch_bounds__(rohm::attn_tf32::BWD_THREADS, 1)
+    attention_train_bwd_key_kernel(const float* __restrict__ qkv, const float* __restrict__ dA,
+                                   const int8_t* __restrict__ mask, const float* __restrict__ stats,
+                                   float* __restrict__ dqkv, int S, int H, int dh, float scale, float inv_keep) {
+  rohm::attn_tf32::bwd_key_block<TILED>(qkv, dA, mask, stats, dqkv, S, H, dh, scale, inv_keep);
 }
 
 template <typename Kernel>
@@ -1131,10 +858,10 @@ extern "C" int rt_attention_train_fwd(const void* qkv, const void* mask, void* o
   return (int)cudaGetLastError();
 }
 
-// bf16 mode: qkv and dA bf16; dqkv f32 and, unless null, its bf16 copy
-// dqkv16; work [3, B, H, S] f32 (the rows' max, sum and D, from the query
-// kernel to the key kernel). f32 mode: qkv and dA f32; work [2, B, H,
-// S, S] f32 (pd and ds); dqkv16 unused. The two kernels run in stream order.
+// qkv and dA bf16 (bf16 mode) or f32; dqkv f32 and, in the bf16 mode unless
+// null, its bf16 copy dqkv16; work [3, B, H, S] f32 (the rows' max, sum and
+// D, from the query kernel to the key kernel). The two kernels run in
+// stream order.
 extern "C" int rt_attention_train_bwd(const void* qkv, const void* dA, const void* mask, void* dqkv,
                                       void* dqkv16, void* work, int B, int S, int H, int dh, float scale,
                                       float inv_keep, int bf16, void* stream) {
@@ -1160,20 +887,19 @@ extern "C" int rt_attention_train_bwd(const void* qkv, const void* dA, const voi
                                                                        inv_keep);
     return (int)cudaGetLastError();
   }
-  const size_t smem_q = bwd_q_smem(S, dh), smem_kv = bwd_kv_smem(S, dh);
-  auto kq = S <= BWD_ONE ? attention_train_bwd_q_kernel<true> : attention_train_bwd_q_kernel<false>;
+  namespace tf = rohm::attn_tf32;
+  const size_t smem_q = tf::bwd_query_smem(S, dh), smem_k = tf::bwd_key_smem(S, dh);
+  auto kq = tf::tiled(S) ? attention_train_bwd_query_kernel<true> : attention_train_bwd_query_kernel<false>;
+  auto kk = tf::tiled(S) ? attention_train_bwd_key_kernel<true> : attention_train_bwd_key_kernel<false>;
   cudaError_t err = allow_smem(kq, smem_q);
-  auto kkv = S <= BWD_QT ? attention_train_bwd_kv_kernel<true> : attention_train_bwd_kv_kernel<false>;
-  if (err == cudaSuccess) err = allow_smem(kkv, smem_kv);
+  if (err == cudaSuccess) err = allow_smem(kk, smem_k);
   if (err != cudaSuccess) return (int)err;
   const auto* q = static_cast<const float*>(qkv);
   const auto* da = static_cast<const float*>(dA);
-  float* pd = w;
-  float* ds = w + (size_t)B * H * S * S;
-  kq<<<dim3((S + BQT - 1) / BQT, B * H), BTHREADS, smem_q, s>>>(
-      q, da, m, out, pd, ds, S, H, dh, scale, inv_keep);
+  const dim3 grid = tf::bwd_grid(B, S, H);
+  kq<<<grid, tf::BWD_THREADS, smem_q, s>>>(q, da, m, out, w, S, H, dh, scale, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3((S + BKT - 1) / BKT, B * H), BTHREADS, smem_kv, s>>>(q, da, pd, ds, out, S, H, dh);
+  kk<<<grid, tf::BWD_THREADS, smem_k, s>>>(q, da, m, w, out, S, H, dh, scale, inv_keep);
   return (int)cudaGetLastError();
 }

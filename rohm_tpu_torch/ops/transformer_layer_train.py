@@ -324,8 +324,10 @@ def attention_train_bwd(qkv: torch.Tensor, da: torch.Tensor, mask: torch.Tensor,
     (dk, dv), p recomputed from q and k, nothing of [B, H, S, S] in
     memory; the score and dpd products are sequential f32 sums on the FMA
     units, as the plain version's f32 GEMM forms them, and the products of
-    the rounded operands run on the tensor cores. f32 mode: SIMT, queries
-    then keys, through a [B, H, S, S] scratch of pd and ds."""
+    the rounded operands run on the tensor cores. f32 mode: a query kernel
+    and a key kernel of the same plan, all seven products in 3xTF32 on the
+    tensor cores (csrc/attention_tf32.cuh, f32 accuracy), dh a multiple of
+    4 up to 128."""
     if qkv.device.type == "cpu":
         return attention_train_bwd_plain(qkv, da, mask, seq_len, num_heads, inv_keep, bf16)
     b, dh = _attention_checks(qkv, mask, seq_len, num_heads, bf16)
@@ -334,10 +336,8 @@ def attention_train_bwd(qkv: torch.Tensor, da: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"attention_train_bwd: da {tuple(da.shape)} for qkv {tuple(qkv.shape)}")
     dqkv = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device)
     dqkv16 = torch.empty(qkv.shape, dtype=torch.bfloat16, device=qkv.device) if bf16 else None
-    if bf16:  # per row: max, sum and D = sum_k dp p, from the query kernel to the key kernel
-        work = torch.empty(3, b, num_heads, seq_len, dtype=torch.float32, device=qkv.device)
-    else:  # pd and ds, from the query kernel to the key kernel
-        work = torch.empty(2, b, num_heads, seq_len, seq_len, dtype=torch.float32, device=qkv.device)
+    # per row: max, sum and D = sum_k dp p, from the query kernel to the key kernel
+    work = torch.empty(3, b, num_heads, seq_len, dtype=torch.float32, device=qkv.device)
     launch("rt_attention_train_bwd", ptr(qkv), ptr(da), ptr(mask), ptr(dqkv), ptr(dqkv16), ptr(work), b,
            seq_len, num_heads, dh, 1.0 / (dh ** 0.5), inv_keep, int(bf16), stream())
     attention_train_bwd.launches += 1

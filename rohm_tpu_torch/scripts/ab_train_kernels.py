@@ -13,7 +13,7 @@ dropout 0.1, random weights from --seed): `attention_train_fwd` and
 layer in each mode as that checkout's chain calls them (and a digest of
 the bf16 products' outputs, which must agree bit for bit where their code
 is meant not to change), and the layer's forward and backward in each
-mode; `attention_f32` and `attention_train_fwd` in the f32 mode at 8
+mode (and each backward's peak memory); `attention_f32` and `attention_train_fwd` in the f32 mode at 8
 sequences of 1024 tokens; at the inference shapes (32 clips x 144
 tokens): `attention_f32`,
 `attention_bf16`, `attention_int8`, the four `gemm_bf16` products of a
@@ -339,9 +339,13 @@ def measure(seed: int) -> dict:
         out[f"{name}_kernels_us"] = {e.key.split("(__nv_bfloat16")[0].split("(float")[0][-70:]: e.self_device_time_total / 10
                                      for e in prof.key_averages()
                                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total}
-    torch.cuda.reset_peak_memory_stats()
-    bwd()
-    out["layer_bwd_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    for name, fn in (("layer_bwd", bwd), ("layer_bwd_f32", bwd32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        out[f"{name}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        out[f"{name}_above_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
     # one f32 PoseNet step (8 layers, 32 x 143 frames), as the sampling loop
     # calls it: CUDA events around the call, as chip_smoke.py times it
     from rohm_tpu_torch.ops import embed_cond_f32, posenet_apply_fused

@@ -1,5 +1,6 @@
-"""The error budget of the port's f32 attention forward (3xTF32 on the tensor
-cores, rohm_tpu_torch/ops/csrc/attention_tf32.cuh), emulated on the CPU.
+"""The error budget of the port's f32 attention (3xTF32 on the tensor cores,
+rohm_tpu_torch/ops/csrc/attention_tf32.cuh), forward and backward, emulated
+on the CPU.
 
 The routine behind `attention_f32` (K1) and the f32 mode of
 `attention_train_fwd` (K6) runs both products as the f32 GEMM main loop
@@ -24,7 +25,10 @@ attention_f32 1e-5 max|v|; attention_train_fwd f32 1e-5 inv_keep max|v|)
 on the layers' operands: an N(0, 1) input through a xavier in_proj
 weight. One TF32 pass misses both gates. The tensor cores' own rounding of
 their f32 sums is measured on the card (chip_smoke.py logs each kernel's
-worst error as a fraction of its gate).
+worst error as a fraction of its gate). The backward (the f32 mode of
+`attention_train_bwd`) runs its seven products on the same two routines;
+`emulate_bwd` below holds dq, dk and dv under 0.2 of chip_smoke.py's gate
+(1e-5 of each one's max|ref|).
 """
 
 import numpy as np
@@ -163,3 +167,96 @@ def test_one_tf32_pass_misses_the_gate(s_len, train):
     qkv, mask = _operands(s_len, 128, train, 0)
     ratio = _gate_ratio(qkv, s_len, mask, passes=1)
     assert ratio > 1.5, ratio
+
+
+# ---------------------------------------------------------------------------
+# the backward (the f32 mode of attention_train_bwd, K7)
+# ---------------------------------------------------------------------------
+
+
+def pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[-2]))
+
+
+def quad_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis as the query kernel forms D: lane t of a
+    quad adds keys 8j + 2t and 8j + 2t + 1 in order of j, then the quad's
+    four sums meet as (t0 + t1) + (t2 + t3)."""
+    n = x.shape[-1]
+    x = pad_last(x, -(-n // 8) * 8).reshape(*x.shape[:-1], -1, 4, 2)
+    v = torch.zeros(*x.shape[:-3], 4, dtype=torch.float32)
+    for j in range(x.shape[-3]):
+        for c in range(2):
+            v = v + x[..., j, :, c]
+    return ((v[..., 0] + v[..., 1]) + (v[..., 2] + v[..., 3]))[..., None]
+
+
+def emulate_bwd(qkv: torch.Tensor, da: torch.Tensor, mask: torch.Tensor, s_len: int,
+                passes: int = 3) -> torch.Tensor:
+    """The two backward kernels' arithmetic on qkv [B*S, 3D] and dA
+    [B*S, D] -> dqkv [B*S, 3D]. Query kernel: dpd = dA.V^T and s = Q.K^T
+    over dh in the slot order of `scores`, the softmax as the forward forms
+    it, D in the kernel's order, ds = p (dp - D) scale, dq = ds.K over the
+    keys in 32-key partials. Key kernel: s^T = K.Q^T and dpd^T = V.dA^T
+    give what the query kernel's products give (the emulated mma is
+    symmetric), p^T from the query rows' stats; dv = pd^T.dA and dk =
+    ds^T.Q over the queries in 32-query partials (past a 160-query tile the
+    stored sums are read back, the same f32 values)."""
+    rows, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // H
+    scale = 1.0 / dh ** 0.5
+    q, k, v = (t.reshape(rows // s_len, s_len, H, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
+    a = da.reshape(rows // s_len, s_len, H, dh).transpose(1, 2)
+    order = dh_order(dh)
+    qo, ko, vo, ao = (pad_last(t, int(order.max()) + 1)[..., order] for t in (q, k, v, a))
+    keep = mask.float() * IK
+    dp = mma_3xtf32(ao, vo.transpose(-1, -2), passes) * keep
+    s = mma_3xtf32(qo, ko.transpose(-1, -2), passes) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    ds = (p * (dp - quad_order_sum(dp * p))) * scale
+    n = -(-s_len // 32) * 32
+    dq = mma_3xtf32(pad_last(ds, n), pad_rows(k, n), passes)
+    dv = mma_3xtf32(pad_last((p * keep).transpose(-1, -2), n), pad_rows(a, n), passes)
+    dk = mma_3xtf32(pad_last(ds.transpose(-1, -2), n), pad_rows(q, n), passes)
+    return torch.cat([t.transpose(1, 2).reshape(rows, d) for t in (dq, dk, dv)], dim=-1)
+
+
+def _bwd_gate_ratios(s_len: int, dh: int, passes: int) -> list[float]:
+    """dq, dk and dv of the emulation against attention_train_bwd_plain
+    (f32 mode), each as a fraction of chip_smoke.check_bwd's gate: 1e-5 of
+    the part's max|ref|. dA as the out-projection's backward hands it: an
+    N(0, 1) gradient through a xavier [D, D] weight."""
+    qkv, mask = _operands(s_len, dh, True, 0)
+    rng = np.random.default_rng(7 * s_len + dh)
+    d = H * dh
+    bound = (6.0 / (2 * d)) ** 0.5
+    w = torch.from_numpy(rng.uniform(-bound, bound, size=(d, d)).astype(np.float32))
+    da = torch.from_numpy(rng.standard_normal((B * s_len, d)).astype(np.float32)) @ w
+    ref = lt.attention_train_bwd_plain(qkv, da, mask, s_len, H, IK, False)
+    got = emulate_bwd(qkv, da, mask, s_len, passes)
+    return [((got[:, i * d:(i + 1) * d] - ref[:, i * d:(i + 1) * d]).abs().max()
+             / (1e-5 * ref[:, i * d:(i + 1) * d].abs().max())).item() for i in range(3)]
+
+
+def test_quad_order_sum_takes_each_key_once():
+    x = torch.arange(1.0, 146.0)
+    assert quad_order_sum(x).item() == x.sum().item()
+
+
+@pytest.mark.parametrize("dh", [128, 64])
+@pytest.mark.parametrize("s_len", [144, 145, 177])
+def test_3xtf32_backward_stays_under_the_gate(s_len, dh):
+    """dq, dk and dv each under 0.2 of the gate at the layers' lengths and
+    one past a 160-key tile, with room for the card's own rounding of its
+    sums."""
+    ratios = _bwd_gate_ratios(s_len, dh, passes=3)
+    assert max(ratios) < 0.2, ratios
+
+
+@pytest.mark.parametrize("s_len", [144, 145])
+def test_one_tf32_pass_misses_the_backward_gate(s_len):
+    """The big terms alone (plain TF32) miss the gate."""
+    ratios = _bwd_gate_ratios(s_len, 128, passes=1)
+    assert max(ratios) > 1.5, ratios

@@ -337,6 +337,33 @@ def test_f32_attention_forwards_on_the_tensor_cores(dh, s):
     assert ((got - ref).abs() <= 1e-5 * vmax).all()
 
 
+@pytest.mark.parametrize("s", [144, 145, 161, 1024])
+@pytest.mark.parametrize("dh", [128, 64])
+def test_f32_attention_backward_on_the_tensor_cores(dh, s):
+    """attention_train_bwd in the f32 mode (a query kernel and a key kernel
+    on the 3xTF32 routines of csrc/attention_tf32.cuh) on the operands the
+    plain chain of a random layer hands it, 2 sequences x 2 heads, dropout
+    0.1, at the layers' lengths, one past the 160-key tile and 1024: dq, dk
+    and dv within chip_smoke.check_bwd's gate (1e-5 of each one's max|ref|),
+    one launch per call, and no [B, H, S, S] f32 buffer: at S = 1024 the
+    call's peak memory above what it was handed stays under B H S^2 4 bytes
+    (its output, dqkv, is 3/8 of that)."""
+    b, h, ik = 2, 2, 1.0 / 0.9
+    d = h * dh
+    qkv, da, mask = _chain_operands(b, s, d, h, 2 * d, False, 10 * dh + s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = lt.attention_train_bwd.launches
+    got = lt.attention_train_bwd(qkv, da, mask, s, h, ik, False)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - held
+    assert lt.attention_train_bwd.launches == before + 1
+    _bwd_within_gate(got, qkv, da, mask, s, h, ik, False)
+    if s == 1024:
+        assert above < b * h * s * s * 4, above
+
+
 @pytest.mark.parametrize("s", [177, 300])
 def test_stack_kernel_at_long_sequences_on_cuda(s):
     """The whole-stack kernel past the length one attention tile holds (144
