@@ -13,18 +13,22 @@ Phases (each failure ends the run with a non-zero exit code):
      tolerance, median CUDA-event times of the kernel, the plain version
      and one library call for the same function, and the bound (the least
      time the card could take: bytes over the memory rate or operations
-     over the peak rate of their type).
+     over the peak rate of their type). gemm_int8 (K-major weights) is
+     also held to its plain version bit for bit (the gelu mode's tanhf
+     excepted, its differing outputs and ulps logged) and timed beside
+     torch._int_mm on the same weights and gemm_bf16 on the same shapes.
   4. train kernels: every CUDA kernel of the training layer (K6 forward,
      K7 backward) at the training shapes (64 clips x 145 tokens, D=512,
      H=4, F=1024, dropout 0.1 with shared masks), in bf16 and f32 mode,
      against its plain version on the operands the chain hands it (in bf16
      mode the products take bf16 operands: the weights cast once, the
-     activations by round_bf16 or the bf16 copy of a product's epilogue,
-     which must equal its f32 result rounded), timed the same three ways
-     and on the card alone (a CUDA graph of 10 calls, replayed); the
-     f32-mode attention kernels must fall outside the bf16 gates. Then the
-     whole layer's forward output, dx and its 12 parameter gradients,
-     kernels against the plain chain, and its forward and backward ms.
+     activations by round_bf16 or the bf16 copy that the kernel making
+     them writes, which must equal its f32 result rounded), timed the
+     same three ways and on the card alone (a CUDA graph of 10 calls,
+     replayed); the f32-mode attention kernels must fall outside the bf16
+     gates. Then the whole layer's forward output, dx and its 12
+     parameter gradients, kernels against the plain chain, and its forward
+     and backward ms.
   4b. long sequences: every attention kernel at S = 145, 161, 167, 177,
      209 and 1024 (2 sequences at full width) against its plain version,
      K5 bit-identical to the K3 chain at each; then each kernel's time on
@@ -168,6 +172,10 @@ KERNELS = {  # name -> (wrapper, its launch counter, source, the TPU kernel it r
                                   "scripts/bench_int8_layer.py:28"),
 }
 BF16_ULP = 2.0 ** -7  # bf16 spacing relative to |x| is at most 2^-7
+# the LayerNorm kernels' yardstick: one call that adds the residual and
+# normalises, writing y alone; the kernels also write their bf16 copy, or
+# norm and rstd, so no PyTorch call computes the same function
+LN_YARDSTICK = "add + layer_norm (writes y only), not the same function"
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the bound
 # of a kernel is the larger of its operations over the peak of their type
 # and its bytes (each input read once, each output written once) over HBM.
@@ -254,6 +262,20 @@ def _check(name: str, got, ref, tol, why: str, stats: dict, kernel: str) -> None
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: max err {max_err}")
     stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], max_err)
+
+
+def ulp_diff(got: torch.Tensor, ref: torch.Tensor) -> tuple[int, int]:
+    """(outputs that differ, the most ulps between two of them) of two f32
+    or bf16 tensors, by the distance of their bit patterns on one ordered
+    integer line."""
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+
+    def ordered(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, (torch.iinfo(bits).min - i), i)  # negative floats count down from -0
+
+    d = (ordered(got) - ordered(ref)).abs()
+    return int((d > 0).sum().item()), int(d.max().item())
 
 
 def nbytes(*tensors) -> int:
@@ -433,11 +455,10 @@ def kernel_phase(seed: int) -> dict:
                    "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm")
         _check(name + " bf16", got[1], ref[1], BF16_ULP * ref[1].float().abs() + 1e-5,
                "one bf16 ulp", stats, "residual_layernorm")
-        ysum = a.float() + bb
         _time(name, lambda: kc.residual_layernorm(a, bb, s_, b_, of, ob),
               lambda: kc.residual_layernorm_plain(a, bb, s_, b_, of, ob), stats, "residual_layernorm",
               0, nbytes(a, bb, s_, b_, *got), None,
-              lib(lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS), "layer_norm"))
+              lib(lambda: tnf.layer_norm(a + bb, (D,), s_, b_, kc.LN_EPS), LN_YARDSTICK))
 
     # quant_rows_int8 on each of the layer's four GEMM inputs
     for name, a in (
@@ -454,7 +475,8 @@ def kernel_phase(seed: int) -> dict:
               stats, "quant_rows_int8", 0, nbytes(a, q, sc), None)
 
     # gemm_int8: int32 sums exactly (unit scales, zero bias), then the four
-    # products of one int8 layer with their epilogues
+    # products of one int8 layer with their epilogues; the weights K-major
+    # (prepare_layer_int8), as the kernel and cuBLASLt's int8 path take them
     qa, rs = l8.quant_rows_int8(x2)
     ones_m, ones_n = torch.ones(r, device=dev), torch.ones(3 * D, device=dev)
     zeros_n = torch.zeros(3 * D, device=dev)
@@ -475,10 +497,22 @@ def kernel_phase(seed: int) -> dict:
         ulp = BF16_ULP if mode == "bf16" else 2.0 ** -22
         _check(name, got, ref, ulp * ref.float().abs() + 1e-6, "one ulp of the output type",
                stats, "gemm_int8")
+        # and exactly: the plain version's f32 product of int8 values is
+        # exact and its epilogue takes the same rounded f32 steps, so only
+        # tanhf (the gelu mode) may move an output
+        differ, ulps = ulp_diff(got, ref)
+        log(f"[kernels] {name}: {differ} of {got.numel()} outputs differ from the plain version, by at most "
+            f"{ulps} ulp (exact required{' but for tanhf' if mode == 'gelu' else ''})")
+        if differ and mode != "gelu":
+            raise AssertionError(f"{name} is not bit-identical to its plain version")
         _time(name, lambda: l8.gemm_int8(a, s_a, w, s_w, bias, mode),
               lambda: l8.gemm_int8_plain(a, s_a, w, s_w, bias, mode), stats, "gemm_int8",
               2 * a.shape[0] * a.shape[1] * w.shape[1], nbytes(a, s_a, w, s_w, bias, got), "int8",
-              lib(lambda: torch._int_mm(a, w), "torch._int_mm"))
+              lib(lambda: torch._int_mm(a, w), "torch._int_mm, K-major weight"))
+    st, st16 = stats["gemm_int8"], stats["gemm_bf16"]
+    log(f"[kernels] gemm_int8's four products on the card {st['card_ms']:.4f} ms; torch._int_mm on the K-major "
+        f"weights {st['library_card_ms']:.4f} (int32 sums only); gemm_bf16 on the same shapes "
+        f"{st16['card_ms']:.4f}; bound {st['bound_ms']:.4f} ms")
 
     # attention_int8 (K4) on the int8 layer's own QKV buffer
     qkv8 = l8.gemm_int8(qa, rs, p8[0], p8[1], p8[2], "bf16")
@@ -550,10 +584,10 @@ def kernel_phase(seed: int) -> dict:
         got, ref = kc.residual_layernorm(*ln_args)[0], kc.residual_layernorm_plain(*ln_args)[0]
         _check(name, got, ref, 1e-5 * ref.abs().max().item(),
                "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm two-pass")
-        ysum = a + bb
         _time(name, lambda: kc.residual_layernorm(*ln_args),
               lambda: kc.residual_layernorm_plain(*ln_args), stats, "residual_layernorm two-pass",
-              0, nbytes(a, bb, s_, b_, got), None, lib(lambda: tnf.layer_norm(ysum, (D,), s_, b_, kc.LN_EPS), "layer_norm"))
+              0, nbytes(a, bb, s_, b_, got), None,
+              lib(lambda: tnf.layer_norm(a + bb, (D,), s_, b_, kc.LN_EPS), LN_YARDSTICK))
     # Rows of mean 1024 and spread ~1 tell the two variances apart. Their
     # values are multiples of 1/16 and every partial sum of a row stays
     # below 2^20, so each sum is exact in f32 and mu is the same in any
@@ -603,6 +637,15 @@ def kernel_phase(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the training layer's kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def bf16_copy_check(name: str, copy: torch.Tensor, f32: torch.Tensor) -> None:
+    """A kernel's bf16 copy of its own f32 output: round_bf16's result, bit
+    for bit."""
+    same = torch.equal(copy, lt.round_bf16_plain(f32))
+    log(f"[train kernels] {name} {'equals' if same else 'DIFFERS from'} round_bf16_plain of its f32 output")
+    if not same:
+        raise AssertionError(f"{name} is not its f32 output rounded to bf16")
 
 
 def _op(t: torch.Tensor, trans: bool) -> torch.Tensor:
@@ -878,37 +921,49 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
         if not bf16:
             continue
 
-        # round_bf16 on the five activations the chain casts: exact (the
+        # round_bf16 on the two activations the chain casts (x, attn; the
+        # LayerNorm kernels hand over y1, df and do in bf16): exact (the
         # same round-to-nearest-even as torch's cast)
-        for name, a, row in (("x", x, "K6 bf16"), ("attn", ref_fwd, "K6 bf16"), ("y1", y1, "K6 bf16"),
-                             ("df", df, "K7 bf16"), ("do", do, "K7 bf16")):
+        for name, a in (("x", x), ("attn", ref_fwd)):
             got = lt.round_bf16(a)
             _check(f"round_bf16 {name} [{a.shape[0]}x{a.shape[1]}]", got, lt.round_bf16_plain(a), 0.0,
                    "exact: round to nearest even", stats, "round_bf16")
             _time(f"round_bf16 {name}", lambda: lt.round_bf16(a), lambda: lt.round_bf16_plain(a), stats,
                   "round_bf16", 0, nbytes(a, got), None, lib(lambda: a.to(torch.bfloat16), ".to(bfloat16)"),
-                  tag="train kernels", rows=(row,))
+                  tag="train kernels", rows=("K6 bf16",))
 
         # LayerNorm forward (LN1, LN2) and backward (LN2, LN1), and the six
-        # column sums: mode-independent f32 kernels, checked once
-        for name, a, b, gm, bt in (("LN1", x, od, g1, be1), ("LN2", y1, ffd, g2, be2)):
-            got, ref = lt.layernorm_train_fwd(a, b, gm, bt), lt.layernorm_train_fwd_plain(a, b, gm, bt)
+        # column sums: f32 kernels, checked once. In the bf16 mode LN1's
+        # forward and both backwards also write a bf16 copy of what the
+        # next products take (y1; df, do), which must be their f32 output
+        # rounded, bit for bit; the K6/K7 f32 rows time them without it
+        for name, a, b, gm, bt, copy in (("LN1", x, od, g1, be1, True), ("LN2", y1, ffd, g2, be2, False)):
+            got = lt.layernorm_train_fwd(a, b, gm, bt, out_bf16=copy)
+            ref = lt.layernorm_train_fwd_plain(a, b, gm, bt, out_bf16=copy)
             for part, g_, r_ in zip(("y", "norm", "rstd"), got, ref):
                 _check(f"layernorm_train_fwd {name} {part}", g_, r_, 1e-5 * r_.abs().max().item(),
                        "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "layernorm_train_fwd")
-            rsum = a + b
-            _time(f"layernorm_train_fwd {name}", lambda: lt.layernorm_train_fwd(a, b, gm, bt),
-                  lambda: lt.layernorm_train_fwd_plain(a, b, gm, bt), stats, "layernorm_train_fwd",
-                  0, nbytes(a, b, gm, bt, *got), None,
-                  lib(lambda: tnf.layer_norm(rsum, (D,), gm, bt, kc.LN_EPS), "layer_norm"), tag="train kernels",
-                  rows=("K6 bf16", "K6 f32"))
+            if copy:
+                bf16_copy_check(f"layernorm_train_fwd {name}: y's bf16 copy", got[3], got[0])
+            # the bf16 mode's call for the kernel's entry and K6 bf16, the
+            # f32 mode's (no copy) for K6 f32
+            runs = [(True, "layernorm_train_fwd", ("K6 bf16",)), (False, "K6 f32", ())] if copy else \
+                [(False, "layernorm_train_fwd", ("K6 bf16", "K6 f32"))]
+            for with_copy, kernel, rows in runs:
+                _time(f"layernorm_train_fwd {name}{' with its bf16 copy' if with_copy else ''}",
+                      lambda c_=with_copy: lt.layernorm_train_fwd(a, b, gm, bt, out_bf16=c_),
+                      lambda c_=with_copy: lt.layernorm_train_fwd_plain(a, b, gm, bt, out_bf16=c_), stats, kernel,
+                      0, nbytes(a, b, gm, bt, *got[:3 + with_copy]), None,
+                      lib(lambda: tnf.layer_norm(a + b, (D,), gm, bt, kc.LN_EPS), LN_YARDSTICK), tag="train kernels",
+                      rows=rows)
         for name, d_, nrm, rs, gm, mk, a, b in (("LN2", dy, norm2, rstd2, g2, mf, y1, ffd),
                                                 ("LN1", dy1, norm1, rstd1, g1, mo, x, od)):
-            got = lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik)
+            got = lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik, out_bf16=True)
             ref = lt.layernorm_train_bwd_plain(d_, nrm, rs, gm, mk, ik)
             for part, g_, r_ in zip(("dr", "dr*mask"), got, ref):
                 _check(f"layernorm_train_bwd {name} {part}", g_, r_, 1e-5 * r_.abs().max().item(),
                        "f32 row-mean order, 1e-5 of max|ref|", stats, "layernorm_train_bwd")
+            bf16_copy_check(f"layernorm_train_bwd {name}: dr*mask's bf16 copy", got[2], got[1])
             rin = (a + b).requires_grad_()
             gml, btl = gm.clone().requires_grad_(), torch.zeros_like(gm).requires_grad_()
 
@@ -919,11 +974,12 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
                 with torch.enable_grad():
                     return torch.autograd.grad(ln_fwd(), (rin, gml, btl), d_)
 
-            _time(f"layernorm_train_bwd {name}", lambda: lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik),
-                  lambda: lt.layernorm_train_bwd_plain(d_, nrm, rs, gm, mk, ik), stats, "layernorm_train_bwd",
-                  0, nbytes(d_, nrm, rs, gm, mk, *got), None,
-                  lib(ln_fwd_bwd, "layer_norm backward", base=ln_fwd), tag="train kernels",
-                  rows=("K7 bf16", "K7 f32"))
+            for with_copy, kernel, rows in ((True, "layernorm_train_bwd", ("K7 bf16",)), (False, "K7 f32", ())):
+                _time(f"layernorm_train_bwd {name}{' with its bf16 copy' if with_copy else ''}",
+                      lambda c_=with_copy: lt.layernorm_train_bwd(d_, nrm, rs, gm, mk, ik, out_bf16=c_),
+                      lambda c_=with_copy: lt.layernorm_train_bwd_plain(d_, nrm, rs, gm, mk, ik, out_bf16=c_),
+                      stats, kernel, 0, nbytes(d_, nrm, rs, gm, mk, *got[:2 + with_copy]), None,
+                      lib(ln_fwd_bwd, "layer_norm backward", base=ln_fwd), tag="train kernels", rows=rows)
         for name, a, b in (("dg2, dbe2", dy, norm2), ("db2", df, None), ("db1", dh1, None),
                            ("dg1, dbe1", dy1, norm1), ("dbo", do, None), ("dbqkv", dqkv, None)):
             got, ref = lt.colsum(a, b), lt.colsum_plain(a, b)
@@ -992,8 +1048,11 @@ def long_seq_phase(seed: int, stats: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev, dh, ik = "cuda", D // H, 1.0 / 0.9
     torch.manual_seed(seed)
-    stacked = l8.prepare_posenet_int8(PoseNet().to(dev), mega=True)["layers_stacked"]
-    layers = [tuple(t[i] for t in stacked) for i in range(LAYERS)]
+    posenet = PoseNet().to(dev)
+    # the K3 chain takes the per-layer prep (K-major weights), K5 the
+    # stacked one (contiguous [L, K, N]): the same codes and scales
+    stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
+    layers = l8.prepare_posenet_int8(posenet)["layers"]
     train_layer = TransformerEncoderLayer(D, H, F).to(dev)
     with torch.no_grad():  # random biases and LayerNorm parameters, as phase 4
         for prm in train_layer.parameters():
@@ -1350,9 +1409,10 @@ def write_train_tree(root: Path, body, train_seqs: int, test_seqs: int, seed: in
 def expected_train_launches(mode: str, steps: int) -> dict:
     """Per optimizer step and layer, the chain runs 12 products, one
     attention forward and backward, two LayerNorms each way and six column
-    sums, and in bf16 mode five casts of activation operands (x, attn, y1;
-    df, do: qkv, dattn and dqkv come as bf16 from the kernels that make
-    them); the plain path ("") launches no kernel."""
+    sums, and in bf16 mode two casts of activation operands (x, attn: qkv,
+    gld, dh1, dattn and dqkv come as bf16 from the products and the
+    attention backward that make them, y1, df and do from the LayerNorm
+    kernels); the plain path ("") launches no kernel."""
     out = dict.fromkeys(KERNELS, 0)
     if not mode:
         return out
@@ -1360,7 +1420,7 @@ def expected_train_launches(mode: str, steps: int) -> dict:
     per_layer = {gemm: 12, "attention_train_fwd": 1, "attention_train_bwd": 1,
                  "layernorm_train_fwd": 2, "layernorm_train_bwd": 2, "colsum": 6}
     if mode == "bfloat16":
-        per_layer["round_bf16"] = 5
+        per_layer["round_bf16"] = 2
     for name, k in per_layer.items():
         out[name] = k * LAYERS * steps
     return out
@@ -1653,8 +1713,11 @@ def bench_phase(seed: int, stats: dict) -> dict:
     # K5: the whole stack in one launch, against 8 launches of the K3 chain
     # (bit for bit: the same device routines) and the plain stack
     torch.manual_seed(seed)
-    stacked = mega(PoseNet().to(dev))["layers_stacked"]
-    layers = [tuple(t[i] for t in stacked) for i in range(LAYERS)]
+    posenet = PoseNet().to(dev)
+    # the K3 chain on the per-layer prep (K-major weights), K5 on the
+    # stacked one (contiguous [L, K, N]) of the same PoseNet: the same codes
+    stacked = mega(posenet)["layers_stacked"]
+    layers = l8.prepare_posenet_int8(posenet)["layers"]
     x = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
 
     def k3_chain(xx):

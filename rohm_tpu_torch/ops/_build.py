@@ -49,8 +49,8 @@ SIGNATURES = {
     "rt_round_bf16": [_P, _P, ctypes.c_longlong, _P],
     "rt_attention_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "rt_attention_train_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
-    "rt_layernorm_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "rt_layernorm_train_bwd": [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _P],
+    "rt_layernorm_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "rt_layernorm_train_bwd": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _P],
     "rt_colsum": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

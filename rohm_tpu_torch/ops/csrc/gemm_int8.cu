@@ -6,48 +6,91 @@
 //   mode 2: tanh-gelu, store f32       (FF1; the next GEMM quantizes it from f32)
 //
 // Replaces the four `_dot_i8` products (with their bias adds) inside
-// rohm_tpu/ops/transformer_layer_int8.py::_layer_kernel_int8. Bound:
-// tensor-core int8 throughput at the production shapes in principle; this
-// first version uses WMMA 16x16x16 s8 tiles with no load pipelining, waits
-// on its global loads and reaches ~71 TOP/s, 3.6% of the int8 peak (NVIDIA
-// H100 80GB HBM3, 700 W power limit). One block computes one 64 x 64 tile
-// with `rohm::gemm_int8_tile` (layer_routines.cuh), which the whole-stack
-// kernel runs too.
+// rohm_tpu/ops/transformer_layer_int8.py::_layer_kernel_int8.
+// Design: the Hopper main loop of wgmma_gemm.cuh on s8 operands (TMA ring
+// of 3 stages, a producer warp, two consumer warpgroups; a k-step is one
+// 128-byte row, 128 values deep, 4 wgmma m64nBNk32 s8 into s32 sums). wgmma
+// takes 8-bit operands only K-major, so W is stored [N, K]: the caller's
+// [K, N] weight is the .t() view of it (prepare_layer_int8 makes it so).
+// The epilogue runs on the tile staged in shared memory, one rolled loop of
+// four columns per step, each output finished by rohm::gemm_int8_value
+// (layer_routines.cuh), the routine the whole-stack kernel's WMMA tile
+// ends with: the int32 sums are exact in both, so the two agree bit for
+// bit. Tiles: 128 x 128 above N = WIDE_ABOVE (qkv: at M = 4608, 432 tiles,
+// two 97 KB blocks per SM), 128 x NARROW_BN up to it (the out-projection
+// and FF2, 288 tiles, and FF1, 576; three 73 KB blocks per SM). K is 512 or
+// 1024: 4 or 8 k-steps, so a tile's loads barely overlap its own epilogue
+// and the narrow tiles' extra blocks win: on an H100 80GB HBM3 at 700 W
+// (ab_train_kernels.py), 128-wide tiles took 0.0130, 0.0243 and 0.0150 ms
+// for the out-projection, FF1 and FF2 against 0.0107, 0.0197 and 0.0125.
+// Bound: at the production shapes the four products move 65.9 MB (each
+// input read once, each output written once; the f32 and bf16 outputs are
+// 55 MB of it), 19.7 us at 3.35 TB/s, and do 19.3 GOP, 9.8 us at the int8
+// peak (1979 TOP/s): bytes.
 #include "layer_routines.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-using rohm::gemm_i8::BM;
-using rohm::gemm_i8::BN;
-using rohm::gemm_i8::BK;
+// the tile width: 128 for N above WIDE_ABOVE, NARROW_BN up to it
+constexpr int NARROW_BN = 64, WIDE_ABOVE = 1024;
+
+// C[m, n..n+3] from the int32 sums v (converted to f32 in the staging)
+template <int MODE>
+struct Int8Epilogue {
+  const float* row_scale;
+  const float* col_scale;
+  const float* bias;
+  void* C;
+  int N;
+
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    const float rs = __ldg(row_scale + m);
+    const float4 cs = __ldg(reinterpret_cast<const float4*>(col_scale + n));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + n));
+    const float r0 = rohm::gemm_int8_value<MODE>(v.x, rs, cs.x, b.x);
+    const float r1 = rohm::gemm_int8_value<MODE>(v.y, rs, cs.y, b.y);
+    const float r2 = rohm::gemm_int8_value<MODE>(v.z, rs, cs.z, b.z);
+    const float r3 = rohm::gemm_int8_value<MODE>(v.w, rs, cs.w, b.w);
+    const size_t o = (size_t)m * N + n;
+    if (MODE == 0)
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(C) + o) =
+          make_uint2(rohm::pack_bf16(r0, r1), rohm::pack_bf16(r2, r3));
+    else
+      *reinterpret_cast<float4*>(static_cast<float*>(C) + o) = make_float4(r0, r1, r2, r3);
+  }
+};
+
+template <int MODE, int BN>
+cudaError_t launch_tiles(const void* A, const void* row_scale, const void* W, const void* col_scale, const void* bias,
+                   void* C, int M, int N, int K, cudaStream_t s) {
+  CUtensorMap ta, tw;
+  if (!wg::encode_operands<false, true, BN, wg::S8>(&ta, &tw, A, W, M, N, K)) return cudaErrorInvalidValue;
+  const Int8Epilogue<MODE> epi{static_cast<const float*>(row_scale), static_cast<const float*>(col_scale),
+                               static_cast<const float*>(bias), C, N};
+  return wg::launch<false, true, BN, wg::S8>(ta, tw, M, N, K, 1, K, epi, s);
+}
 
 template <int MODE>
-__global__ void __launch_bounds__(rohm::GROUP) gemm_int8_kernel(
-    const int8_t* __restrict__ A, const float* __restrict__ row_scale,
-    const int8_t* __restrict__ W, const float* __restrict__ col_scale,
-    const float* __restrict__ bias, void* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(128) unsigned char smem[rohm::gemm_i8::SMEM];
-  rohm::gemm_int8_tile<MODE>(A, row_scale, W, col_scale, bias, C, M, N, K, blockIdx.y * BM,
-                             blockIdx.x * BN, threadIdx.x, 0, smem);
+cudaError_t launch(const void* A, const void* row_scale, const void* W, const void* col_scale, const void* bias,
+                   void* C, int M, int N, int K, cudaStream_t s) {
+  if (N <= WIDE_ABOVE) return launch_tiles<MODE, NARROW_BN>(A, row_scale, W, col_scale, bias, C, M, N, K, s);
+  return launch_tiles<MODE, 128>(A, row_scale, W, col_scale, bias, C, M, N, K, s);
 }
 
 }  // namespace
 
-// N must be a multiple of 64 and K of 32; pointers 16-byte aligned.
+// A [M, K] int8 row-major; W int8 stored [N, K] (row n: the K codes of
+// output column n); row_scale [M], col_scale [N], bias [N] f32; C [M, N].
+// Any M; K a multiple of 16 (TMA's 16-byte row pitch); N a multiple of 4
+// (the epilogue's four columns); pointers 16-byte aligned.
 extern "C" int rt_gemm_int8(const void* A, const void* row_scale, const void* W,
                             const void* col_scale, const void* bias, void* C, int M, int N,
                             int K, int mode, void* stream) {
-  if (M <= 0 || N % BN != 0 || K % BK != 0 || mode < 0 || mode > 2)
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 != 0 || K % 16 != 0 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const int8_t*>(A);
-  const auto* w = static_cast<const int8_t*>(W);
-  const auto* rs = static_cast<const float*>(row_scale);
-  const auto* cs = static_cast<const float*>(col_scale);
-  const auto* b = static_cast<const float*>(bias);
-  if (mode == 0) gemm_int8_kernel<0><<<grid, rohm::GROUP, 0, s>>>(a, rs, w, cs, b, C, M, N, K);
-  else if (mode == 1) gemm_int8_kernel<1><<<grid, rohm::GROUP, 0, s>>>(a, rs, w, cs, b, C, M, N, K);
-  else gemm_int8_kernel<2><<<grid, rohm::GROUP, 0, s>>>(a, rs, w, cs, b, C, M, N, K);
-  return (int)cudaGetLastError();
+  if (mode == 0) return (int)launch<0>(A, row_scale, W, col_scale, bias, C, M, N, K, s);
+  if (mode == 1) return (int)launch<1>(A, row_scale, W, col_scale, bias, C, M, N, K, s);
+  return (int)launch<2>(A, row_scale, W, col_scale, bias, C, M, N, K, s);
 }

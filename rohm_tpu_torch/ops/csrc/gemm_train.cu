@@ -12,9 +12,10 @@
 // Two operand modes, as the `dtype` knob of the TPU kernels:
 //   bf16: A and B are bf16 in device memory. The TPU kernel's c() on every
 //         product operand happens before the product: the weights are cast
-//         once per layer call, an activation by round_bf16 or by the bf16
-//         copy that the epilogue of the product making it writes (the same
-//         round-to-nearest-even values). The Hopper main loop of
+//         once per layer call, an activation by the bf16 copy that the
+//         kernel making it writes (a product's epilogue, the attention
+//         backward, a LayerNorm: layernorm_train.cu) or else by round_bf16
+//         (the same round-to-nearest-even values). The Hopper main loop of
 //         wgmma_gemm.cuh (TMA ring, wgmma m64n128k16) on 128 x 128 tiles,
 //         each operand in its stored layout. Ragged edges (rows, the K of
 //         the weight gradients) come from TMA's zero fill.
@@ -164,15 +165,21 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, float* __rest
   out[i] = s;
 }
 
-// y = bf16(x), round to nearest even, 4 elements per thread and step
-__global__ void round_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y, size_t n) {
+// y = bf16(x), round to nearest even, 8 elements per thread and step: two
+// 16-byte loads, one 16-byte store; the grid fills the card (8 blocks of
+// 256 threads per SM), so ~8.6 MB of loads are in flight on 132 SMs
+constexpr int ROUND_THREADS = 256, ROUND_BLOCKS_PER_SM = 8;
+
+__global__ void __launch_bounds__(ROUND_THREADS) round_bf16_kernel(const float* __restrict__ x,
+                                                                  __nv_bfloat16* __restrict__ y, size_t n) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4; i += stride) {
-    const float4 v = ld4(x + 4 * i);
-    *reinterpret_cast<uint2*>(y + 4 * i) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 8; i += stride) {
+    const float4 a = ld4(x + 8 * i), b = ld4(x + 8 * i + 4);
+    *reinterpret_cast<uint4*>(y + 8 * i) =
+        make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
   }
-  if (blockIdx.x == 0 && threadIdx.x < n % 4) {
-    const size_t i = n / 4 * 4 + threadIdx.x;
+  if (blockIdx.x == 0 && threadIdx.x < n % 8) {
+    const size_t i = n / 8 * 8 + threadIdx.x;
     y[i] = __float2bfloat16_rn(x[i]);
   }
 }
@@ -237,11 +244,19 @@ extern "C" int rt_gemm_train(const void* A, const void* B, void* C, void* C16, i
   return (int)cudaGetLastError();
 }
 
-// y [n] bf16 = x [n] f32 rounded to nearest even; x 16-byte aligned
+// y [n] bf16 = x [n] f32 rounded to nearest even; x and y 16-byte aligned
 extern "C" int rt_round_bf16(const void* x, void* y, long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const long long want = (n / 4 + 255) / 256 + 1, blocks = want < 132 * 16 ? want : 132 * 16;
-  round_bf16_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long want = (n / 8 + ROUND_THREADS - 1) / ROUND_THREADS + 1;
+  const long long full = (long long)sms * ROUND_BLOCKS_PER_SM, blocks = want < full ? want : full;
+  round_bf16_kernel<<<(unsigned)blocks, ROUND_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<__nv_bfloat16*>(y), (size_t)n);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,11 @@
 // Work items of the int8 encoder layer, shared by the per-layer kernels
-// (gemm_int8.cu, attention_bf16.cu, quant_rows_int8.cu,
-// residual_layernorm.cu) and the whole-stack kernel (encoder_stack_int8.cu).
-// Both run these routines, so both do the same arithmetic in the same order
-// and the stack's output is bit-identical to the per-layer chain.
+// (attention_bf16.cu, quant_rows_int8.cu, residual_layernorm.cu) and the
+// whole-stack kernel (encoder_stack_int8.cu). Both run these routines, so
+// both do the same arithmetic in the same order and the stack's output is
+// bit-identical to the per-layer chain. The per-layer W8A8 product
+// (gemm_int8.cu) runs its own main loop (TMA + wgmma s8) and the stack its
+// WMMA tile (gemm_int8_tile); their int32 sums are exact either way, and
+// both finish each output with gemm_int8_value.
 //
 // A routine is run by a group of threads: 128 threads (4 warps) for a GEMM
 // tile or a row, the whole 256-thread block for an attention item. A
@@ -117,10 +120,24 @@ __device__ __forceinline__ void residual_layernorm_row(const TA* a, const float*
 }
 
 // ---------------------------------------------------------------------------
-// one 64 x 64 tile of the W8A8 product, 128 threads (4 warps of 32 x 32)
+// one output of the W8A8 product from its int32 sum converted to f32 (exact:
+// |sum| <= K 127^2 < 2^24 for K <= 1040), in the plain version's rounded
+// steps and order: (acc * row_scale) * col_scale, + bias, then MODE 2's
+// tanh-gelu. The caller stores it (MODE 0 as bf16, rounded to nearest even).
+// ---------------------------------------------------------------------------
+template <int MODE>
+__device__ __forceinline__ float gemm_int8_value(float acc, float rs, float cs, float bias) {
+  const float v = __fadd_rn(__fmul_rn(__fmul_rn(acc, rs), cs), bias);
+  return MODE == 2 ? gelu_tanh(v) : v;
+}
+
+// ---------------------------------------------------------------------------
+// one 64 x 64 tile of the W8A8 product, 128 threads (4 warps of 32 x 32), as
+// the whole-stack kernel runs it
 //   C = (float(A_i8 @ W_i8) * row_scale[m]) * col_scale[n] + bias[n]
 //   MODE 0: store bf16; 1: store f32; 2: tanh-gelu, store f32
-// WMMA s8 16x16x16 tiles with int32 sums. WMMA wants 256-bit aligned
+// A [M, K] and W [K, N] row-major (the stack's weights are contiguous
+// [L, K, N]). WMMA s8 16x16x16 tiles with int32 sums. WMMA wants 256-bit aligned
 // fragment pointers, which 16-byte k-steps of int8 rows cannot give in a
 // plain row-major tile, so the tiles sit in shared memory as 16-byte-wide
 // panels: A as [k-half][row][16], W as [n-panel][k][16].
@@ -186,12 +203,10 @@ __device__ __forceinline__ void gemm_int8_tile(const int8_t* A, const float* row
     const int r = e / BN, c = e % BN;
     const int m = m0 + r, n = n0 + c;
     if (m >= M) continue;
-    float v = __fmul_rn(__fmul_rn((float)Cs[r * LDC + c], row_scale[m]), col_scale[n]);
-    v = __fadd_rn(v, bias[n]);
+    const float v = gemm_int8_value<MODE>((float)Cs[r * LDC + c], row_scale[m], col_scale[n], bias[n]);
     const size_t o = (size_t)m * N + n;
     if (MODE == 0) static_cast<__nv_bfloat16*>(C)[o] = __float2bfloat16_rn(v);
-    else if (MODE == 1) static_cast<float*>(C)[o] = v;
-    else static_cast<float*>(C)[o] = gelu_tanh(v);
+    else static_cast<float*>(C)[o] = v;
   }
 }
 

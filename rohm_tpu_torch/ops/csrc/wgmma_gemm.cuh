@@ -1,23 +1,30 @@
-// The Hopper bf16 GEMM main loop of the port, shared by gemm_train.cu (the
-// training products) and gemm_bf16.cu (the inference layer's products):
-// C tile [128 x BN] = op(A) . op(B) with f32 sums, then an epilogue that
-// each caller supplies.
+// The Hopper GEMM main loop of the port, shared by gemm_train.cu (the
+// training products), gemm_bf16.cu (the bf16 inference layer's products)
+// and gemm_int8.cu (the W8A8 layer's products): C tile [128 x BN] =
+// op(A) . op(B), then an epilogue that each caller supplies. It is
+// templated on the operand type (`Op`): bf16 with f32 sums, or s8 with
+// s32 sums. In bytes the two are the same tile: a k-step is one 128-byte
+// row of each operand (64 bf16 or 128 s8 values, the 128-byte swizzle's
+// width), so the TMA boxes, the ring and its mbarriers do not change, and
+// a k-step is 4 wgmma deep either way (k16 bf16, k32 s8).
 //
 // One producer warp keeps TMA loads (cp.async.bulk.tensor, 128-byte
-// swizzle) of 64-deep k-steps in a ring of 3 stages with full and empty
-// mbarriers; two consumer warpgroups each run wgmma.mma_async m64nBNk16 on
-// 64 rows of the tile, f32 accumulators in registers. Each operand is
-// loaded in its stored layout and the descriptors' transpose bits pick K-
-// or MN-major:
+// swizzle) of k-steps in a ring of 3 stages with full and empty
+// mbarriers; two consumer warpgroups each run wgmma.mma_async on 64 rows
+// of the tile, the sums in registers. Each operand is loaded in its stored
+// layout and the descriptors' transpose bits pick K- or MN-major (bf16;
+// wgmma takes 8-bit operands only K-major, so s8 needs A [M,K] and B
+// stored [N,K]):
 //   op(A) is A [M,K] row-major (K-major), or (AT) A stored [K,M];
 //   op(B) is B [K,N] row-major (MN-major), or (BT) B stored [N,K].
 // Ragged edges (rows, columns, K) come from TMA's zero fill. When both
 // warpgroups are done, the tile is staged in shared memory (the ring is
 // free by then) and the epilogue runs as one rolled loop over float4 rows
 // of it: epi(m, n, v) for each in-bounds m and n = 4i (N % 8 == 0), with v
-// the sums of C[m, n..n+3]. The rolled loop keeps one copy of the
-// epilogue's code: unrolled over the accumulators it ran from the
-// instruction cache's misses.
+// the sums of C[m, n..n+3] (s32 sums converted to f32, rounded to nearest:
+// exact below 2^24). The rolled loop keeps one copy of the epilogue's code:
+// unrolled over the accumulators it ran from the instruction cache's
+// misses.
 //
 // Everything here is in an unnamed namespace: each source that includes it
 // compiles its own kernels (the library is built without relocatable
@@ -32,16 +39,17 @@ namespace {
 
 namespace wg {
 
-constexpr int TB_M = 128, TB_K = 64, STAGES = 3;
+constexpr int TB_M = 128, STAGES = 3;
+constexpr int K_BYTES = 128;  // a k-step: one 128-byte row of each operand's tile
 constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 32;  // two warpgroups + the producer warp
-constexpr int A_BYTES = TB_M * TB_K * 2;
-constexpr int HALF_BYTES = 64 * TB_K * 2;  // 64 rows (or 64 columns) of one 64-deep tile
+constexpr int A_BYTES = TB_M * K_BYTES;
+constexpr int HALF_BYTES = 64 * K_BYTES;  // 64 rows (or 64 columns) of one k-step's tile
 
 // A tile of 128 x BN (64 or 128) outputs.
 template <int BN>
 struct Tile {
   static_assert(BN == 64 || BN == 128, "wgmma tiles are 64 or 128 wide");
-  static constexpr int B_BYTES = BN * TB_K * 2, STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int B_BYTES = BN * K_BYTES, STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int LD = BN + 8;  // f32 row pitch of the tile staged for the epilogue
   // the ring, its 2 x STAGES mbarriers, and room to align the ring to 1024
   // bytes (the 128-byte swizzle's period): 97 KB at BN = 128 (two blocks
@@ -115,6 +123,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float acc_f32(float v) { return v; }
+__device__ __forceinline__ float acc_f32(int v) { return __int2float_rn(v); }
+
 // d[64xBN] += A[64x16] . B[16xBN]; TA / TB: A / B MN-major
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
@@ -150,19 +167,79 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) 
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d[64xBN] += A[64x32] . B[32xBN], s8 operands, both K-major, s32 sums
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The operand types of the main loop: the accumulator, the values of a
+// k-step (128 bytes), the tensor maps' element type, and one wgmma of a
+// 32-byte slice of the k-step (TA / TB: A / B MN-major).
+struct Bf16 {
+  using Acc = float;
+  static constexpr int K_STEP = 64;
+  static constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  template <int TA, int TB, int N>
+  static __device__ __forceinline__ void mma(float (&d)[N], uint64_t da, uint64_t db) {
+    wgmma<TA, TB>(d, da, db);
+  }
+};
+
+struct S8 {
+  using Acc = int;
+  static constexpr int K_STEP = 128;
+  static constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // the bytes as they are
+  template <int TA, int TB, int N>
+  static __device__ __forceinline__ void mma(int (&d)[N], uint64_t da, uint64_t db) {
+    static_assert(TA == 0 && TB == 0, "wgmma takes 8-bit operands only K-major");
+    wgmma_s8(d, da, db);
+  }
+};
+
+constexpr int TB_K = Bf16::K_STEP;  // the bf16 k-step: gemm_train's split-K unit
+
 // Stage s of the ring holds A (16 KB) then B (BN x 128 bytes):
-//   A K-major (A [M,K]): one box of [128 rows][64 k]; warpgroup w's 64 rows
-//     start at 8 KB * w;
-//   A MN-major (AT, stored [K,M]): two boxes of [64 k][64 m], one per
-//     warpgroup;
-//   B K-major (BT, stored [N,K]): one box of [BN n][64 k];
-//   B MN-major (stored [K,N]): BN / 64 boxes of [64 k][64 n], 8 KB apart
-//     (lbo).
+//   A K-major (A [M,K]): one box of [128 rows][one k-step]; warpgroup w's
+//     64 rows start at 8 KB * w;
+//   A MN-major (AT, stored [K,M]; bf16): two boxes of [64 k][64 m], one
+//     per warpgroup;
+//   B K-major (BT, stored [N,K]): one box of [BN n][one k-step];
+//   B MN-major (stored [K,N]; bf16): BN / 64 boxes of [64 k][64 n], 8 KB
+//     apart (lbo).
 // Each row of a box is 128 bytes, swizzled in groups of 8 rows (sbo 1 KB).
-// A k16 slice starts 32 bytes further along a K-major row, 16 rows
-// (2 KB) further down an MN-major box. blockIdx.z picks the k_chunk-deep
-// slice of K that this block sums (split-K; the epilogue sees blockIdx.z).
-template <bool AT, bool BT, int BN, class Epilogue>
+// A wgmma's 32-byte slice of K (k16 bf16, k32 s8) starts 32 bytes further
+// along a K-major row, 16 rows (2 KB) further down an MN-major box.
+// blockIdx.z picks the k_chunk-deep slice of K that this block sums
+// (split-K; the epilogue sees blockIdx.z).
+template <bool AT, bool BT, int BN, class Op, class Epilogue>
 __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
     __grid_constant__ const CUtensorMap tma_a, __grid_constant__ const CUtensorMap tma_b, int M, int N,
     int K, int k_chunk, Epilogue epi) {
@@ -173,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.y * TB_M, n0 = blockIdx.x * BN;
   const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
-  const int steps = k_end > k_begin ? (k_end - k_begin + TB_K - 1) / TB_K : 0;
+  const int steps = k_end > k_begin ? (k_end - k_begin + Op::K_STEP - 1) / Op::K_STEP : 0;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bars + 8 * s, 1);                            // the producer's arrive + the bytes
@@ -190,7 +267,7 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
         const uint32_t full = bars + 8 * s, a = ring + s * T::STAGE_BYTES, b = a + A_BYTES;
         if (it >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(full, T::STAGE_BYTES);
-        const int k = k_begin + it * TB_K;
+        const int k = k_begin + it * Op::K_STEP;
         if (AT) {
           tma_load(a, &tma_a, full, m0, k);
           tma_load(a + HALF_BYTES, &tma_a, full, m0 + 64, k);
@@ -210,9 +287,9 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
 
   // the consumers: warpgroup wg owns rows 64 * wg .. of the tile
   const int wg = warp / 4;
-  float acc[BN / 2];
+  typename Op::Acc acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   for (int it = 0; it < steps; ++it) {
     const int s = it % STAGES;
     mbar_wait(bars + 8 * s, (it / STAGES) & 1);
@@ -220,10 +297,10 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < TB_K / 16; ++kk) {
+    for (int kk = 0; kk < K_BYTES / 32; ++kk) {
       const uint64_t da = AT ? smem_desc(a + kk * 2048, HALF_BYTES, 1024) : smem_desc(a + kk * 32, 16, 1024);
       const uint64_t db = BT ? smem_desc(b + kk * 32, 16, 1024) : smem_desc(b + kk * 2048, HALF_BYTES, 1024);
-      wgmma<AT ? 1 : 0, BT ? 0 : 1>(acc, da, db);
+      Op::template mma<AT ? 1 : 0, BT ? 0 : 1>(acc, da, db);
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
@@ -243,7 +320,7 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * T::LD + c0 + 8 * j) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          make_float2(acc_f32(acc[4 * j + 2 * h]), acc_f32(acc[4 * j + 2 * h + 1]));
   asm volatile("bar.sync 1, 256;" ::: "memory");
 
 #pragma unroll 1
@@ -282,45 +359,47 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a row-major bf16 matrix [rows, cols], read in boxes of box_rows x 64
-// columns (128 bytes, the swizzle's width); boxes past its edges read zeros
+// a row-major matrix [rows, cols] of Op's values, read in boxes of
+// box_rows x one k-step (128 bytes, the swizzle's width); boxes past its
+// edges read zeros. The row pitch must be a multiple of 16 bytes.
+template <class Op>
 inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t pitch[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t pitch[1] = {(cuuint64_t)cols * (K_BYTES / Op::K_STEP)};
+  const cuuint32_t box[2] = {(cuuint32_t)Op::K_STEP, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, pitch, box, unit,
+  return fn(map, Op::MAP_TYPE, 2, const_cast<void*>(ptr), dims, pitch, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The maps of op(A) and op(B) for a BN-wide tile: A [M,K] (AT: [K,M]),
 // B [K,N] (BT: [N,K]).
-template <bool AT, bool BT, int BN>
+template <bool AT, bool BT, int BN, class Op = Bf16>
 bool encode_operands(CUtensorMap* ta, CUtensorMap* tb, const void* A, const void* B, int M, int N, int K) {
-  return (AT ? encode(ta, A, K, M, 64) : encode(ta, A, M, K, TB_M)) &&
-         (BT ? encode(tb, B, N, K, BN) : encode(tb, B, K, N, 64));
+  return (AT ? encode<Op>(ta, A, K, M, 64) : encode<Op>(ta, A, M, K, TB_M)) &&
+         (BT ? encode<Op>(tb, B, N, K, BN) : encode<Op>(tb, B, K, N, 64));
 }
 
 // One launch over the [M, N] output in 128 x BN tiles, `splits` slices of
-// k_chunk along K (blockIdx.z).
-template <bool AT, bool BT, int BN, class Epilogue>
+// k_chunk (a multiple of Op's k-step) along K (blockIdx.z).
+template <bool AT, bool BT, int BN, class Op = Bf16, class Epilogue>
 cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int K, int splits, int k_chunk,
                    const Epilogue& epi, cudaStream_t s) {
   static bool smem_set = false;
   if (!smem_set) {  // above 48 KB, and as much shared memory as the SM has: several blocks share it
-    cudaError_t err = cudaFuncSetAttribute(gemm_kernel<AT, BT, BN, Epilogue>,
+    cudaError_t err = cudaFuncSetAttribute(gemm_kernel<AT, BT, BN, Op, Epilogue>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<BN>::SMEM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_kernel<AT, BT, BN, Epilogue>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      err = cudaFuncSetAttribute(gemm_kernel<AT, BT, BN, Op, Epilogue>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  100);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid((N + BN - 1) / BN, (M + TB_M - 1) / TB_M, splits);
-  gemm_kernel<AT, BT, BN, Epilogue><<<grid, THREADS, Tile<BN>::SMEM, s>>>(ta, tb, M, N, K, k_chunk, epi);
+  gemm_kernel<AT, BT, BN, Op, Epilogue><<<grid, THREADS, Tile<BN>::SMEM, s>>>(ta, tb, M, N, K, k_chunk, epi);
   return cudaGetLastError();
 }
 

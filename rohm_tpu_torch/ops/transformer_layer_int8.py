@@ -3,9 +3,11 @@ and `"int8qa"` with quantized attention).
 
 Replaces rohm_tpu/ops/transformer_layer_int8.py::_layer_kernel_int8 with
 qattn=False and qattn=True. Weights are symmetric int8 with one f32 scale per output
-column (set once by `prepare_layer_int8`); each GEMM input is quantized per
-row right before the product; int32 accumulation; dequant acc*row*col, then
-an f32 bias. Attention, LayerNorm and residuals are those of the bf16 layer.
+column (set once by `prepare_layer_int8`), each a [K, N] tensor stored
+K-major (the .t() view of an [N, K] buffer: the layout Hopper's int8 tensor
+cores read); each GEMM input is quantized per row right before the product;
+int32 accumulation; dequant acc*row*col, then an f32 bias. Attention,
+LayerNorm and residuals are those of the bf16 layer.
 On the H100 the layer is a chain of eleven launches of five hand-written
 CUDA kernels:
 
@@ -115,13 +117,37 @@ quant_rows_int8.fixed_launches = 0
 
 
 def _quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32 [K, N] -> (int8 [K, N], f32 col scales [N])."""
-    return _quant(w, 0)
+    """f32 [K, N] (any layout) -> (int8 [K, N] stored K-major, strides
+    (1, K), f32 col scales [N]): each column quantized as one row of the
+    [N, K] buffer, which gives the codes and scales of _quant(w, 0) exactly
+    (the same amax, the same product per element). gemm_int8 takes its
+    weights only in this layout."""
+    q, scale = _quant(w.t().contiguous(), -1)
+    return q.t(), scale
+
+
+def check_gemm_int8_operands(qa: torch.Tensor, w_q: torch.Tensor) -> None:
+    """The layout and shape limits of gemm_int8's kernel, on any device:
+    qa [M, K], w_q [K, N] stored K-major (strides (1, K), as _quant_cols
+    makes it; wgmma reads 8-bit operands only K-major, and a weight in
+    another layout is refused, not copied per call), K a multiple of 16
+    (TMA's 16-byte row pitch), N a multiple of 4 (the epilogue's four
+    columns). Raises ValueError."""
+    if qa.dim() != 2 or w_q.dim() != 2:
+        raise ValueError(f"gemm_int8: expected 2-D operands, got {tuple(qa.shape)} and {tuple(w_q.shape)}")
+    (m, k), (kw, n) = qa.shape, w_q.shape
+    if w_q.stride() != (1, kw):
+        raise ValueError(f"gemm_int8: w_q [K, N] must be stored K-major (strides (1, K) = (1, {kw}), the .t() "
+                         f"view of an [N, K] buffer; prepare_layer_int8 makes it so), got strides {w_q.stride()}")
+    if kw != k or m < 1 or k % 16 or n % 4:
+        raise ValueError(f"gemm_int8: shapes {tuple(qa.shape)} @ {tuple(w_q.shape)} unsupported "
+                         "(K a multiple of 16, N of 4)")
 
 
 def gemm_int8_plain(qa, row_scale, w_q, col_scale, bias, mode: str) -> torch.Tensor:
-    """The W8A8 product in plain PyTorch. The int8 values multiply as f32,
-    which is exact: every partial sum is an integer below K*127^2 <= 2^24."""
+    """The W8A8 product in plain PyTorch, on a weight in any layout. The
+    int8 values multiply as f32, which is exact: every partial sum is an
+    integer below K*127^2 <= 2^24."""
     acc = qa.float() @ w_q.float()
     v = acc * row_scale[:, None] * col_scale + bias
     if mode == "bf16":
@@ -137,22 +163,24 @@ def gemm_int8(qa: torch.Tensor, row_scale: torch.Tensor, w_q: torch.Tensor,
               col_scale: torch.Tensor, bias: torch.Tensor, mode: str) -> torch.Tensor:
     """(float(qa [M,K] i8 @ w_q [K,N] i8) * row_scale[m]) * col_scale[n] + bias[n],
     int32 accumulation; "bf16" stores bf16, "f32" f32, "gelu" tanh-gelu f32.
+    w_q is stored K-major (check_gemm_int8_operands).
 
     Replaces `_dot_i8` + bias inside _layer_kernel_int8. CUDA:
-    csrc/gemm_int8.cu, WMMA s8 tensor-core tiles; tensor-core bound."""
+    csrc/gemm_int8.cu, the TMA + wgmma main loop of csrc/wgmma_gemm.cuh on
+    s8 operands; bound by its bytes at the layer's shapes."""
     if qa.device.type == "cpu":
         return gemm_int8_plain(qa, row_scale, w_q, col_scale, bias, mode)
     if mode not in GEMM_INT8_MODES:
         raise ValueError(f"gemm_int8: unknown mode {mode!r}")
     check_cuda(qa, torch.int8, 2, "qa")
-    check_cuda(w_q, torch.int8, 2, "w_q")
+    check_gemm_int8_operands(qa, w_q)
+    check_cuda(w_q.t(), torch.int8, 2, "w_q^T")
     for t, name in ((row_scale, "row_scale"), (col_scale, "col_scale"), (bias, "bias")):
         check_cuda(t, torch.float32, 1, name)
     m, k = qa.shape
     n = w_q.shape[1]
-    if (w_q.shape[0] != k or row_scale.shape[0] != m or col_scale.shape[0] != n
-            or bias.shape[0] != n or n % 64 or k % 32):
-        raise ValueError(f"gemm_int8: shapes {tuple(qa.shape)} @ {tuple(w_q.shape)} unsupported")
+    if row_scale.shape[0] != m or col_scale.shape[0] != n or bias.shape[0] != n:
+        raise ValueError(f"gemm_int8: scales or bias do not match {tuple(qa.shape)} @ {tuple(w_q.shape)}")
     out_dtype = torch.bfloat16 if mode == "bf16" else torch.float32
     out = torch.empty(m, n, dtype=out_dtype, device=qa.device)
     launch("rt_gemm_int8", ptr(qa), ptr(row_scale), ptr(w_q), ptr(col_scale), ptr(bias),
@@ -259,22 +287,25 @@ def fused_encoder_layer_int8_plain(x: torch.Tensor, prepared: tuple, num_heads: 
 
 def prepare_layer_int8(layer) -> tuple:
     """Quantize one TransformerEncoderLayer for the int8 path (call once,
-    outside the sampling loop)."""
+    outside the sampling loop). The four weights are [K, N] (the JAX
+    package's [in, out] shape and codes) stored K-major: each quantized per
+    row of torch's own [out, in] weight (fuse_qkv's [D, 3D] transposed for
+    the fused QKV), then handed out as the .t() view."""
     wqkv, bqkv = fuse_qkv(layer.self_attn)
 
     def f32(t):
         return t.detach().float().contiguous()
 
     wqkv_q, sqkv = _quant_cols(wqkv)
-    wo_q, so = _quant_cols(f32(layer.self_attn.out_proj.weight.t()))
-    w1_q, s1 = _quant_cols(f32(layer.linear1.weight.t()))
-    w2_q, s2 = _quant_cols(f32(layer.linear2.weight.t()))
+    wo_q, so = _quant_cols(f32(layer.self_attn.out_proj.weight).t())
+    w1_q, s1 = _quant_cols(f32(layer.linear1.weight).t())
+    w2_q, s2 = _quant_cols(f32(layer.linear2.weight).t())
     return (
-        wqkv_q.contiguous(), sqkv, f32(bqkv),
-        wo_q.contiguous(), so, f32(layer.self_attn.out_proj.bias),
+        wqkv_q, sqkv, f32(bqkv),
+        wo_q, so, f32(layer.self_attn.out_proj.bias),
         f32(layer.norm1.weight), f32(layer.norm1.bias),
-        w1_q.contiguous(), s1, f32(layer.linear1.bias),
-        w2_q.contiguous(), s2, f32(layer.linear2.bias),
+        w1_q, s1, f32(layer.linear1.bias),
+        w2_q, s2, f32(layer.linear2.bias),
         f32(layer.norm2.weight), f32(layer.norm2.bias),
     )
 
@@ -371,6 +402,9 @@ def prepare_posenet_int8(posenet, qattn: bool = False, mega: bool = False) -> di
     for the whole-stack kernel. `mega` takes precedence over `qattn`."""
     layers = tuple(prepare_layer_int8(layer) for layer in posenet.seqTransEncoder.layers)
     if mega:
+        # torch.stack copies the K-major weight views into a contiguous
+        # [L, K, N]: the row-major layout the stack kernel's WMMA tiles read
+        # (its wrapper refuses any other)
         entry = {"layers_stacked": tuple(torch.stack([lay[i] for lay in layers]) for i in range(16))}
     else:
         entry = {"layers_qattn" if qattn else "layers": layers}

@@ -30,9 +30,11 @@ matrices are cast once per layer call (`cast_weight_mats`, as the TPU
 package's `_cast_weight_mats` does outside its kernel), and each activation
 operand is cast once where it is made: by the epilogue of the product that
 makes it (qkv, gld, dh1, dattn), by the attention backward (its bf16 copy
-of dqkv) or by `round_bf16` (x, attn, y1, df, do). Rounding to nearest even
-is idempotent, so every product and both attention kernels see the values
-that the TPU kernel's c() gives them.
+of dqkv), by the LayerNorm kernel that makes it (y1 forward; df and do, the
+masked outputs of the backward) or, for x and attn, by `round_bf16`: 2
+casts per layer call. Rounding to nearest even is idempotent, so every
+product and both attention kernels see the values that the TPU kernel's
+c() gives them.
 
 Dropout masks are int8 keep-masks drawn outside the kernels from an
 explicit torch.Generator (`gen_dropout_masks`); the TPU package draws them
@@ -204,11 +206,12 @@ def round_bf16_plain(x: torch.Tensor) -> torch.Tensor:
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x [R, N] f32 -> bf16, round to nearest even: the bf16 mode's cast of
-    an activation operand, once where it is made.
+    an activation operand that no kernel hands over in bf16 (x, attn).
 
     Replaces the TPU kernel's c() on its activation operands
     (rohm_tpu/ops/transformer_layer_train.py:103). CUDA: csrc/gemm_train.cu,
-    4 elements per thread and step; memory-bound."""
+    8 elements per thread and step, a grid that fills the card;
+    memory-bound."""
     if x.device.type == "cpu":
         return round_bf16_plain(x)
     check_cuda(x, torch.float32, 2, "x")
@@ -352,23 +355,28 @@ attention_train_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def layernorm_train_fwd_plain(a, b, gamma, beta):
-    """LN(a + b) with the one-pass variance -> (y, norm, rstd [R])."""
+def layernorm_train_fwd_plain(a, b, gamma, beta, out_bf16=False):
+    """LN(a + b) with the one-pass variance -> (y, norm, rstd [R]), and
+    with `out_bf16` y's bf16 copy after them."""
     r = a + b
     mu = r.mean(-1, keepdim=True)
     var = (r * r).mean(-1, keepdim=True) - mu * mu
     rstd = torch.rsqrt(var + LN_EPS)
     norm = (r - mu) * rstd
-    return norm * gamma + beta, norm, rstd[:, 0]
+    y = norm * gamma + beta
+    return (y, norm, rstd[:, 0], y.to(torch.bfloat16)) if out_bf16 else (y, norm, rstd[:, 0])
 
 
-def layernorm_train_fwd(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
-    """Residual + one-pass LayerNorm keeping norm and rstd for the backward.
+def layernorm_train_fwd(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                        out_bf16: bool = False):
+    """Residual + one-pass LayerNorm keeping norm and rstd for the backward;
+    with `out_bf16` also y rounded to bf16 (the bf16 mode's operand of FF1),
+    stored beside y: (y, norm, rstd, y16).
 
     Replaces _ln_fwd of _forward_body (K6). CUDA: csrc/layernorm_train.cu,
     one block per row; memory-bound."""
     if a.device.type == "cpu":
-        return layernorm_train_fwd_plain(a, b, gamma, beta)
+        return layernorm_train_fwd_plain(a, b, gamma, beta, out_bf16)
     for name, t, nd in (("a", a, 2), ("b", b, 2), ("gamma", gamma, 1), ("beta", beta, 1)):
         check_cuda(t, torch.float32, nd, name)
     rows, d = a.shape
@@ -376,31 +384,39 @@ def layernorm_train_fwd(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, b
         raise ValueError("layernorm_train_fwd: shape mismatch")
     y, norm = torch.empty_like(a), torch.empty_like(a)
     rstd = torch.empty(rows, dtype=torch.float32, device=a.device)
+    y16 = torch.empty(rows, d, dtype=torch.bfloat16, device=a.device) if out_bf16 else None
     launch("rt_layernorm_train_fwd", ptr(a), ptr(b), ptr(gamma), ptr(beta), ptr(y), ptr(norm),
-           ptr(rstd), rows, d, LN_EPS, stream())
+           ptr(rstd), ptr(y16), rows, d, LN_EPS, stream())
     layernorm_train_fwd.launches += 1
-    return y, norm, rstd
+    return (y, norm, rstd, y16) if out_bf16 else (y, norm, rstd)
 
 
 layernorm_train_fwd.launches = 0
 
 
-def layernorm_train_bwd_plain(dy, norm, rstd, gamma, mask=None, inv_keep=1.0):
-    """_ln_bwd's dr, and dr * mask * inv_keep when a mask is given."""
+def layernorm_train_bwd_plain(dy, norm, rstd, gamma, mask=None, inv_keep=1.0, out_bf16=False):
+    """_ln_bwd's dr, and dr * mask * inv_keep when a mask is given; with
+    `out_bf16` the latter's bf16 copy after them."""
     gdy = dy * gamma
     m1 = gdy.mean(-1, keepdim=True)
     m2 = (gdy * norm).mean(-1, keepdim=True)
     dr = (gdy - m1 - norm * m2) * rstd[:, None]
-    return dr, (dr * _keep(mask, inv_keep) if mask is not None else None)
+    drm = dr * _keep(mask, inv_keep) if mask is not None else None
+    return (dr, drm, drm.to(torch.bfloat16)) if out_bf16 else (dr, drm)
 
 
 def layernorm_train_bwd(dy: torch.Tensor, norm: torch.Tensor, rstd: torch.Tensor,
-                        gamma: torch.Tensor, mask=None, inv_keep: float = 1.0):
-    """The LayerNorm backward per row, with the dropout-ed branch's gradient.
+                        gamma: torch.Tensor, mask=None, inv_keep: float = 1.0, out_bf16: bool = False):
+    """The LayerNorm backward per row, with the dropout-ed branch's gradient;
+    with `out_bf16` (a mask given) also that gradient rounded to bf16 (the
+    bf16 mode's operand of the next products), stored beside it:
+    (dr, dr_masked, dr_masked16).
 
     Replaces _ln_bwd of _bwd_kernel (K7). CUDA: csrc/layernorm_train.cu."""
+    if out_bf16 and mask is None:
+        raise ValueError("layernorm_train_bwd: out_bf16 copies the masked output and needs a mask")
     if dy.device.type == "cpu":
-        return layernorm_train_bwd_plain(dy, norm, rstd, gamma, mask, inv_keep)
+        return layernorm_train_bwd_plain(dy, norm, rstd, gamma, mask, inv_keep, out_bf16)
     for name, t, nd in (("dy", dy, 2), ("norm", norm, 2), ("rstd", rstd, 1), ("gamma", gamma, 1)):
         check_cuda(t, torch.float32, nd, name)
     rows, d = dy.shape
@@ -412,10 +428,11 @@ def layernorm_train_bwd(dy: torch.Tensor, norm: torch.Tensor, rstd: torch.Tensor
             raise ValueError("layernorm_train_bwd: mask shape")
     dr = torch.empty_like(dy)
     drm = torch.empty_like(dy) if mask is not None else None
+    drm16 = torch.empty(rows, d, dtype=torch.bfloat16, device=dy.device) if out_bf16 else None
     launch("rt_layernorm_train_bwd", ptr(dy), ptr(norm), ptr(rstd), ptr(gamma), ptr(mask), inv_keep,
-           ptr(dr), ptr(drm), rows, d, stream())
+           ptr(dr), ptr(drm), ptr(drm16), rows, d, stream())
     layernorm_train_bwd.launches += 1
-    return dr, drm
+    return (dr, drm, drm16) if out_bf16 else (dr, drm)
 
 
 layernorm_train_bwd.launches = 0
@@ -519,8 +536,8 @@ def layer_train_fwd(x, params, masks, seq_len, num_heads, inv_keep, bf16, k: Ker
     qkv = k.gemm(xc, wqkv, bias=bqkv, out="operand", **g)
     attn = c(k.attn_fwd(qkv, mp, seq_len, num_heads, inv_keep, bf16))
     od = k.gemm(attn, wo, bias=bo, mask=mo, inv_keep=inv_keep, **g)
-    y1, norm1, rstd1 = k.ln_fwd(x, od, g1, be1)
-    y1c = c(y1)
+    y1, norm1, rstd1, *y1c = k.ln_fwd(x, od, g1, be1, out_bf16=bf16)
+    y1c = y1c[0] if bf16 else y1  # LN1's bf16 copy of y1
     gld, h1 = k.gemm(y1c, w1, bias=b1, mask=mh, inv_keep=inv_keep, gelu=1, out="operand", **g)
     ffd = k.gemm(gld, w2, bias=b2, mask=mf, inv_keep=inv_keep, **g)
     y, norm2, rstd2 = k.ln_fwd(y1, ffd, g2, be2)
@@ -534,20 +551,19 @@ def layer_train_bwd(dy, saved, params, masks, seq_len, num_heads, inv_keep, bf16
     xc, qkv, attn, y1c, norm1, rstd1, h1, gld, norm2, rstd2 = saved
     wqkv, _, wo, _, g1, _, w1, _, w2, _, g2, _ = params
     mp, mo, mh, mf = masks
-    c = k.cast if bf16 else _same
     g = dict(bf16=bf16)
-    dr2, df = k.ln_bwd(dy, norm2, rstd2, g2, mf, inv_keep)
+    dr2, df, *dfc = k.ln_bwd(dy, norm2, rstd2, g2, mf, inv_keep, out_bf16=bf16)
+    dfc = dfc[0] if bf16 else df  # the LN2 backward's bf16 copy of df
     dg2, dbe2 = k.colsum(dy, norm2)
-    dfc = c(df)
     dw2 = k.gemm(dfc, gld, a_t=True, **g)
     db2 = k.colsum(df)
     dh1, dh1c = k.gemm(dfc, w2, mask=mh, inv_keep=inv_keep, gelu=2, aux=h1, out="both", **g)
     dw1 = k.gemm(dh1c, y1c, a_t=True, **g)
     db1 = k.colsum(dh1)
     dy1 = k.gemm(dh1c, w1, add=dr2, **g)
-    dr1, do = k.ln_bwd(dy1, norm1, rstd1, g1, mo, inv_keep)
+    dr1, do, *doc = k.ln_bwd(dy1, norm1, rstd1, g1, mo, inv_keep, out_bf16=bf16)
+    doc = doc[0] if bf16 else do
     dg1, dbe1 = k.colsum(dy1, norm1)
-    doc = c(do)
     dwo = k.gemm(doc, attn, a_t=True, **g)
     dbo = k.colsum(do)
     dattn = k.gemm(doc, wo, out="operand", **g)

@@ -13,17 +13,28 @@ dropout 0.1, random weights from --seed): `attention_train_fwd` and
 layer in each mode as that checkout's chain calls them (and a digest of
 the bf16 products' outputs, which must agree bit for bit where their code
 is meant not to change), and the layer's forward and backward in each
-mode (and each backward's peak memory); `attention_f32` and `attention_train_fwd` in the f32 mode at 8
+mode (and each backward's peak memory), `round_bf16` on the two
+activations the bf16 chain casts (x, attn) beside `.to(bfloat16)`, and
+the LayerNorms as the bf16 chain runs them (LN1's forward and a backward
+with their bf16 operand: one launch where the kernel writes the copy, a
+`round_bf16` more where it does not) and without the copy;
+`attention_f32` and `attention_train_fwd` in the f32 mode at 8
 sequences of 1024 tokens; at the inference shapes (32 clips x 144
 tokens): `attention_f32`,
 `attention_bf16`, `attention_int8`, the four `gemm_bf16` products of a
-bf16 layer (each, their sum, and the host's microseconds to enqueue one)
+bf16 layer (each, their sum, and the host's microseconds to enqueue one),
+the four `gemm_int8` products of an int8 layer (each, their sum, and
+`torch._int_mm` on the same operands; in this checkout's runs also the
+four on two other tile choices, INT8_TILE_VARIANTS, from variant
+libraries built once before the runs)
 and the four `gemm_f32` products of an f32 layer (each, their sum), the
 f32, bf16 and int8 inference layers (`fused_encoder_layer`,
 `fused_encoder_layer_bf16` / `_int8`), and the whole-stack
 `encoder_stack_int8` (8 layers, with its phases from the global timer at
-its barriers), and one f32 PoseNet step (`posenet_apply_fused`, 32 x 143,
-by events). Each is timed with CUDA events around
+its barriers, the median of 9 launches, and its registers and spills from
+the build log), and one f32 PoseNet step (`posenet_apply_fused`, 32 x 143,
+by events) and one int8 and one int8qa step (`posenet_apply_prepared`, by
+events and on the card alone). Each is timed with CUDA events around
 one call and on the card alone with a cold L2 (card_ms: a CUDA graph of
 10 calls, each after a 128 MB write, less a graph of the writes alone);
 K5's cooperative launch by events only. It prints one JSON line per
@@ -36,6 +47,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import inspect
 import json
 import os
 import statistics
@@ -116,10 +128,12 @@ def card_ms(fn, calls: int = 10, reps: int = 20) -> float:
     return statistics.median(diffs)
 
 
-def measure(seed: int) -> dict:
+def measure(seed: int, variant_libs: dict | None = None) -> dict:
     """The numbers of one checkout: whichever `rohm_tpu_torch` is first on
     sys.path. Its chain may stage bf16 operands in memory (round_bf16,
-    cast_weight_mats) or round f32 operands inside each product."""
+    cast_weight_mats) or round f32 operands inside each product.
+    `variant_libs` (name -> library path): gemm_int8's four products also
+    through each of those libraries (INT8_TILE_VARIANTS)."""
     import torch
 
     from rohm_tpu_torch.models import PoseNet
@@ -290,6 +304,42 @@ def measure(seed: int) -> dict:
     inference["layer_f32_inf"] = lambda: l32.fused_encoder_layer(x_inf32, inf_layer, H)
     inference["layer_bf16_inf"] = lambda: l16.fused_encoder_layer_bf16(x_inf, p16, H)
     inference["layer_int8_inf"] = lambda: l8.fused_encoder_layer_int8(x_inf, p8, H)
+    # the four gemm_int8 products of the int8 layer on its own weights (K-major
+    # where the tree's prep makes them so), and torch._int_mm on the same
+    # operands (int32 sums only)
+    (qa_d, rs_d), (qa_f, rs_f) = l8.quant_rows_int8(x2), l8.quant_rows_int8(a_f)
+    int8_products = {"qkv": (qa_d, rs_d, *p8[0:3], "bf16"), "out": (qa_d, rs_d, *p8[3:6], "f32"),
+                     "ff1": (qa_d, rs_d, *p8[8:11], "gelu"), "ff2": (qa_f, rs_f, *p8[11:14], "f32")}
+    gemm_int8 = {f"gemm_int8_{name}": functools.partial(l8.gemm_int8, *args) for name, args in int8_products.items()}
+    inference.update(gemm_int8)
+    int_mm = {f"int_mm_{name}": functools.partial(torch._int_mm, args[0], args[2])
+              for name, args in int8_products.items()}
+    inference.update(int_mm)
+    # round_bf16 on the two activations the bf16 chain casts (x, attn), and
+    # .to(bfloat16) on them; the LayerNorms as the bf16 chain runs them: the
+    # forward of LN1 and each backward with its bf16 operand (one launch
+    # where the kernel writes the copy, plus round_bf16 where it does not)
+    gl2 = torch.Generator(device="cuda").manual_seed(seed + 2)
+    b_ln = torch.randn(TB * TS, D, generator=gl2, device="cuda")
+    _, n_ln, r_ln = lt.layernorm_train_fwd_plain(x, b_ln, g1, kp[5])
+    ln_copies = "out_bf16" in inspect.signature(lt.layernorm_train_fwd).parameters
+
+    def ln1_fwd_bf16():
+        if ln_copies:
+            return lt.layernorm_train_fwd(x, b_ln, g1, kp[5], out_bf16=True)
+        return lt.round_bf16(lt.layernorm_train_fwd(x, b_ln, g1, kp[5])[0])
+
+    def ln_bwd_bf16():
+        if ln_copies:
+            return lt.layernorm_train_bwd(dy, n_ln, r_ln, g2, mf, ik, out_bf16=True)
+        return lt.round_bf16(lt.layernorm_train_bwd(dy, n_ln, r_ln, g2, mf, ik)[1])
+
+    inference.update({
+        "round_bf16_x": lambda: lt.round_bf16(x), "round_bf16_attn": lambda: lt.round_bf16(attn32),
+        "to_bf16_x": lambda: x.to(torch.bfloat16), "to_bf16_attn": lambda: attn32.to(torch.bfloat16),
+        "ln_fwd_bf16_ln1": ln1_fwd_bf16, "ln_fwd": lambda: lt.layernorm_train_fwd(x, b_ln, g1, kp[5]),
+        "ln_bwd_bf16": ln_bwd_bf16, "ln_bwd": lambda: lt.layernorm_train_bwd(dy, n_ln, r_ln, g2, mf, ik),
+    })
 
     def fwd():
         return lt.layer_train_fwd(x, kp, fm, TS, H, ik, True)
@@ -315,6 +365,21 @@ def measure(seed: int) -> dict:
                      ("layer_fwd_f32", fwd32), ("layer_bwd_f32", bwd32), *inference.items()):
         out[f"{name}_card_ms"], out[f"{name}_ms"] = card_ms(fn), _median_ms(fn)
     out["gemm_bf16_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_bf16)
+    out["gemm_int8_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_int8)
+    out["int_mm_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in int_mm)
+    for variant, path in (variant_libs or {}).items():
+        # the four products on the variant library's tiles
+        from rohm_tpu_torch.ops import _build
+        from rohm_tpu_torch.scripts.f32_gemm_variants import _load
+
+        shipped = _build.library
+        lib = _load(Path(path), ("rt_gemm_int8",))
+        _build.library = lambda lib=lib: lib
+        try:
+            for name, fn in gemm_int8.items():
+                out[f"{name}_{variant}_card_ms"] = card_ms(fn)
+        finally:
+            _build.library = shipped
     out["gemm_f32_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_f32)
     out["gemm_f32_4_ms"] = sum(out[f"{name}_ms"] for name in gemm_f32)
     # the host's time to enqueue one gemm_bf16 call (wrapper, checks,
@@ -357,14 +422,58 @@ def measure(seed: int) -> dict:
         cond_emb = embed_cond_f32(posenet, cond_p)
         out["posenet_step_f32_ms"] = _median_ms(lambda: posenet_apply_fused(posenet, x_p, cond_p, 500,
                                                                             cond_emb=cond_emb))
+        # the int8 and int8qa steps (the chain bench.py times), by events and
+        # on the card alone
+        from rohm_tpu_torch.ops import embed_cond, posenet_apply_prepared
+
+        t_dev = torch.full((b_inf,), 500, dtype=torch.long, device="cuda")  # no host copy inside a graph
+        for mode, qattn in (("int8", False), ("int8qa", True)):
+            prep = l8.prepare_posenet_int8(posenet, qattn=qattn)
+            emb = embed_cond(prep, cond_p)
+
+            def step(prep=prep, emb=emb):
+                return posenet_apply_prepared(prep, x_p, cond_p, t_dev, num_heads=H, cond_emb=emb)
+
+            out[f"posenet_step_{mode}_ms"], out[f"posenet_step_{mode}_card_ms"] = _median_ms(step), card_ms(step)
     out["encoder_stack_int8_ms"] = _median_ms(lambda: l8.fused_encoder_stack_int8(x_inf, stacked, H))
-    stamps = torch.zeros(2 + 9 * 8, dtype=torch.int64, device="cuda")
-    l8.fused_encoder_stack_int8(x_inf, stacked, H, phase_ns=stamps)
-    gaps = (stamps[1:] - stamps[:-1]).tolist()
+    # its phases from the global timer at its barriers: the median of 9
+    # stamped launches per phase
+    per_launch = []
+    for _ in range(9):
+        stamps = torch.zeros(2 + 9 * 8, dtype=torch.int64, device="cuda")
+        l8.fused_encoder_stack_int8(x_inf, stacked, H, phase_ns=stamps)
+        per_launch.append((stamps[1:] - stamps[:-1]).tolist())
     for j, name in enumerate(l8.STACK_PHASES):
-        out[f"encoder_stack_int8_{name.replace(' ', '_')}_us"] = sum(gaps[1 + 9 * i + j] for i in range(8)) / 1e3
+        out[f"encoder_stack_int8_{name.replace(' ', '_')}_us"] = statistics.median(
+            sum(gaps[1 + 9 * i + j] for i in range(8)) / 1e3 for gaps in per_launch)
+    # its registers and spills, from the tree's build log
+    from rohm_tpu_torch.ops import _build
+
+    log = (_build.BUILD_ROOT / _build.source_hash() / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Function properties for" in line and "encoder_stack_int8_kernelILb0" in line:
+            out["encoder_stack_int8_build"] = " ".join(x.strip() for x in log[i + 1:i + 3])
     out["encoder_stack_int8_grid"] = list(l8.stack_grid(s_inf, D // H))
     return out
+
+
+# gemm_int8.cu's tile widths (128 above N = WIDE_ABOVE, NARROW_BN up to it)
+# and the variants the A/B times beside them: every product on 128-wide
+# tiles; 64-wide ones for N <= 512 only (FF1 on 128); 64-wide for all four
+INT8_TILES = "constexpr int NARROW_BN = 64, WIDE_ABOVE = 1024;"
+INT8_TILE_VARIANTS = {"bn128": "constexpr int NARROW_BN = 128, WIDE_ABOVE = 1024;",
+                      "bn64_to_512": "constexpr int NARROW_BN = 64, WIDE_ABOVE = 512;",
+                      "bn64_all": "constexpr int NARROW_BN = 64, WIDE_ABOVE = 1 << 30;"}
+
+
+def _tile_variants() -> dict:
+    """name -> the path of this tree's gemm_int8.cu built with that tile
+    choice into a library of its own (both nvcc at once)."""
+    from rohm_tpu_torch.scripts.f32_gemm_variants import build_libraries
+
+    libs = build_libraries({f"gemm_int8 {name}": [("gemm_int8.cu", INT8_TILES, text)]
+                            for name, text in INT8_TILE_VARIANTS.items()}, ("gemm_int8.cu",), ("rt_gemm_int8",))
+    return {name: libs[f"gemm_int8 {name}"]._name for name in INT8_TILE_VARIANTS}
 
 
 def main(argv=None) -> list:
@@ -372,30 +481,34 @@ def main(argv=None) -> list:
     parser.add_argument("--other", help="the other checkout (its root directory)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--variant-lib", action="append", default=[], help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.measure:
-        print(json.dumps(measure(args.seed)), flush=True)
+        print(json.dumps(measure(args.seed, dict(v.split("=", 1) for v in args.variant_lib))), flush=True)
         return []
     if not args.other:
         parser.error("--other is required")
     other = Path(args.other).resolve()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    variants = _tile_variants()
     runs = []
     for label, tree in (("other", other), ("this", THIS_TREE), ("this", THIS_TREE), ("other", other)):
         env = {**os.environ, "PYTHONPATH": str(tree)}
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", f"--seed={args.seed}"],
-                              cwd=tree, env=env, capture_output=True, text=True, timeout=900)
+        extra = [f"--variant-lib={name}={path}" for name, path in variants.items()] if label == "this" else []
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", f"--seed={args.seed}",
+                               *extra], cwd=tree, env=env, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"the {label} run failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         res = {"run": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(res), flush=True)
         runs.append(res)
-    keys = [k for k in runs[0] if k.endswith(("_ms", "_mib", "_us")) and isinstance(runs[0][k], float)]
+    keys = [k for k in dict.fromkeys(k for r in runs for k in r)
+            if k.endswith(("_ms", "_mib", "_us")) and any(isinstance(r.get(k), float) for r in runs)]
     print(f"{card}; ms, runs in order " + " / ".join(r["run"] for r in runs))
     for k in keys:
         print(f"{k:36s} " + " / ".join(f"{r[k]:.4f}" if k in r else "-" for r in runs))
-    for k in ("gemm_12_digest", "encoder_stack_int8_grid"):
+    for k in ("gemm_12_digest", "encoder_stack_int8_grid", "encoder_stack_int8_build"):
         print(f"{k:36s} " + " / ".join(str(r.get(k, "-")) for r in runs))
     return runs
 

@@ -96,7 +96,7 @@ def build(b: int, device) -> tuple[tuple, torch.Tensor]:
 
     def qcols(*shape):
         q, s = _quant_cols(torch.from_numpy(rng.normal(size=shape).astype(np.float32)))
-        return q.contiguous().to(device), (s / shape[0] ** 0.5).to(device)
+        return q.to(device), (s / shape[0] ** 0.5).to(device)  # K-major, as gemm_int8 takes it
 
     wqkv, sqkv = qcols(D, 3 * D)
     wo, so = qcols(D, D)

@@ -107,7 +107,7 @@ def build(device) -> tuple[tuple, torch.Tensor]:
 
     def qcols(*shape):
         q, s = _quant_cols(torch.from_numpy((rng.normal(size=shape) * 0.02).astype(np.float32)))
-        return q.contiguous().to(device), s.to(device)
+        return q.to(device), s.to(device)  # K-major, as gemm_int8 takes it
 
     def const(n, v):
         return torch.full((n,), v, dtype=torch.float32, device=device)

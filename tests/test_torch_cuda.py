@@ -172,14 +172,15 @@ def test_stack_kernel_matches_the_k3_chain_and_plain_on_cuda():
     torch.manual_seed(0)
     posenet = PoseNet(latent_dim=64, ff_size=128, num_layers=2, num_heads=4).cuda()
     stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
+    layers = l8.prepare_posenet_int8(posenet)["layers"]  # the same codes, K-major for the K3 chain
     for seq in (144, 15):
         x = torch.randn(3, seq, 64, device="cuda").to(torch.bfloat16)
         before = l8.fused_encoder_stack_int8.launches
         got = l8.fused_encoder_stack_int8(x, stacked, 4)
         assert l8.fused_encoder_stack_int8.launches == before + 1
         ref = x
-        for i in range(2):
-            ref = l8.fused_encoder_layer_int8(ref, tuple(t[i] for t in stacked), 4)
+        for prep in layers:
+            ref = l8.fused_encoder_layer_int8(ref, prep, 4)
         assert torch.equal(got, ref)
         err = (got.float() - l8.fused_encoder_stack_int8_plain(x, stacked, 4).float()).abs()
         assert err.max().item() < 0.3 and err.mean().item() < 5e-2
@@ -373,8 +374,8 @@ def test_stack_kernel_at_long_sequences_on_cuda(s):
     stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
     x = torch.randn(2, s, 64, device="cuda").to(torch.bfloat16)
     ref = x
-    for i in range(2):
-        ref = l8.fused_encoder_layer_int8(ref, tuple(t[i] for t in stacked), 4)
+    for prep in l8.prepare_posenet_int8(posenet)["layers"]:  # the same codes, K-major for the K3 chain
+        ref = l8.fused_encoder_layer_int8(ref, prep, 4)
     assert torch.equal(l8.fused_encoder_stack_int8(x, stacked, 4), ref)
 
 
@@ -476,3 +477,60 @@ def test_attention_bf16_lengths_and_head_widths_on_cuda(dh, s):
     p = ((q @ k.transpose(-1, -2)) * 0.01).to(torch.bfloat16).float().abs()
     pv = (p @ v.abs()).transpose(1, 2).reshape(b * s, d)
     assert ((got - ref).abs() <= 2.0 ** -8 * pv + 2.0 ** -7 * ref.abs() + 1e-6).all()
+
+
+# (M, K, N, mode): the four products of an int8 layer at 32 x 144 tokens
+# (qkv, out, FF1, FF2), then ragged rows, N and K off the tiles (16 and 4
+# are the kernel's steps), and K past one 128-deep k-step by a part
+GEMM_INT8_CASES = [(4608, 512, 1536, "bf16"), (4608, 512, 512, "f32"), (4608, 512, 1024, "gelu"),
+                   (4608, 1024, 512, "f32"), (4608 + 37, 144, 1540, "bf16"), (300, 48, 68, "f32"),
+                   (37, 1040, 516, "gelu")]
+
+
+@pytest.mark.parametrize("m,k,n,mode", GEMM_INT8_CASES)
+def test_gemm_int8_on_cuda(m, k, n, mode):
+    """gemm_int8 (TMA + wgmma s8) on K-major weights against its plain
+    version: the int32 sums are exact and the epilogue takes the plain
+    version's rounded f32 steps, so the bf16 and f32 modes agree bit for
+    bit and the gelu mode within chip_smoke.py's gate (2^-22 |ref| +
+    1e-6: tanhf); one launch per call; a row-major weight is refused."""
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    qa, rs = l8.quant_rows_int8(torch.randn(m, k, device="cuda", generator=g))
+    w, cs = l8._quant_cols(k ** -0.5 * torch.randn(k, n, device="cuda", generator=g))
+    bias = 0.1 * torch.randn(n, device="cuda", generator=g)
+    before = l8.gemm_int8.launches
+    got = l8.gemm_int8(qa, rs, w, cs, bias, mode)
+    assert l8.gemm_int8.launches == before + 1
+    ref = l8.gemm_int8_plain(qa, rs, w, cs, bias, mode)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if mode == "gelu":
+        assert ((got - ref).abs() <= 2.0 ** -22 * ref.abs() + 1e-6).all()
+    else:
+        assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="K-major"):
+        l8.gemm_int8(qa, rs, w.contiguous(), cs, bias, mode)
+
+
+def test_layernorm_bf16_copies_and_two_casts_on_cuda():
+    """The training LayerNorm kernels' bf16 copies are their f32 outputs
+    rounded (round_bf16_plain), bit for bit, and a bf16 layer call
+    launches round_bf16 twice (x, attn) and the LayerNorm kernels twice
+    each way."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    r, d = 2 * 145 + 3, 64
+    a, b, dy = (torch.randn(r, d, device="cuda", generator=g) for _ in range(3))
+    gamma, beta = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g), 0.1 * torch.randn(d, device="cuda", generator=g)
+    mask = (torch.rand(r, d, device="cuda", generator=g) < 0.9).to(torch.int8)
+    y, norm, rstd, y16 = lt.layernorm_train_fwd(a, b, gamma, beta, out_bf16=True)
+    assert torch.equal(y16, lt.round_bf16_plain(y))
+    dr, drm, drm16 = lt.layernorm_train_bwd(dy, norm, rstd, gamma, mask, 1.25, out_bf16=True)
+    assert torch.equal(drm16, lt.round_bf16_plain(drm))
+    torch.manual_seed(0)
+    bsz, s, f, h = 2, 145, 128, 4
+    layer = TransformerEncoderLayer(d, h, f).cuda()
+    masks = lt.gen_dropout_masks(g, bsz, s, d, f, h, 0.1)
+    x = torch.randn(bsz, s, d, device="cuda", generator=g, requires_grad=True)
+    counters = (lt.round_bf16, lt.layernorm_train_fwd, lt.layernorm_train_bwd)
+    before = [fn.launches for fn in counters]
+    lt.fused_train_layer(layer, x, masks, h, 0.1, "bfloat16").sum().backward()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 2, 2]

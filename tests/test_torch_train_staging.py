@@ -1,13 +1,15 @@
 """The bf16 mode of the port's training layer keeps its product operands in
 device memory as bf16: the four weight matrices cast once per layer call
 (`cast_weight_mats`), the activations cast once where they are made
-(`round_bf16`, or the bf16 copy a product's epilogue writes). Rounding to
+(the bf16 copy that a product's epilogue, the attention backward or a
+LayerNorm writes, or `round_bf16` for x and attn). Rounding to
 nearest even is idempotent, so this staging must not change a single bit of
 what the layer computes: these tests hold the staged chain against the
 formulation that rounds f32 operands inside every product, and against the
 JAX package's bf16 layer (rohm_tpu/ops/transformer_layer_train.py, Pallas
 in interpret mode), on the CPU, where the wrappers take their plain
-versions. They also hold the split-K planner of the wgmma GEMM.
+versions. They also hold the LayerNorms' bf16 copies to round_bf16, count
+the chain's casts, and hold the split-K planner of the wgmma GEMM.
 """
 
 import jax
@@ -18,7 +20,7 @@ import torch
 
 from rohm_tpu.ops import transformer_layer_train as jt
 from rohm_tpu_torch.ops import transformer_layer_train as lt
-from tests.test_torch_ops_train import B, D, F, H, S, _flax_layer, _jax_masks, _t, _torch_layer
+from tests.test_torch_ops_train import B, D, F, H, S, _flax_grads, _flax_layer, _jax_masks, _leaves, _t, _torch_layer
 
 torch.set_num_threads(1)
 
@@ -146,3 +148,79 @@ def test_split_k_plan_fills_the_card(m, n):
     assert splits * chunk >= k > (splits - 1) * chunk
     assert -(-m // bm) * -(-n // bn) * splits >= 2 * sms
     assert lt.plan_splits(m, n, k, (bm, bn, bk), sms) == (splits, chunk)  # a pure function
+
+
+@pytest.mark.parametrize("part", ["forward", "backward"])
+def test_plain_layernorm_bf16_copies(part):
+    """The plain LayerNorms' bf16 copies (`out_bf16`: y forward, the
+    masked gradient backward) are round_bf16_plain of their own f32
+    outputs, and asking for them changes no other output."""
+    g = torch.Generator().manual_seed(3)
+    a, b, dy = (torch.randn(2 * S, D, generator=g) for _ in range(3))
+    gamma, beta = 1.0 + 0.1 * torch.randn(D, generator=g), 0.1 * torch.randn(D, generator=g)
+    mask = (torch.rand(2 * S, D, generator=g) < 0.9).to(torch.int8)
+    _, norm, rstd = lt.layernorm_train_fwd_plain(a, b, gamma, beta)
+    if part == "forward":
+        *outs, copy = lt.layernorm_train_fwd(a, b, gamma, beta, out_bf16=True)
+        ref = lt.layernorm_train_fwd(a, b, gamma, beta)
+        f32 = outs[0]
+    else:
+        *outs, copy = lt.layernorm_train_bwd(dy, norm, rstd, gamma, mask, 1.25, out_bf16=True)
+        ref = lt.layernorm_train_bwd(dy, norm, rstd, gamma, mask, 1.25)
+        f32 = outs[1]
+    assert copy.dtype == torch.bfloat16 and torch.equal(copy, lt.round_bf16_plain(f32))
+    assert len(outs) == len(ref) and all(torch.equal(o, r) for o, r in zip(outs, ref))
+
+
+class _Counted:
+    """A kernel function that counts its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.25])
+def test_bf16_chain_casts_twice_and_matches_jax(p):
+    """The bf16 layer through fused_train_layer with a counting Kernels
+    tuple of the plain versions: `cast` (round_bf16) runs twice in the
+    forward (x, attn) and never in the backward, since LN1's forward and
+    both LayerNorm backwards hand over y1, df and do in bf16; the f32 mode
+    never casts. The layer's output, dx and its 12 parameter gradients
+    (the 16 flax leaves) hold the JAX package's bf16 layer to
+    tests/test_torch_ops_train.py's gate, 2e-3 of each output's max."""
+    tree = _flax_layer(5)
+    rng = np.random.default_rng(15)
+    x, w = (rng.standard_normal((B, S, D)).astype(np.float32) for _ in range(2))
+    key, masks = _jax_masks(16, p)
+
+    def loss(t, xx):
+        y = jt.fused_train_layer(t, xx, key, num_heads=H, dropout_p=p, dtype=jnp.bfloat16)
+        return jnp.sum(y * w), y
+
+    (_, y_j), (g_tree, gx_j) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(x))
+
+    for dtype in ("bfloat16", "float32"):
+        cast, ln_fwd, ln_bwd = (_Counted(f) for f in (lt.PLAIN.cast, lt.PLAIN.ln_fwd, lt.PLAIN.ln_bwd))
+        kernels = lt.PLAIN._replace(cast=cast, ln_fwd=ln_fwd, ln_bwd=ln_bwd)
+        layer = _torch_layer(tree)
+        xt = _t(x).requires_grad_()
+        y = lt.fused_train_layer(layer, xt, masks, H, p, dtype, kernels)
+        assert (cast.calls, ln_fwd.calls, ln_bwd.calls) == ((2, 2, 0) if dtype == "bfloat16" else (0, 2, 0))
+        (y * _t(w)).sum().backward()
+        assert (cast.calls, ln_fwd.calls, ln_bwd.calls) == ((2, 2, 2) if dtype == "bfloat16" else (0, 2, 2))
+    # the last layer run is the f32 one: compare the bf16 one, run again
+    layer = _torch_layer(tree)
+    xt = _t(x).requires_grad_()
+    y = lt.fused_train_layer(layer, xt, masks, H, p, "bfloat16", lt.PLAIN)
+    (y * _t(w)).sum().backward()
+    g_j, g_t = _leaves(g_tree), _flax_grads(layer)
+    assert sorted(g_t) == sorted(g_j) and len(g_j) == 16
+    for name, got, ref in [("y", y.detach().numpy(), np.asarray(y_j)), ("dx", xt.grad.numpy(), np.asarray(gx_j))] + \
+            [(k, g_t[k], g_j[k]) for k in g_j]:
+        err, scale = np.abs(got - ref).max(), np.abs(ref).max()
+        assert err <= 2e-3 * scale + 1e-6, f"{name}: max err {err} vs scale {scale}"
