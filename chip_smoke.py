@@ -31,8 +31,10 @@ Phases (each failure ends the run with a non-zero exit code):
      and backward ms.
   4b. long sequences: every attention kernel at S = 145, 161, 167, 177,
      209 and 1024 (2 sequences at full width) against its plain version,
-     K5 bit-identical to the K3 chain at each; then each kernel's time on
-     the card alone at S = 145, 161 and 1024 on ~9280 rows.
+     K5 bit-identical to the K3 chain at each, attention_int8 also at 192
+     and 193 (the limit of its one block per (sequence, head)); then each
+     kernel's time on the card alone at S = 145, 161 and 1024 on ~9280
+     rows.
   5. slice: the full-width AMASS inference pipeline (TrajNet + TrajControl
      mid_dim 512, PoseNet 512d x 8 layers, synthetic SMPL-X body, cosine
      100/1000-step schedules, skating guidance, 2 iterations, lower-body
@@ -1016,9 +1018,11 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
 # the shipped training length, one past each kernel's old single-tile limit
 # at dh = 128 (160: attention_train forward bf16 and backward; 166:
 # attention_f32 and the f32 training forward; 176: attention_bf16, K5 and
-# attention_int8; 208: the limit attention_int8's header once stated), and
-# 1024
+# attention_int8's key tiles; 208: the limit attention_int8's header once
+# stated), and 1024; attention_int8 also at the limit of its one block per
+# (sequence, head) and one past it
 LONG_S = (145, 161, 167, 177, 209, 1024)
+INT8_HEAD_S = (l8.ATTENTION_INT8_HEAD_KEYS, l8.ATTENTION_INT8_HEAD_KEYS + 1)
 LONG_B = 2  # sequences per call
 
 
@@ -1038,19 +1042,31 @@ def chain_attention_operands(params: tuple, fm: tuple, x, dy, seq_len: int, inv_
     return seen["qkv"], seen["da"]
 
 
+def check_attention_int8(q16: torch.Tensor, s: int, shape: str, stats: dict) -> None:
+    """attention_int8 on a bf16 QKV buffer of LONG_B sequences of s rows
+    against its plain version, under phase 3's gate."""
+    ref = l8.attention_int8_plain(q16, s, H)
+    cmax = l8.attention_int8_codes(q16, s, H)[-1].expand(LONG_B, H, s, D // H).transpose(1, 2).reshape(-1, D)
+    _check(f"attention_int8 {shape}", l8.attention_int8(q16, s, H), ref,
+           cmax / 127.0 + BF16_ULP * ref.float().abs(), "one prob code (vmax/127 of the column) + one bf16 ulp",
+           stats, "attention_int8")
+
+
 def long_seq_phase(seed: int, stats: dict) -> None:
     """Each attention kernel of the port at every S of LONG_S, on LONG_B
     sequences at full width (D=512, H=4, dh=128), against its plain version
     under the gates of phases 3, 4 and 8: the inference kernels on random
     QKV buffers, the training kernels on the operands the plain chain of a
     random layer hands them (dropout 0.1), as phase 4; K5 (8 layers of a
-    random PoseNet) against 8 launches of the K3 chain, bit for bit."""
+    random PoseNet) against 8 launches of the K3 chain, bit for bit; then
+    attention_int8 at INT8_HEAD_S, both sides of the limit of its one block
+    per (sequence, head)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev, dh, ik = "cuda", D // H, 1.0 / 0.9
     torch.manual_seed(seed)
     posenet = PoseNet().to(dev)
-    # the K3 chain takes the per-layer prep (K-major weights), K5 the
-    # stacked one (contiguous [L, K, N]): the same codes and scales
+    # the K3 chain takes the per-layer prep, K5 the stacked one (both
+    # K-major): the same codes and scales
     stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
     layers = l8.prepare_posenet_int8(posenet)["layers"]
     train_layer = TransformerEncoderLayer(D, H, F).to(dev)
@@ -1074,11 +1090,7 @@ def long_seq_phase(seed: int, stats: dict) -> None:
         q16 = qkv.to(torch.bfloat16)
         _check(f"attention_bf16 {shape}", kc.attention_bf16(q16, s, H), kc.attention_bf16_plain(q16, s, H),
                2.0 ** -6 * vmax, "2^-6 max|v|: one bf16 flip per prob + output rounding", stats, "attention_bf16")
-        ref = l8.attention_int8_plain(q16, s, H)
-        cmax = l8.attention_int8_codes(q16, s, H)[-1].expand(LONG_B, H, s, dh).transpose(1, 2).reshape(r, D)
-        _check(f"attention_int8 {shape}", l8.attention_int8(q16, s, H), ref,
-               cmax / 127.0 + BF16_ULP * ref.float().abs(), "one prob code (vmax/127 of the column) + one bf16 ulp",
-               stats, "attention_int8")
+        check_attention_int8(q16, s, shape, stats)
         x = torch.randn(LONG_B, s, D, generator=g, device=dev).to(torch.bfloat16)
         k3 = x
         for prep in layers:
@@ -1110,6 +1122,10 @@ def long_seq_phase(seed: int, stats: dict) -> None:
             check_bwd(f"attention_train_bwd {mode} {shape}", got, qq, dd, mask, s, ik, bf16, stats)
             if bf16 and not torch.equal(got16, got.to(torch.bfloat16)):
                 raise AssertionError(f"attention_train_bwd: the bf16 copy of dqkv is not its f32 result at S={s}")
+    for s in INT8_HEAD_S:
+        qkv = torch.randn(LONG_B * s, 3 * D, generator=g, device=dev)
+        qkv[:, :D] *= dh ** -0.5
+        check_attention_int8(qkv.to(torch.bfloat16), s, f"[{LONG_B} seq x {H} heads, S={s}, dh={dh}]", stats)
     torch.cuda.synchronize()
 
 
@@ -1714,8 +1730,8 @@ def bench_phase(seed: int, stats: dict) -> dict:
     # (bit for bit: the same device routines) and the plain stack
     torch.manual_seed(seed)
     posenet = PoseNet().to(dev)
-    # the K3 chain on the per-layer prep (K-major weights), K5 on the
-    # stacked one (contiguous [L, K, N]) of the same PoseNet: the same codes
+    # the K3 chain on the per-layer prep, K5 on the stacked one (both
+    # K-major) of the same PoseNet: the same codes
     stacked = mega(posenet)["layers_stacked"]
     layers = l8.prepare_posenet_int8(posenet)["layers"]
     x = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
@@ -1726,9 +1742,9 @@ def bench_phase(seed: int, stats: dict) -> dict:
         return xx
 
     got, k3 = l8.fused_encoder_stack_int8(x, stacked, H), k3_chain(x)
-    per_sm, sms = l8.stack_grid(S, D // H)
+    per_sm, sms, threads = l8.stack_grid(S, D // H)
     same = torch.equal(got, k3)
-    log(f"[bench] encoder_stack_int8, one cooperative launch of {per_sm} x {sms} blocks of 256 threads for "
+    log(f"[bench] encoder_stack_int8, one cooperative launch of {per_sm} x {sms} blocks of {threads} threads for "
         f"8 layers, against 8 launches of the K3 chain: {'bit-identical' if same else 'DIFFERENT'}")
     if not same:
         raise AssertionError("the stack kernel is not bit-identical to the K3 chain")
@@ -1767,8 +1783,9 @@ def bench_phase(seed: int, stats: dict) -> dict:
     log(f"[bench] encoder_stack_int8 phases, us summed over the 8 layers (one launch): quant x {gaps[0] / 1e3:.1f}, "
         + ", ".join(f"{name} {us:.1f}" for name, us in phases.items()) + f"; total {sum(gaps) / 1e3:.1f}")
     device_busy(lambda: k3_chain(x), 5, "the K3 chain, 8 layers", "bench")
-    out = {"stack": {"blocks_per_sm": per_sm, "sms": sms, "ms": stats["encoder_stack_int8"]["ms"],
-                     "k3_chain_ms": chain_ms, "k3_graph_ms": graph_ms, "phases_us": phases}}
+    out = {"stack": {"blocks_per_sm": per_sm, "sms": sms, "threads": threads,
+                     "ms": stats["encoder_stack_int8"]["ms"], "k3_chain_ms": chain_ms, "k3_graph_ms": graph_ms,
+                     "phases_us": phases}}
 
     # the bench chain (rohm_tpu_torch.bench, the port of root bench.py) on
     # the per-layer prep, then on the mega prep with the same seeds

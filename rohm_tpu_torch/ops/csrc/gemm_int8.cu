@@ -13,9 +13,9 @@
 // takes 8-bit operands only K-major, so W is stored [N, K]: the caller's
 // [K, N] weight is the .t() view of it (prepare_layer_int8 makes it so).
 // The epilogue runs on the tile staged in shared memory, one rolled loop of
-// four columns per step, each output finished by rohm::gemm_int8_value
-// (layer_routines.cuh), the routine the whole-stack kernel's WMMA tile
-// ends with: the int32 sums are exact in both, so the two agree bit for
+// four columns per step, each output finished by rohm::Int8Epilogue
+// (layer_routines.cuh), which the whole-stack kernel's GEMM phases run on
+// the same main loop: the int32 sums are exact, so the two agree bit for
 // bit. Tiles: 128 x 128 above N = WIDE_ABOVE (qkv: at M = 4608, 432 tiles,
 // two 97 KB blocks per SM), 128 x NARROW_BN up to it (the out-projection
 // and FF2, 288 tiles, and FF1, 576; three 73 KB blocks per SM). K is 512 or
@@ -35,39 +35,14 @@ namespace {
 // the tile width: 128 for N above WIDE_ABOVE, NARROW_BN up to it
 constexpr int NARROW_BN = 64, WIDE_ABOVE = 1024;
 
-// C[m, n..n+3] from the int32 sums v (converted to f32 in the staging)
-template <int MODE>
-struct Int8Epilogue {
-  const float* row_scale;
-  const float* col_scale;
-  const float* bias;
-  void* C;
-  int N;
-
-  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
-    const float rs = __ldg(row_scale + m);
-    const float4 cs = __ldg(reinterpret_cast<const float4*>(col_scale + n));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + n));
-    const float r0 = rohm::gemm_int8_value<MODE>(v.x, rs, cs.x, b.x);
-    const float r1 = rohm::gemm_int8_value<MODE>(v.y, rs, cs.y, b.y);
-    const float r2 = rohm::gemm_int8_value<MODE>(v.z, rs, cs.z, b.z);
-    const float r3 = rohm::gemm_int8_value<MODE>(v.w, rs, cs.w, b.w);
-    const size_t o = (size_t)m * N + n;
-    if (MODE == 0)
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(C) + o) =
-          make_uint2(rohm::pack_bf16(r0, r1), rohm::pack_bf16(r2, r3));
-    else
-      *reinterpret_cast<float4*>(static_cast<float*>(C) + o) = make_float4(r0, r1, r2, r3);
-  }
-};
-
 template <int MODE, int BN>
 cudaError_t launch_tiles(const void* A, const void* row_scale, const void* W, const void* col_scale, const void* bias,
                    void* C, int M, int N, int K, cudaStream_t s) {
   CUtensorMap ta, tw;
   if (!wg::encode_operands<false, true, BN, wg::S8>(&ta, &tw, A, W, M, N, K)) return cudaErrorInvalidValue;
-  const Int8Epilogue<MODE> epi{static_cast<const float*>(row_scale), static_cast<const float*>(col_scale),
-                               static_cast<const float*>(bias), C, N};
+  const rohm::Int8Epilogue<MODE, true> epi{static_cast<const float*>(row_scale),
+                                           static_cast<const float*>(col_scale), static_cast<const float*>(bias), C,
+                                           N};
   return wg::launch<false, true, BN, wg::S8>(ta, tw, M, N, K, 1, K, epi, s);
 }
 

@@ -2,17 +2,17 @@
 // (attention_bf16.cu, quant_rows_int8.cu, residual_layernorm.cu) and the
 // whole-stack kernel (encoder_stack_int8.cu). Both run these routines, so
 // both do the same arithmetic in the same order and the stack's output is
-// bit-identical to the per-layer chain. The per-layer W8A8 product
-// (gemm_int8.cu) runs its own main loop (TMA + wgmma s8) and the stack its
-// WMMA tile (gemm_int8_tile); their int32 sums are exact either way, and
-// both finish each output with gemm_int8_value.
+// bit-identical to the per-layer chain. The W8A8 product is the TMA +
+// wgmma s8 main loop of wgmma_gemm.cuh in both (gemm_int8.cu, and the
+// stack's GEMM phases), and Int8Epilogue below finishes each output of
+// both with gemm_int8_value.
 //
-// A routine is run by a group of threads: 128 threads (4 warps) for a GEMM
-// tile or a row, the whole 256-thread block for an attention item. A
-// 128-thread group synchronises on its own named barrier `bar`: barrier 0
-// in the per-layer kernels, whose blocks are 128 threads, and 1 or 2 for
-// the two halves of a 256-thread block in the stack kernel. The row
-// reductions therefore always run over 128 threads in the same tree.
+// A row routine is run by a group of 128 threads (4 warps), an attention
+// item by the whole block. A 128-thread group synchronises on its own
+// named barrier `bar`: barrier 0 in the per-layer kernels, whose blocks
+// are 128 threads, and 1 or 2 for the two 128-thread halves of the stack
+// kernel's block. The row reductions therefore always run over 128
+// threads in the same tree.
 //
 // Activation pointers are plain (no __restrict__, no __ldg): the stack
 // kernel writes and reads its activations in one launch, where a load
@@ -25,7 +25,7 @@
 
 namespace rohm {
 
-constexpr int GROUP = 128;  // threads of a GEMM tile or a row
+constexpr int GROUP = 128;  // threads of a row
 
 __device__ __forceinline__ void group_sync(int bar, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(n) : "memory");
@@ -132,83 +132,37 @@ __device__ __forceinline__ float gemm_int8_value(float acc, float rs, float cs, 
 }
 
 // ---------------------------------------------------------------------------
-// one 64 x 64 tile of the W8A8 product, 128 threads (4 warps of 32 x 32), as
-// the whole-stack kernel runs it
+// C[m, n..n+3] of the W8A8 product
 //   C = (float(A_i8 @ W_i8) * row_scale[m]) * col_scale[n] + bias[n]
 //   MODE 0: store bf16; 1: store f32; 2: tanh-gelu, store f32
-// A [M, K] and W [K, N] row-major (the stack's weights are contiguous
-// [L, K, N]). WMMA s8 16x16x16 tiles with int32 sums. WMMA wants 256-bit aligned
-// fragment pointers, which 16-byte k-steps of int8 rows cannot give in a
-// plain row-major tile, so the tiles sit in shared memory as 16-byte-wide
-// panels: A as [k-half][row][16], W as [n-panel][k][16].
+// from v, the int32 sums converted to f32 (wgmma_gemm.cuh's epilogue
+// hands out four columns at a time). ROW_LDG reads row_scale through the
+// read-only path: not in the stack kernel, which writes its row scales in
+// the same launch.
 // ---------------------------------------------------------------------------
-namespace gemm_i8 {
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDC = BN + 4;
-constexpr int A_BYTES = (BK / 16) * BM * 16, B_BYTES = (BN / 16) * BK * 16;
-constexpr int SMEM = A_BYTES + B_BYTES + BM * LDC * 4;  // 21504 bytes
-}  // namespace gemm_i8
+template <int MODE, bool ROW_LDG>
+struct Int8Epilogue {
+  const float* row_scale;
+  const float* col_scale;
+  const float* bias;
+  void* C;
+  int N;
 
-template <int MODE>
-__device__ __forceinline__ void gemm_int8_tile(const int8_t* A, const float* row_scale, const int8_t* W,
-                                               const float* col_scale, const float* bias, void* C, int M,
-                                               int N, int K, int m0, int n0, int t, int bar,
-                                               unsigned char* smem) {
-  using namespace nvcuda;
-  using namespace gemm_i8;
-  auto As = reinterpret_cast<int8_t(*)[BM][16]>(smem);
-  auto Bs = reinterpret_cast<int8_t(*)[BK][16]>(smem + A_BYTES);
-  int* Cs = reinterpret_cast<int*>(smem + A_BYTES + B_BYTES);
-  const int warp = t / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int c = t; c < BM * (BK / 16); c += GROUP) {
-      const int r = c / (BK / 16), h = c % (BK / 16);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M) v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + h * 16);
-      *reinterpret_cast<uint4*>(&As[h][r][0]) = v;
-    }
-    for (int c = t; c < BK * (BN / 16); c += GROUP) {
-      const int kr = c / (BN / 16), p = c % (BN / 16);
-      *reinterpret_cast<uint4*>(&Bs[p][kr][0]) =
-          *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kr) * N + n0 + p * 16);
-    }
-    group_sync(bar, GROUP);
-    for (int kh = 0; kh < BK / 16; ++kh) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], reinterpret_cast<const signed char*>(&As[kh][wm + i * 16][0]), 16);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(
-            b[j], reinterpret_cast<const signed char*>(&Bs[(wn + j * 16) / 16][kh * 16][0]), 16);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    group_sync(bar, GROUP);
-  }
-
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  group_sync(bar, GROUP);
-
-  for (int e = t; e < BM * BN; e += GROUP) {
-    const int r = e / BN, c = e % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M) continue;
-    const float v = gemm_int8_value<MODE>((float)Cs[r * LDC + c], row_scale[m], col_scale[n], bias[n]);
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    const float rs = ROW_LDG ? __ldg(row_scale + m) : row_scale[m];
+    const float4 cs = __ldg(reinterpret_cast<const float4*>(col_scale + n));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + n));
+    const float r0 = gemm_int8_value<MODE>(v.x, rs, cs.x, b.x);
+    const float r1 = gemm_int8_value<MODE>(v.y, rs, cs.y, b.y);
+    const float r2 = gemm_int8_value<MODE>(v.z, rs, cs.z, b.z);
+    const float r3 = gemm_int8_value<MODE>(v.w, rs, cs.w, b.w);
     const size_t o = (size_t)m * N + n;
-    if (MODE == 0) static_cast<__nv_bfloat16*>(C)[o] = __float2bfloat16_rn(v);
-    else static_cast<float*>(C)[o] = v;
+    if (MODE == 0)
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(C) + o) = make_uint2(pack_bf16(r0, r1), pack_bf16(r2, r3));
+    else
+      *reinterpret_cast<float4*>(static_cast<float*>(C) + o) = make_float4(r0, r1, r2, r3);
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // attention on the fused QKV buffer [B*S, 3D] bf16 (1/sqrt(dh) folded into
@@ -239,7 +193,7 @@ __device__ __forceinline__ void gemm_int8_tile(const int8_t* A, const float* row
 // ---------------------------------------------------------------------------
 namespace attn_bf16 {
 constexpr int QC = 16;        // query rows per chunk
-constexpr int THREADS = 256;  // the tiled item's block (8 warps)
+constexpr int THREADS = 256;  // the per-layer kernel's block for the tiled item (8 warps)
 constexpr int KT = 144;       // keys of one tile: S <= KT takes the row items
 
 inline __host__ __device__ bool tiled(int s_pad) { return s_pad > KT; }
@@ -270,7 +224,8 @@ inline __host__ __device__ size_t smem_bytes(int s_pad, int dh) {
 // faster at dh = 128 on an H100), DH = 0 takes head_dim, any multiple of
 // 16; both give the same bits. Not inlined: its 72 score registers would
 // otherwise raise the register pressure of every phase of the whole-stack
-// kernel (two blocks per SM cap it at 128).
+// kernel (one block of 288 threads per SM caps it at 168 registers; two
+// would cap it at 96, where this routine spills).
 template <bool NO_SOFTMAX, int DH>
 __device__ __noinline__ void attention_bf16_rows(const __nv_bfloat16* qkv, __nv_bfloat16* out, int S,
                                                  int H, int head_dim, int s_pad, int b, int h, int q0,
@@ -411,15 +366,15 @@ __device__ __noinline__ void attention_bf16_rows(const __nv_bfloat16* qkv, __nv_
   }
 }
 
-// One 16-query chunk of (sequence b, head h), S > KT, by the whole
-// 256-thread block.
+// One 16-query chunk of (sequence b, head h), S > KT, by the whole block
+// (any number of warps: each score tile, row and output tile is one
+// warp's, so any count gives the same bits).
 template <bool NO_SOFTMAX>
 __device__ __forceinline__ void attention_bf16_tiled_item(const __nv_bfloat16* qkv, __nv_bfloat16* out, int S,
                                                           int H, int dh, int b, int h, int q0,
                                                           unsigned char* smem) {
   using namespace nvcuda;
   using attn_bf16::QC;
-  using attn_bf16::THREADS;
   constexpr int kt = attn_bf16::KT;
   const int D = H * dh, row_stride = 3 * D;
   const int ldk = dh + 8, lds = kt + 4, ldp = kt + 8, ldo = dh + 4;
@@ -433,11 +388,12 @@ __device__ __forceinline__ void attention_bf16_tiled_item(const __nv_bfloat16* q
   float* rmax = Os + QC * ldo;  // per query row: max, sum
   float* rsum = rmax + QC;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nwarps = THREADS / 32;
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int nwarps = nthreads / 32;
   const int chunks = dh / 8;  // 16-byte chunks per head row
   const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride + h * dh;
 
-  for (int c = tid; c < QC * chunks; c += THREADS) {
+  for (int c = tid; c < QC * chunks; c += nthreads) {
     const int r = c / chunks, col = (c % chunks) * 8;
     uint4 qv = make_uint4(0, 0, 0, 0);
     if (q0 + r < S) qv = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * row_stride + col);
@@ -447,7 +403,7 @@ __device__ __forceinline__ void attention_bf16_tiled_item(const __nv_bfloat16* q
   // = Q K^T (K read column-major as K^T)
   auto tile_scores = [&](int k0, int nk16, bool with_v) {
     __syncthreads();
-    for (int c = tid; c < nk16 * chunks; c += THREADS) {
+    for (int c = tid; c < nk16 * chunks; c += nthreads) {
       const int r = c / chunks, col = (c % chunks) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (k0 + r < S) {
@@ -536,7 +492,7 @@ __device__ __forceinline__ void attention_bf16_tiled_item(const __nv_bfloat16* q
   }
   __syncthreads();
 
-  for (int e = tid; e < QC * dh; e += THREADS) {
+  for (int e = tid; e < QC * dh; e += nthreads) {
     const int r = e / dh, c = e % dh;
     if (q0 + r < S)
       out[((size_t)b * S + q0 + r) * D + h * dh + c] = __float2bfloat16_rn(Os[r * ldo + c]);

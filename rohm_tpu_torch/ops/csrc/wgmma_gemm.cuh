@@ -1,7 +1,10 @@
 // The Hopper GEMM main loop of the port, shared by gemm_train.cu (the
-// training products), gemm_bf16.cu (the bf16 inference layer's products)
-// and gemm_int8.cu (the W8A8 layer's products): C tile [128 x BN] =
-// op(A) . op(B), then an epilogue that each caller supplies. It is
+// training products), gemm_bf16.cu (the bf16 inference layer's products),
+// gemm_int8.cu (the W8A8 layer's products) and encoder_stack_int8.cu (the
+// whole stack's GEMM phases): C tile [128 x BN] = op(A) . op(B), then an
+// epilogue that each caller supplies. One routine, gemm_tile, runs a tile;
+// gemm_kernel runs it once per block, the stack kernel in a grid-stride
+// loop over each phase's tiles, its ring carried from tile to tile. It is
 // templated on the operand type (`Op`): bf16 with f32 sums, or s8 with
 // s32 sums. In bytes the two are the same tile: a k-step is one 128-byte
 // row of each operand (64 bf16 or 128 s8 values, the 128-byte swizzle's
@@ -105,6 +108,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// box (c0 = column, c1 = row, c2 = matrix) of a 3-D tensor map -> shared memory
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -237,51 +250,62 @@ constexpr int TB_K = Bf16::K_STEP;  // the bf16 k-step: gemm_train's split-K uni
 // Each row of a box is 128 bytes, swizzled in groups of 8 rows (sbo 1 KB).
 // A wgmma's 32-byte slice of K (k16 bf16, k32 s8) starts 32 bytes further
 // along a K-major row, 16 rows (2 KB) further down an MN-major box.
-// blockIdx.z picks the k_chunk-deep slice of K that this block sums
-// (split-K; the epilogue sees blockIdx.z).
-template <bool AT, bool BT, int BN, class Op, class Epilogue>
-__global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
-    __grid_constant__ const CUtensorMap tma_a, __grid_constant__ const CUtensorMap tma_b, int M, int N,
-    int K, int k_chunk, Epilogue epi) {
-  using T = Tile<BN>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t ring = (rohm::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = ring + STAGES * T::STAGE_BYTES;  // full[STAGES], then empty[STAGES]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * TB_M, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
-  const int steps = k_end > k_begin ? (k_end - k_begin + Op::K_STEP - 1) / Op::K_STEP : 0;
-  if (tid == 0) {
+//
+// A block's ring: its stages from `base` (1024-aligned), the epilogue's
+// staging tile (`tile`: the generic address of `base`, over the stages,
+// unless the caller points it elsewhere), and its
+// mbarriers full[STAGES] then empty[STAGES] at `bars`. `it` counts the
+// k-steps the thread's role has loaded (the producer warp) or consumed (the
+// consumers) over every tile the block has run: a k-step's stage is
+// it % STAGES and its mbarrier parity (it / STAGES) & 1, so a caller that
+// runs several tiles carries `it` from one to the next.
+struct Ring {
+  uint32_t base, bars;
+  float* tile;
+  int it;
+};
+
+// the ring at the first 1024-aligned byte of `smem` (generic), its
+// mbarriers at `bars`; thread 0 initialises them, then the whole block syncs
+__device__ __forceinline__ Ring ring_init(uint8_t* smem, uint32_t bars) {
+  const uint32_t base = (rohm::smem_u32(smem) + 1023u) & ~1023u;
+  if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);                            // the producer's arrive + the bytes
-      mbar_init(bars + 8 * (STAGES + s), CONSUMERS / 32);    // one arrive per consumer warp
+      mbar_init(bars + 8 * s, 1);                          // the producer's arrive + the bytes
+      mbar_init(bars + 8 * (STAGES + s), CONSUMERS / 32);  // one arrive per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  return Ring{base, bars, reinterpret_cast<float*>(smem + (base - rohm::smem_u32(smem))), 0};
+}
+
+// One 128 x BN tile of C at (m0, n0), summed over K in [k_begin, k_end),
+// by a block of THREADS: warps 0-7 the consumers, warp 8 the producer.
+// `load(a, b, full, k)` (run by lane 0 of the producer) issues the TMA
+// loads of the k-step at k into the stage's A and B with `full` as their
+// mbarrier. The producer warp returns when its loads are issued; the
+// consumers return after the epilogue. Where its staging tile lies over
+// the stages, a caller that runs another tile keeps the producer from
+// loading into them before the epilogue is done.
+template <bool AT, bool BT, int BN, class Op, class Load, class Epilogue>
+__device__ __forceinline__ void gemm_tile(Ring& ring, int m0, int n0, int M, int N, int k_begin, int k_end,
+                                          const Load& load, const Epilogue& epi) {
+  using T = Tile<BN>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int steps = k_end > k_begin ? (k_end - k_begin + Op::K_STEP - 1) / Op::K_STEP : 0;
 
   if (warp == CONSUMERS / 32) {  // the producer warp: one lane issues every load
     if (lane == 0) {
-      for (int it = 0; it < steps; ++it) {
-        const int s = it % STAGES;
-        const uint32_t full = bars + 8 * s, a = ring + s * T::STAGE_BYTES, b = a + A_BYTES;
-        if (it >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
+      for (int i = 0; i < steps; ++i) {
+        const int it = ring.it + i, s = it % STAGES;
+        const uint32_t full = ring.bars + 8 * s, a = ring.base + s * T::STAGE_BYTES;
+        if (it >= STAGES) mbar_wait(ring.bars + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(full, T::STAGE_BYTES);
-        const int k = k_begin + it * Op::K_STEP;
-        if (AT) {
-          tma_load(a, &tma_a, full, m0, k);
-          tma_load(a + HALF_BYTES, &tma_a, full, m0 + 64, k);
-        } else {
-          tma_load(a, &tma_a, full, k, m0);
-        }
-        if (BT) {
-          tma_load(b, &tma_b, full, k, n0);
-        } else {
-#pragma unroll
-          for (int c = 0; c < BN / 64; ++c) tma_load(b + c * HALF_BYTES, &tma_b, full, n0 + 64 * c, k);
-        }
+        load(a, a + A_BYTES, full, k_begin + i * Op::K_STEP);
       }
     }
+    ring.it += steps;
     return;
   }
 
@@ -290,10 +314,10 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
   typename Op::Acc acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-  for (int it = 0; it < steps; ++it) {
-    const int s = it % STAGES;
-    mbar_wait(bars + 8 * s, (it / STAGES) & 1);
-    const uint32_t a = ring + s * T::STAGE_BYTES + wg * HALF_BYTES, b = ring + s * T::STAGE_BYTES + A_BYTES;
+  for (int i = 0; i < steps; ++i) {
+    const int it = ring.it + i, s = it % STAGES;
+    mbar_wait(ring.bars + 8 * s, (it / STAGES) & 1);
+    const uint32_t stage = ring.base + s * T::STAGE_BYTES, a = stage + wg * HALF_BYTES, b = stage + A_BYTES;
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
@@ -306,14 +330,15 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(acc);
     __syncwarp();
-    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + s));  // this warp is done with stage s
+    if (lane == 0) mbar_arrive(ring.bars + 8 * (STAGES + s));  // this warp is done with stage s
   }
+  ring.it += steps;
 
   // Accumulator i of thread (warp, lane) is row 16 * (warp % 4) + lane / 4
   // + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the
   // warpgroup's 64 x BN.
   asm volatile("bar.sync 1, 256;" ::: "memory");
-  float* tile = reinterpret_cast<float*>(smem_raw + (ring - rohm::smem_u32(smem_raw)));
+  float* tile = ring.tile;
   const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4, c0 = 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
@@ -330,6 +355,35 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
     if (m >= M || n >= N) continue;
     epi(m, n, *reinterpret_cast<const float4*>(tile + r * T::LD + c));
   }
+}
+
+// One tile per block. blockIdx.z picks the k_chunk-deep slice of K that
+// this block sums (split-K; the epilogue sees blockIdx.z).
+template <bool AT, bool BT, int BN, class Op, class Epilogue>
+__global__ void __launch_bounds__(THREADS, Tile<BN>::MIN_BLOCKS) gemm_kernel(
+    __grid_constant__ const CUtensorMap tma_a, __grid_constant__ const CUtensorMap tma_b, int M, int N,
+    int K, int k_chunk, Epilogue epi) {
+  using T = Tile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t bars = ((rohm::smem_u32(smem_raw) + 1023u) & ~1023u) + STAGES * T::STAGE_BYTES;
+  Ring ring = ring_init(smem_raw, bars);
+  const int m0 = blockIdx.y * TB_M, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  auto load = [&](uint32_t a, uint32_t b, uint32_t full, int k) {
+    if (AT) {
+      tma_load(a, &tma_a, full, m0, k);
+      tma_load(a + HALF_BYTES, &tma_a, full, m0 + 64, k);
+    } else {
+      tma_load(a, &tma_a, full, k, m0);
+    }
+    if (BT) {
+      tma_load(b, &tma_b, full, k, n0);
+    } else {
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) tma_load(b + c * HALF_BYTES, &tma_b, full, n0 + 64 * c, k);
+    }
+  };
+  gemm_tile<AT, BT, BN, Op>(ring, m0, n0, M, N, k_begin, k_end, load, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,6 +425,23 @@ inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int bo
   const cuuint32_t box[2] = {(cuuint32_t)Op::K_STEP, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, Op::MAP_TYPE, 2, const_cast<void*>(ptr), dims, pitch, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `count` row-major matrices [rows, cols] of Op's values stored one after
+// another, read in boxes of box_rows x one k-step of one matrix (the
+// matrix is the map's third coordinate)
+template <class Op>
+inline bool encode_stacked(CUtensorMap* map, const void* ptr, int count, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t row_bytes = (cuuint64_t)cols * (K_BYTES / Op::K_STEP);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)count};
+  const cuuint64_t pitch[2] = {row_bytes, row_bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)Op::K_STEP, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, Op::MAP_TYPE, 3, const_cast<void*>(ptr), dims, pitch, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

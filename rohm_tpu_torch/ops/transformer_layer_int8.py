@@ -28,10 +28,12 @@ The whole stack of L such layers also runs as one launch,
 _mega_kernel_int8): a persistent cooperative kernel whose phases are the
 chain above, separated by grid-wide barriers, with the intermediates in a
 workspace that stays largely in L2. Its phases run the same device
-routines as the per-layer kernels (csrc/layer_routines.cuh), so its output
-is bit-identical to L launches of the chain. `prepare_posenet_int8(mega=True)`
+routines as the per-layer kernels (gemm_int8's TMA + wgmma main loop and
+epilogue, csrc/layer_routines.cuh's rows and attention), so its output is
+bit-identical to L launches of the chain. `prepare_posenet_int8(mega=True)`
 files the layers under "layers_stacked" (16 tensors with a leading [L]
-dim), which selects it in posenet_apply_prepared.
+dim, the four weights [L, K, N] stored K-major), which selects it in
+posenet_apply_prepared.
 
 `quant_rows_int8` (csrc/quant_rows_int8.cu), `gemm_int8` (csrc/gemm_int8.cu),
 `attention_int8` and the stack kernel live here.
@@ -144,6 +146,27 @@ def check_gemm_int8_operands(qa: torch.Tensor, w_q: torch.Tensor) -> None:
                          "(K a multiple of 16, N of 4)")
 
 
+STACKED_WEIGHTS = (0, 3, 8, 11)  # the int8 weights among the 16 stacked tensors
+
+
+def check_stack_int8_weights(stacked: tuple) -> None:
+    """The layout of the whole-stack kernel's weights, on any device: each
+    of the four int8 weights [L, K, N] stored K-major (strides (N K, 1, K),
+    the .transpose(1, 2) view of a contiguous [L, N, K], as
+    prepare_posenet_int8(mega=True) makes it; its tensor maps read [L, N, K]
+    and a weight in another layout is refused, not copied per call).
+    Raises ValueError."""
+    for i in STACKED_WEIGHTS:
+        w = stacked[i]
+        if w.dim() != 3:
+            raise ValueError(f"fused_encoder_stack_int8: stacked[{i}] must be [L, K, N], got {tuple(w.shape)}")
+        _, k, n = w.shape
+        if w.stride() != (n * k, 1, k):
+            raise ValueError(f"fused_encoder_stack_int8: stacked[{i}] [L, K, N] must be stored K-major (strides "
+                             f"(N K, 1, K) = ({n * k}, 1, {k}), the .transpose(1, 2) view of a contiguous [L, N, K]; "
+                             f"prepare_posenet_int8(mega=True) makes it so), got strides {w.stride()}")
+
+
 def gemm_int8_plain(qa, row_scale, w_q, col_scale, bias, mode: str) -> torch.Tensor:
     """The W8A8 product in plain PyTorch, on a weight in any layout. The
     int8 values multiply as f32, which is exact: every partial sum is an
@@ -233,9 +256,12 @@ def attention_int8(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Ten
     column, int32 P.V.
 
     Replaces `attention_int8` inside _layer_kernel_int8 (qattn=True). CUDA:
-    csrc/attention_int8.cu, one block per (48 queries, sequence, head), K
-    and V staged and quantized in tiles of up to 176 keys (any S), int8
-    WMMA for both products."""
+    csrc/attention_int8.cu. Up to S = ATTENTION_INT8_HEAD_KEYS (dh a
+    multiple of 32 up to 128): one block per (sequence, head), K and V
+    quantized once into shared memory, each warp's 16 query rows through
+    mma.sync s8 with the scores in registers. Past it: one block per (48
+    queries, sequence, head), K and V staged and quantized in tiles of up
+    to 176 keys (any S), int8 WMMA for both products."""
     if qkv.device.type == "cpu":
         return attention_int8_plain(qkv, seq_len, num_heads)
     check_cuda(qkv, torch.bfloat16, 2, "qkv")
@@ -251,6 +277,7 @@ def attention_int8(qkv: torch.Tensor, seq_len: int, num_heads: int) -> torch.Ten
 
 
 attention_int8.launches = 0
+ATTENTION_INT8_HEAD_KEYS = 192  # csrc/attention_int8.cu's HEAD_KEYS: one block per (sequence, head) up to it
 
 
 def _layer(x, prepared, num_heads, quant, gemm, attention, res_ln):
@@ -334,11 +361,13 @@ def fused_encoder_stack_int8(x: torch.Tensor, stacked: tuple, num_heads: int = 4
 
     Replaces _mega_kernel_int8 (rohm_tpu/ops/transformer_layer_int8.py).
     CUDA: csrc/encoder_stack_int8.cu, one persistent cooperative kernel
-    whose phases (the K3 chain's GEMM tiles, attention items and rows,
-    separated by grid-wide barriers) run the per-layer kernels' routines:
-    bit-identical to L launches of the fused_encoder_layer_int8 chain. The
-    intermediates live in a workspace allocated here per call (~66 MB at
-    B=32, S=144). A grid the card cannot hold at once raises."""
+    whose phases (the K3 chain's GEMM tiles on the TMA + wgmma s8 main
+    loop, attention items and rows, separated by grid-wide barriers) run
+    the per-layer kernels' routines: bit-identical to L launches of the
+    fused_encoder_layer_int8 chain. The four weights are stored K-major
+    (check_stack_int8_weights). The intermediates live in a workspace
+    allocated here per call (~66 MB at B=32, S=144). A grid the card cannot
+    hold at once raises."""
     if x.device.type == "cpu":
         return fused_encoder_stack_int8_plain(x, stacked, num_heads)
     x = x.to(torch.bfloat16).contiguous()
@@ -349,9 +378,14 @@ def fused_encoder_stack_int8(x: torch.Tensor, stacked: tuple, num_heads: int = 4
         raise ValueError(f"fused_encoder_stack_int8: D={d}, F={f}, H={num_heads} unsupported")
     shapes = _stack_shapes(num_layers, d, f)
     for i, (t, shape) in enumerate(zip(stacked, shapes, strict=True)):
-        check_cuda(t, torch.int8 if i in (0, 3, 8, 11) else torch.float32, len(shape), f"stacked[{i}]")
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_encoder_stack_int8: stacked[{i}] is {tuple(t.shape)}, expected {shape}")
+    check_stack_int8_weights(stacked)
+    for i, t in enumerate(stacked):
+        if i in STACKED_WEIGHTS:
+            check_cuda(t.transpose(1, 2), torch.int8, 3, f"stacked[{i}]^T")
+        else:
+            check_cuda(t, torch.float32, t.dim(), f"stacked[{i}]")
     if phase_ns is not None:
         check_cuda(phase_ns, torch.int64, 1, "phase_ns")
         if phase_ns.shape[0] != 2 + 9 * num_layers:
@@ -377,12 +411,12 @@ def fused_encoder_stack_int8(x: torch.Tensor, stacked: tuple, num_heads: int = 4
 fused_encoder_stack_int8.launches = 0
 
 
-def stack_grid(seq_len: int, head_dim: int) -> tuple[int, int]:
-    """(blocks per SM, SMs) of fused_encoder_stack_int8's launch on the
-    current card: the grid is their product."""
-    out = (ctypes.c_int * 2)()
+def stack_grid(seq_len: int, head_dim: int) -> tuple[int, int, int]:
+    """(blocks per SM, SMs, threads per block) of fused_encoder_stack_int8's
+    launch on the current card: the grid is the product of the first two."""
+    out = (ctypes.c_int * 3)()
     launch("rt_encoder_stack_int8_grid", seq_len, head_dim, ctypes.addressof(out))
-    return out[0], out[1]
+    return out[0], out[1], out[2]
 
 
 def _stack_shapes(num_layers: int, d: int, f: int) -> list[tuple]:
@@ -402,10 +436,13 @@ def prepare_posenet_int8(posenet, qattn: bool = False, mega: bool = False) -> di
     for the whole-stack kernel. `mega` takes precedence over `qattn`."""
     layers = tuple(prepare_layer_int8(layer) for layer in posenet.seqTransEncoder.layers)
     if mega:
-        # torch.stack copies the K-major weight views into a contiguous
-        # [L, K, N]: the row-major layout the stack kernel's WMMA tiles read
-        # (its wrapper refuses any other)
-        entry = {"layers_stacked": tuple(torch.stack([lay[i] for lay in layers]) for i in range(16))}
+        # each int8 weight stacked as a contiguous [L, N, K] and handed out as
+        # its [L, K, N] view, K-major as the stack kernel's tensor maps read
+        # it (its wrapper refuses any other layout); a layer's slice is then
+        # the per-layer prep's [K, N] view, strides (1, K)
+        entry = {"layers_stacked": tuple(
+            torch.stack([lay[i].t() for lay in layers]).transpose(1, 2) if i in STACKED_WEIGHTS
+            else torch.stack([lay[i] for lay in layers]) for i in range(16))}
     else:
         entry = {"layers_qattn" if qattn else "layers": layers}
     return {**entry, **posenet_prep_tail(posenet)}

@@ -21,18 +21,22 @@ with their bf16 operand: one launch where the kernel writes the copy, a
 `attention_f32` and `attention_train_fwd` in the f32 mode at 8
 sequences of 1024 tokens; at the inference shapes (32 clips x 144
 tokens): `attention_f32`,
-`attention_bf16`, `attention_int8`, the four `gemm_bf16` products of a
+`attention_bf16`, `attention_int8` (also at 32 sequences of its one-block
+limit, ATTENTION_INT8_HEAD_KEYS, and one key past it), the four
+`gemm_bf16` products of a
 bf16 layer (each, their sum, and the host's microseconds to enqueue one),
 the four `gemm_int8` products of an int8 layer (each, their sum, and
 `torch._int_mm` on the same operands; in this checkout's runs also the
 four on two other tile choices, INT8_TILE_VARIANTS, from variant
 libraries built once before the runs)
 and the four `gemm_f32` products of an f32 layer (each, their sum), the
-f32, bf16 and int8 inference layers (`fused_encoder_layer`,
+f32, bf16, int8 and int8qa inference layers (`fused_encoder_layer`,
 `fused_encoder_layer_bf16` / `_int8`), and the whole-stack
 `encoder_stack_int8` (8 layers, with its phases from the global timer at
 its barriers, the median of 9 launches, and its registers and spills from
-the build log), and one f32 PoseNet step (`posenet_apply_fused`, 32 x 143,
+the build log; in this checkout's runs also two other tile choices and
+two blocks per SM, STACK_VARIANTS, each held bit for bit to the shipped
+kernel), and one f32 PoseNet step (`posenet_apply_fused`, 32 x 143,
 by events) and one int8 and one int8qa step (`posenet_apply_prepared`, by
 events and on the card alone). Each is timed with CUDA events around
 one call and on the card alone with a cold L2 (card_ms: a CUDA graph of
@@ -128,12 +132,13 @@ def card_ms(fn, calls: int = 10, reps: int = 20) -> float:
     return statistics.median(diffs)
 
 
-def measure(seed: int, variant_libs: dict | None = None) -> dict:
+def measure(seed: int, variant_libs: dict | None = None, stack_libs: dict | None = None) -> dict:
     """The numbers of one checkout: whichever `rohm_tpu_torch` is first on
     sys.path. Its chain may stage bf16 operands in memory (round_bf16,
     cast_weight_mats) or round f32 operands inside each product.
     `variant_libs` (name -> library path): gemm_int8's four products also
-    through each of those libraries (INT8_TILE_VARIANTS)."""
+    through each of those libraries (INT8_TILE_VARIANTS); `stack_libs`
+    the same for K5 (STACK_VARIANTS)."""
     import torch
 
     from rohm_tpu_torch.models import PoseNet
@@ -304,6 +309,14 @@ def measure(seed: int, variant_libs: dict | None = None) -> dict:
     inference["layer_f32_inf"] = lambda: l32.fused_encoder_layer(x_inf32, inf_layer, H)
     inference["layer_bf16_inf"] = lambda: l16.fused_encoder_layer_bf16(x_inf, p16, H)
     inference["layer_int8_inf"] = lambda: l8.fused_encoder_layer_int8(x_inf, p8, H)
+    inference["layer_int8qa_inf"] = lambda: l8.fused_encoder_layer_int8(x_inf, p8, H, qattn=True)
+    # attention_int8 at its one-block limit and one past it (32 sequences)
+    head_keys = getattr(l8, "ATTENTION_INT8_HEAD_KEYS", 192)
+    for s_k4 in (head_keys, head_keys + 1):
+        qkv_k4 = torch.randn(b_inf * s_k4, 3 * D, generator=gl, device="cuda")
+        qkv_k4[:, :D] *= (D // H) ** -0.5
+        q16_k4 = qkv_k4.to(torch.bfloat16)
+        inference[f"attention_int8_s{s_k4}"] = functools.partial(l8.attention_int8, q16_k4, s_k4, H)
     # the four gemm_int8 products of the int8 layer on its own weights (K-major
     # where the tree's prep makes them so), and torch._int_mm on the same
     # operands (int32 sums only)
@@ -435,26 +448,57 @@ def measure(seed: int, variant_libs: dict | None = None) -> dict:
                 return posenet_apply_prepared(prep, x_p, cond_p, t_dev, num_heads=H, cond_emb=emb)
 
             out[f"posenet_step_{mode}_ms"], out[f"posenet_step_{mode}_card_ms"] = _median_ms(step), card_ms(step)
-    out["encoder_stack_int8_ms"] = _median_ms(lambda: l8.fused_encoder_stack_int8(x_inf, stacked, H))
-    # its phases from the global timer at its barriers: the median of 9
-    # stamped launches per phase
+    from rohm_tpu_torch.ops import _build
+
+    shipped = _stack_numbers(l8, x_inf, stacked, s_inf, "encoder_stack_int8", out,
+                             _build.BUILD_ROOT / _build.source_hash() / "build.log")
+    for variant, path in (stack_libs or {}).items():
+        # K5 built with another tile choice or block shape: its numbers, and
+        # whether its output is the shipped kernel's bit for bit
+        from rohm_tpu_torch.scripts.f32_gemm_variants import _load
+
+        shipped_lib = _build.library
+        lib = _load(Path(path), ("rt_encoder_stack_int8", "rt_encoder_stack_int8_grid"))
+        _build.library = lambda lib=lib: lib
+        try:
+            got = _stack_numbers(l8, x_inf, stacked, s_inf, f"encoder_stack_int8_{variant}", out,
+                                 Path(path).parent / "build.log")
+            out[f"encoder_stack_int8_{variant}_same"] = bool(torch.equal(got, shipped))
+        finally:
+            _build.library = shipped_lib
+    # attention_int8's registers and spills, from the tree's build log: its
+    # one-block kernel per count of 32-key blocks, and the key-tiled one
+    log = (_build.BUILD_ROOT / _build.source_hash() / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Function properties for" in line and "attention_int8_" in line and "_kernel" in line:
+            name = "head_" + line.split("head_kernelILi")[1][0] if "head_kernelILi" in line else "tiled"
+            out[f"attention_int8_build_{name}"] = " ".join(x.strip() for x in log[i + 1:i + 3])
+    return out
+
+
+def _stack_numbers(l8, x, stacked, seq_len: int, label: str, out: dict, build_log: Path):
+    """K5 on x by events (median of 20), its phases from the global timer
+    at its barriers (the median of 9 stamped launches per phase), its grid
+    and its registers and spills from `build_log`, under keys that start
+    with `label`. Returns its output."""
+    import torch
+
+    out[f"{label}_ms"] = _median_ms(lambda: l8.fused_encoder_stack_int8(x, stacked, H))
     per_launch = []
     for _ in range(9):
         stamps = torch.zeros(2 + 9 * 8, dtype=torch.int64, device="cuda")
-        l8.fused_encoder_stack_int8(x_inf, stacked, H, phase_ns=stamps)
+        l8.fused_encoder_stack_int8(x, stacked, H, phase_ns=stamps)
         per_launch.append((stamps[1:] - stamps[:-1]).tolist())
     for j, name in enumerate(l8.STACK_PHASES):
-        out[f"encoder_stack_int8_{name.replace(' ', '_')}_us"] = statistics.median(
+        out[f"{label}_{name.replace(' ', '_')}_us"] = statistics.median(
             sum(gaps[1 + 9 * i + j] for i in range(8)) / 1e3 for gaps in per_launch)
-    # its registers and spills, from the tree's build log
-    from rohm_tpu_torch.ops import _build
-
-    log = (_build.BUILD_ROOT / _build.source_hash() / "build.log").read_text().splitlines()
+    out[f"{label}_phases_total_us"] = statistics.median(sum(gaps) / 1e3 for gaps in per_launch)
+    log = build_log.read_text().splitlines()
     for i, line in enumerate(log):
         if "Function properties for" in line and "encoder_stack_int8_kernelILb0" in line:
-            out["encoder_stack_int8_build"] = " ".join(x.strip() for x in log[i + 1:i + 3])
-    out["encoder_stack_int8_grid"] = list(l8.stack_grid(s_inf, D // H))
-    return out
+            out[f"{label}_build"] = " ".join(x.strip() for x in log[i + 1:i + 3])
+    out[f"{label}_grid"] = list(l8.stack_grid(seq_len, D // H))
+    return l8.fused_encoder_stack_int8(x, stacked, H)
 
 
 # gemm_int8.cu's tile widths (128 above N = WIDE_ABOVE, NARROW_BN up to it)
@@ -466,14 +510,33 @@ INT8_TILE_VARIANTS = {"bn128": "constexpr int NARROW_BN = 128, WIDE_ABOVE = 1024
                       "bn64_all": "constexpr int NARROW_BN = 64, WIDE_ABOVE = 1 << 30;"}
 
 
-def _tile_variants() -> dict:
-    """name -> the path of this tree's gemm_int8.cu built with that tile
-    choice into a library of its own (both nvcc at once)."""
+# encoder_stack_int8.cu's tile width per GEMM phase and its block shape
+# (one block of 288 threads per SM, at most 168 registers a thread, every
+# phase on 64-wide tiles), and the variants the A/B times beside them: the
+# QKV phase on 128-wide tiles; every phase on 128-wide ones; two blocks
+# per SM (at most 96 registers a thread)
+STACK_TILES = "constexpr int BN_QKV = 64, BN_OUT = 64, BN_FF1 = 64, BN_FF2 = 64;"
+STACK_BLOCKS = "constexpr int BLOCKS_PER_SM = 1;"
+STACK_VARIANTS = {
+    "bn128_qkv": (STACK_TILES, "constexpr int BN_QKV = 128, BN_OUT = 64, BN_FF1 = 64, BN_FF2 = 64;"),
+    "bn128_all": (STACK_TILES, "constexpr int BN_QKV = 128, BN_OUT = 128, BN_FF1 = 128, BN_FF2 = 128;"),
+    "two_blocks_per_sm": (STACK_BLOCKS, "constexpr int BLOCKS_PER_SM = 2;"),
+}
+
+
+def _tile_variants() -> tuple[dict, dict]:
+    """name -> the path of this tree's gemm_int8.cu (INT8_TILE_VARIANTS)
+    and of its encoder_stack_int8.cu (STACK_VARIANTS) built with that
+    choice into a library of its own (every nvcc at once)."""
     from rohm_tpu_torch.scripts.f32_gemm_variants import build_libraries
 
-    libs = build_libraries({f"gemm_int8 {name}": [("gemm_int8.cu", INT8_TILES, text)]
-                            for name, text in INT8_TILE_VARIANTS.items()}, ("gemm_int8.cu",), ("rt_gemm_int8",))
-    return {name: libs[f"gemm_int8 {name}"]._name for name in INT8_TILE_VARIANTS}
+    gemms = build_libraries({f"gemm_int8 {name}": [("gemm_int8.cu", INT8_TILES, text)]
+                             for name, text in INT8_TILE_VARIANTS.items()}, ("gemm_int8.cu",), ("rt_gemm_int8",))
+    stacks = build_libraries({f"encoder_stack_int8 {name}": [("encoder_stack_int8.cu", *edit)]
+                              for name, edit in STACK_VARIANTS.items()}, ("encoder_stack_int8.cu",),
+                             ("rt_encoder_stack_int8", "rt_encoder_stack_int8_grid"))
+    return ({name: gemms[f"gemm_int8 {name}"]._name for name in INT8_TILE_VARIANTS},
+            {name: stacks[f"encoder_stack_int8 {name}"]._name for name in STACK_VARIANTS})
 
 
 def main(argv=None) -> list:
@@ -482,20 +545,23 @@ def main(argv=None) -> list:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--variant-lib", action="append", default=[], help=argparse.SUPPRESS)
+    parser.add_argument("--stack-lib", action="append", default=[], help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.measure:
-        print(json.dumps(measure(args.seed, dict(v.split("=", 1) for v in args.variant_lib))), flush=True)
+        print(json.dumps(measure(args.seed, dict(v.split("=", 1) for v in args.variant_lib),
+                                 dict(v.split("=", 1) for v in args.stack_lib))), flush=True)
         return []
     if not args.other:
         parser.error("--other is required")
     other = Path(args.other).resolve()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    variants = _tile_variants()
+    variants, stack_variants = _tile_variants()
     runs = []
     for label, tree in (("other", other), ("this", THIS_TREE), ("this", THIS_TREE), ("other", other)):
         env = {**os.environ, "PYTHONPATH": str(tree)}
-        extra = [f"--variant-lib={name}={path}" for name, path in variants.items()] if label == "this" else []
+        extra = ([f"--variant-lib={name}={path}" for name, path in variants.items()]
+                 + [f"--stack-lib={name}={path}" for name, path in stack_variants.items()]) if label == "this" else []
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", f"--seed={args.seed}",
                                *extra], cwd=tree, env=env, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -508,8 +574,9 @@ def main(argv=None) -> list:
     print(f"{card}; ms, runs in order " + " / ".join(r["run"] for r in runs))
     for k in keys:
         print(f"{k:36s} " + " / ".join(f"{r[k]:.4f}" if k in r else "-" for r in runs))
-    for k in ("gemm_12_digest", "encoder_stack_int8_grid", "encoder_stack_int8_build"):
-        print(f"{k:36s} " + " / ".join(str(r.get(k, "-")) for r in runs))
+    for k in dict.fromkeys(k for r in runs for k in r):
+        if k == "gemm_12_digest" or k.endswith(("_grid", "_same")) or "_build" in k:
+            print(f"{k:36s} " + " / ".join(str(r.get(k, "-")) for r in runs))
     return runs
 
 

@@ -99,15 +99,15 @@ def test_attention_bf16_long_s(s):
     np.testing.assert_allclose(out.float().numpy(), _np(ref), atol=2.0 ** -6 * vmax, rtol=0)
 
 
-@pytest.mark.parametrize("s", LONG_S)
-def test_attention_int8_long_s(s):
-    """K4: Q, K and V codes bit for bit (the same rounded division, product
-    and rint; V's column amax over the whole sequence); prob codes within
-    one step, nearly all equal (the f32 softmax sums in another order);
-    the output within two prob codes of its column (2 vmax/127) plus one
-    bf16 ulp (tests/test_torch_ops_int8qa.py)."""
-    rng = np.random.default_rng(s + 2)
-    x = rng.standard_normal((B * s, 3 * D)) * rng.uniform(0.1, 10, (B * s, 1))
+def _attention_int8_against_jax(s: int, d: int, seed: int) -> None:
+    """K4's plain version against the JAX attention_int8 on B sequences of
+    s rows, width d, H heads: Q, K and V codes bit for bit (the same rounded
+    division, product and rint; V's column amax over the whole sequence);
+    prob codes within one step, nearly all equal (the f32 softmax sums in
+    another order); the output within two prob codes of its column (2
+    vmax/127) plus one bf16 ulp (tests/test_torch_ops_int8qa.py)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B * s, 3 * d)) * rng.uniform(0.1, 10, (B * s, 1))
     qkv = jnp.asarray(x, jnp.bfloat16)
     tq = torch.from_numpy(_np(qkv)).to(torch.bfloat16)
     qq, _, kk, _, pi, vv, vmax = l8.attention_int8_codes(tq, s, H)
@@ -118,10 +118,27 @@ def test_attention_int8_long_s(s):
     dp = np.abs(pi.numpy() - ref["pi"])
     assert dp.max() <= 1 and (dp == 0).mean() > 0.99, (dp.max(), (dp == 0).mean())
     out = l8.attention_int8_plain(tq, s, H)
-    jout = ji8.attention_int8(qkv[:, :D], qkv[:, D: 2 * D], qkv[:, 2 * D:], B, s, H)
-    col_vmax = vmax.expand(B, H, s, D // H).transpose(1, 2).reshape(B * s, D).numpy()
+    jout = ji8.attention_int8(qkv[:, :d], qkv[:, d: 2 * d], qkv[:, 2 * d:], B, s, H)
+    col_vmax = vmax.expand(B, H, s, d // H).transpose(1, 2).reshape(B * s, d).numpy()
     tol = 2 * col_vmax / 127.0 + BF16_ULP * np.abs(_np(jout))
     assert (np.abs(out.float().numpy() - _np(jout)) <= tol).all()
+
+
+@pytest.mark.parametrize("s", LONG_S)
+def test_attention_int8_long_s(s):
+    """K4 past its old key tile, at dh = 32 (_attention_int8_against_jax)."""
+    _attention_int8_against_jax(s, D, s + 2)
+
+
+@pytest.mark.parametrize("s", [144, l8.ATTENTION_INT8_HEAD_KEYS, l8.ATTENTION_INT8_HEAD_KEYS + 1])
+def test_attention_int8_at_the_one_block_limit(s):
+    """K4 at dh = 128, the kernel's head width, at the shipped S = 144, at
+    the longest S its one-block-per-(sequence, head) path takes
+    (ATTENTION_INT8_HEAD_KEYS) and one past it, where the key-tiled path
+    takes over: the plain version the card holds both paths to
+    (tests/test_torch_cuda.py, chip_smoke.py) against the JAX package
+    (_attention_int8_against_jax)."""
+    _attention_int8_against_jax(s, 128 * H, s + 3)
 
 
 def _leaves(tree, prefix=""):

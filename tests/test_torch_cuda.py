@@ -379,6 +379,44 @@ def test_stack_kernel_at_long_sequences_on_cuda(s):
     assert torch.equal(l8.fused_encoder_stack_int8(x, stacked, 4), ref)
 
 
+def test_stack_kernel_grid_and_weight_layout_on_cuda():
+    """The stack kernel's cooperative grid at the shipped shape (S = 144,
+    dh = 128): one block of 288 threads (two consumer warpgroups and the
+    producer warp of its GEMM phases) on every SM; a stacked weight in a
+    contiguous [L, K, N] (not K-major) is refused before any launch."""
+    per_sm, sms, threads = l8.stack_grid(144, 128)
+    assert (per_sm, threads) == (1, 288) and sms == torch.cuda.get_device_properties(0).multi_processor_count
+    torch.manual_seed(0)
+    posenet = PoseNet(latent_dim=64, ff_size=128, num_layers=2, num_heads=4).cuda()
+    stacked = list(l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"])
+    stacked[8] = stacked[8].contiguous()
+    before = l8.fused_encoder_stack_int8.launches
+    with pytest.raises(ValueError, match="K-major"):
+        l8.fused_encoder_stack_int8(torch.zeros(2, 16, 64, device="cuda"), tuple(stacked), 4)
+    assert l8.fused_encoder_stack_int8.launches == before
+
+
+@pytest.mark.parametrize("s", [16, 144, 145, l8.ATTENTION_INT8_HEAD_KEYS, l8.ATTENTION_INT8_HEAD_KEYS + 1, 1024])
+def test_attention_int8_paths_on_cuda(s):
+    """attention_int8 at dh = 128 (3 sequences x 4 heads) on both of its
+    paths: one block per (sequence, head) up to ATTENTION_INT8_HEAD_KEYS,
+    the key-tiled blocks of 48 queries past it; within chip_smoke.py's gate
+    of its plain version (one prob code, vmax/127 of the column, plus one
+    bf16 ulp), one launch per call."""
+    b, h, dh = 3, 4, 128
+    d = h * dh
+    g = torch.Generator(device="cuda").manual_seed(s)
+    qkv = torch.randn(b * s, 3 * d, device="cuda", generator=g)
+    qkv[:, :d] *= dh ** -0.5
+    q16 = qkv.to(torch.bfloat16)
+    before = l8.attention_int8.launches
+    got = l8.attention_int8(q16, s, h).float()
+    assert l8.attention_int8.launches == before + 1
+    ref = l8.attention_int8_plain(q16, s, h).float()
+    cmax = l8.attention_int8_codes(q16, s, h)[-1].expand(b, h, s, dh).transpose(1, 2).reshape(b * s, d)
+    assert ((got - ref).abs() <= cmax / 127.0 + 2.0 ** -7 * ref.abs()).all()
+
+
 def _gemm_bf16_within_gate(a, w, bias, mode, sum_flip=False):
     """gemm_bf16 against its plain version under chip_smoke.py's gates: the
     f32 result within 1e-5 of max|ref| (f32 sum order), a bf16 result

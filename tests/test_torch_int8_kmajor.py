@@ -1,14 +1,14 @@
 """The int8 layer's weights stored K-major, against the JAX package, on the
 CPU.
 
-gemm_int8 runs on Hopper's int8 tensor cores through wgmma, which reads
-8-bit operands only K-major: the port keeps each weight's logical shape
-[K, N] (the JAX package's [in, out]) and its codes, but stores it as the
-.t() view of an [N, K] buffer. These tests hold the prep to the JAX
-package's codes and scales bit for bit, the stacked prep of the whole-stack
-kernel to a contiguous copy of them, the plain product on the K-major view
-to JAX's `_dot_i8` plus bias, and the wrapper's layout check (a pure-Python
-helper, so it runs here) to refusing any other layout. The kernel itself
+gemm_int8 and the whole-stack kernel run on Hopper's int8 tensor cores
+through wgmma, which reads 8-bit operands only K-major: the port keeps each
+weight's logical shape [K, N] (the JAX package's [in, out]) and its codes,
+but stores it as the .t() view of an [N, K] buffer (the stack: [L, K, N]
+over [L, N, K]). These tests hold the preps to the JAX package's codes and
+scales bit for bit, the plain product on the K-major view to JAX's
+`_dot_i8` plus bias, and the wrappers' layout checks (pure-Python helpers,
+so they run here) to refusing any other layout. The kernel itself
 runs only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -70,16 +70,38 @@ def test_prepared_weights_are_k_major_and_the_jax_codes(preps, name):
 
 
 def test_stacked_prep_is_contiguous_and_equal(preps):
-    """torch.stack of the K-major views gives the whole-stack kernel a
-    contiguous [L, K, N] (the row-major layout its WMMA tiles read) with
-    the per-layer values, and the JAX package's mega prep bit for bit."""
+    """The mega prep hands the whole-stack kernel each int8 weight as an
+    [L, K, N] stored K-major (strides (N K, 1, K): the .transpose(1, 2)
+    view of a contiguous [L, N, K], what its tensor maps read), each other
+    tensor contiguous; a layer's slice of a weight is the per-layer prep's
+    K-major [K, N]. The values are the per-layer ones, and the JAX
+    package's mega prep bit for bit."""
     _, tprep, jmega, tmega = preps
     stacked = tmega["layers_stacked"]
     assert len(stacked) == 16
     for i, t in enumerate(stacked):
-        assert t.is_contiguous()
+        if i in WEIGHTS.values():
+            k, n = t.shape[1:]
+            assert t.stride() == (n * k, 1, k) and t.transpose(1, 2).is_contiguous()
+            assert all(t[l].stride() == (1, k) for l in range(LAYERS))
+        else:
+            assert t.is_contiguous()
         assert torch.equal(t, torch.stack([lay[i] for lay in tprep["layers"]]))
         np.testing.assert_array_equal(t.float().numpy(), _np(jmega["layers_stacked"][i]))
+    l8.check_stack_int8_weights(stacked)
+
+
+@pytest.mark.parametrize("name", list(WEIGHTS))
+def test_stack_weight_check_refuses_a_row_major_weight(preps, name):
+    """check_stack_int8_weights, which the stack wrapper runs before a
+    launch: the mega prep passes; the same values in a contiguous
+    [L, K, N] (the layout of the stack's WMMA tiles before its GEMM phases
+    took the wgmma loop) are refused, never copied per call."""
+    stacked = list(preps[3]["layers_stacked"])
+    i = WEIGHTS[name]
+    stacked[i] = stacked[i].contiguous()
+    with pytest.raises(ValueError, match="K-major"):
+        l8.check_stack_int8_weights(tuple(stacked))
 
 
 @pytest.mark.parametrize("name, mode", [("qkv", "bf16"), ("out", "f32"), ("ff1", "gelu"), ("ff2", "f32")])

@@ -62,13 +62,17 @@ def test_layers_stacked_bit_exact(setup):
         np.testing.assert_array_equal(np.asarray(ja.astype(jnp.float32)), ta.float().numpy())
 
 
-def test_stack_plain_matches_pallas_interpret(setup):
+@pytest.mark.parametrize("seq", [T + 1, 33])
+def test_stack_plain_matches_pallas_interpret(setup, seq):
+    """The stack on the mega prep (weights stored K-major) against the
+    Pallas program in interpret mode; 33 rows a sequence leave ragged
+    16-row chunks."""
     _, _, jprep, tprep, *_ = setup
     rng = np.random.default_rng(1)
-    x = jnp.asarray(rng.standard_normal((B, T + 1, D)), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((B, seq, D)), jnp.bfloat16)
     ref = jax_stack(x, jprep["layers_stacked"], num_heads=HEADS, interpret=True)
     out = l8.fused_encoder_stack_int8(torch.from_numpy(_np(x)).to(torch.bfloat16), tprep["layers_stacked"], HEADS)
-    assert out.dtype == torch.bfloat16 and out.shape == (B, T + 1, D)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, seq, D)
     # The per-layer int8 gates (tests/test_torch_ops.py): the same
     # arithmetic, but the f32 sums of the attention and LayerNorm run in
     # another order, which can flip a bf16 rounding (2^-8 relative) or an
@@ -88,6 +92,19 @@ def test_posenet_apply_prepared_mega_matches_jax(setup):
     dev = np.abs(out - ref)
     assert dev.max() < 6e-2 and dev.mean() < 1e-2, (dev.max(), dev.mean())
     np.testing.assert_array_equal(out[..., :22], cond[..., :22])
+
+
+def test_a_layer_of_the_mega_prep_is_the_per_layer_prep(setup):
+    """Each layer's slice of the stacked tensors equals the per-layer
+    prep's tuple, the weights in its K-major layout: the K3 chain's layout
+    check takes them as they are."""
+    _, port, _, tprep, *_ = setup
+    stacked = tprep["layers_stacked"]
+    for l, layer in enumerate(prepare_posenet_int8(port)["layers"]):
+        for i, (s, t) in enumerate(zip(stacked, layer, strict=True)):
+            assert torch.equal(s[l], t) and s[l].stride() == t.stride(), i
+        for i in l8.STACKED_WEIGHTS:
+            l8.check_gemm_int8_operands(torch.zeros(3, stacked[i].shape[1], dtype=torch.int8), stacked[i][l])
 
 
 def test_mega_and_per_layer_preps_bit_identical_on_cpu(setup):
