@@ -17,6 +17,10 @@ Phases (each failure ends the run with a non-zero exit code):
      also held to its plain version bit for bit (the gelu mode's tanhf
      excepted, its differing outputs and ulps logged) and timed beside
      torch._int_mm on the same weights and gemm_bf16 on the same shapes.
+     quant_rows_int8 and the codes residual_layernorm writes with `quant`
+     are held to quant_rows_int8_plain exactly (the latter of the
+     kernel's own output), on the layer's inputs and on zero, tie and
+     end-max rows; colsum (phase 4) runs twice, bit for bit the same.
   4. train kernels: every CUDA kernel of the training layer (K6 forward,
      K7 backward) at the training shapes (64 clips x 145 tokens, D=512,
      H=4, F=1024, dropout 0.1 with shared masks), in bf16 and f32 mode,
@@ -62,7 +66,8 @@ Phases (each failure ends the run with a non-zero exit code):
      pickle's keys, shapes and finiteness.
   8. bench: the int8 measurement path at full width. The whole-stack
      kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
-     random PoseNet(): bit-identical to 8 launches of the K3 chain, within
+     random PoseNet(): bit-identical to the 8-layer K3 chain (whose
+     LayerNorms write the next product's codes), within
      the int8 envelope of its plain version, timed beside the K3 chain and a
      CUDA graph of it. Then `rohm_tpu_torch.bench.run` (PoseNet 512d x 8,
      batch 32 x 143, 1000 cosine steps, one warm-up and 3 timed chains) on
@@ -461,6 +466,30 @@ def kernel_phase(seed: int) -> dict:
               lambda: kc.residual_layernorm_plain(a, bb, s_, b_, of, ob), stats, "residual_layernorm",
               0, nbytes(a, bb, s_, b_, *got), None,
               lib(lambda: tnf.layer_norm(a + bb, (D,), s_, b_, kc.LN_EPS), LN_YARDSTICK))
+    # the int8 chain's two LayerNorms, each writing the codes of its output
+    # (y f32, the next layer's input bf16): the output keeps the gates
+    # above, the codes and scales are quant_rows_int8_plain of the kernel's
+    # own output exactly. Timed apart (not in the per-layer sums above)
+    for name, a, bb, s_, b_, of, ob in (
+        ("residual_layernorm LN1 + codes (bf16+f32 -> f32, int8)", x2, res, p8[6], p8[7], True, False),
+        ("residual_layernorm LN2 + codes (f32+f32 -> bf16, int8)", y32, res, p8[14], p8[15], False, True),
+    ):
+        got = kc.residual_layernorm(a, bb, s_, b_, of, ob, quant=True)
+        ref = kc.residual_layernorm_plain(a, bb, s_, b_, of, ob)
+        out, out_ref = (got[0], ref[0]) if of else (got[1], ref[1])
+        if of:
+            _check(name + " f32", out, out_ref, 1e-5 * out_ref.abs().max().item(),
+                   "f32 mean/var reduction order, 1e-5 of max|ref|", stats, "residual_layernorm")
+        else:
+            _check(name + " bf16", out, out_ref, BF16_ULP * out_ref.float().abs() + 1e-5, "one bf16 ulp", stats,
+                   "residual_layernorm")
+        (q, sc), (q_ref, sc_ref) = got[2], l8.quant_rows_int8_plain(out)
+        _check(name + " codes", q, q_ref, 0.0, "exact: quant_rows_int8_plain of the kernel's own output", stats,
+               "residual_layernorm")
+        _check(name + " scales", sc, sc_ref, 0.0, "exact", stats, "residual_layernorm")
+        _time(name, lambda: kc.residual_layernorm(a, bb, s_, b_, of, ob, quant=True),
+              lambda: kc.residual_layernorm_plain(a, bb, s_, b_, of, ob, quant=True), stats,
+              "residual_layernorm + codes", 0, nbytes(a, bb, s_, b_, *got[:2], *got[2]), None)
 
     # quant_rows_int8 on each of the layer's four GEMM inputs
     for name, a in (
@@ -475,6 +504,17 @@ def kernel_phase(seed: int) -> dict:
         _check(name + " scales", sc, sc_ref, 0.0, "exact", stats, "quant_rows_int8")
         _time(name, lambda: l8.quant_rows_int8(a), lambda: l8.quant_rows_int8_plain(a),
               stats, "quant_rows_int8", 0, nbytes(a, q, sc), None)
+    # an all-zero row (amax clamps to 1e-12), a row of ties (x * 127/amax on
+    # .5 steps), a row whose max sits in its last element, in both types
+    odd = randn(4, F)
+    odd[0] = 0.0
+    odd[1] = torch.arange(F, device=dev).remainder(5) * 0.5 - 1.0
+    odd[2, -1] = 100.0
+    for a in (odd, odd.to(torch.bfloat16), odd[:, :D].to(torch.bfloat16)):
+        (q, sc), (q_ref, sc_ref) = l8.quant_rows_int8(a), l8.quant_rows_int8_plain(a)
+        name = f"quant_rows_int8 zero, tie and end-max rows {str(a.dtype)[6:]} [4,{a.shape[1]}]"
+        _check(name + " codes", q, q_ref, 0.0, "exact", stats, "quant_rows_int8")
+        _check(name + " scales", sc, sc_ref, 0.0, "exact", stats, "quant_rows_int8")
 
     # gemm_int8: int32 sums exactly (unit scales, zero bias), then the four
     # products of one int8 layer with their epilogues; the weights K-major
@@ -984,17 +1024,14 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
                       lib(ln_fwd_bwd, "layer_norm backward", base=ln_fwd), tag="train kernels", rows=rows)
         for name, a, b in (("dg2, dbe2", dy, norm2), ("db2", df, None), ("db1", dh1, None),
                            ("dg1, dbe1", dy1, norm1), ("dbo", do, None), ("dbqkv", dqkv, None)):
-            got, ref = lt.colsum(a, b), lt.colsum_plain(a, b)
-            got, ref = (got, ref) if b is not None else ((got,), (ref,))
-            sums = ((a * b).abs().sum(0), a.abs().sum(0)) if b is not None else (a.abs().sum(0),)
-            for g_, r_, sm in zip(got, ref, sums):
-                # 9280 terms in another order: <= ~sqrt(R) 2^-24 of sum |a|
-                _check(f"colsum {name} [{a.shape[0]}x{a.shape[1]}]", g_, r_, 1e-5 * sm + 1e-6,
-                       "f32 sum order, 1e-5 of sum|terms|", stats, "colsum")
+            sums = check_colsum(name, a, b, stats)
             _time(f"colsum {name}", lambda: lt.colsum(a, b), lambda: lt.colsum_plain(a, b), stats, "colsum",
-                  0, nbytes(a, b, *got), None,
+                  0, nbytes(a, b, *sums), None,
                   lib(lambda: torch.einsum("rn,rn->n", a, b), "einsum") if b is not None
                   else lib(lambda: a.sum(0), "sum"), tag="train kernels", rows=("K7 bf16", "K7 f32"))
+        # rows off every multiple the kernel steps by (8 blocks, 64 rows, 4 loads in flight)
+        extra = torch.randn(37, D, generator=torch.Generator(device=dev).manual_seed(seed + 37), device=dev)
+        check_colsum("dg1, dbe1, 37 rows more", torch.cat([dy1, extra]), torch.cat([norm1, extra]), stats)
     for row in ("K6 bf16", "K7 bf16", "K6 f32", "K7 f32"):
         st = stats[row]
         by = "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes"
@@ -1024,6 +1061,23 @@ def train_kernel_phase(seed: int, stats: dict) -> None:
 LONG_S = (145, 161, 167, 177, 209, 1024)
 INT8_HEAD_S = (l8.ATTENTION_INT8_HEAD_KEYS, l8.ATTENTION_INT8_HEAD_KEYS + 1)
 LONG_B = 2  # sequences per call
+
+
+def check_colsum(name: str, a: torch.Tensor, b, stats: dict) -> tuple:
+    """colsum against colsum_plain within 1e-5 of sum|terms|, and bit for bit
+    the same in a second run (a fixed order of sums, no atomics). Returns
+    the kernel's sums."""
+    got, again, ref = lt.colsum(a, b), lt.colsum(a, b), lt.colsum_plain(a, b)
+    got, again, ref = (got, again, ref) if b is not None else ((got,), (again,), (ref,))
+    sums = ((a * b).abs().sum(0), a.abs().sum(0)) if b is not None else (a.abs().sum(0),)
+    for g_, a_, r_, sm in zip(got, again, ref, sums):
+        # ~9280 terms in another order: <= ~sqrt(R) 2^-24 of sum |a|
+        _check(f"colsum {name} [{a.shape[0]}x{a.shape[1]}]", g_, r_, 1e-5 * sm + 1e-6,
+               "f32 sum order, 1e-5 of sum|terms|", stats, "colsum")
+        if not torch.equal(g_, a_):
+            raise AssertionError(f"colsum {name}: two runs differ")
+    log(f"[train kernels] colsum {name} [{a.shape[0]}x{a.shape[1]}]: two runs bit-identical")
+    return got
 
 
 def chain_attention_operands(params: tuple, fm: tuple, x, dy, seq_len: int, inv_keep: float, bf16: bool):
@@ -1092,11 +1146,9 @@ def long_seq_phase(seed: int, stats: dict) -> None:
                2.0 ** -6 * vmax, "2^-6 max|v|: one bf16 flip per prob + output rounding", stats, "attention_bf16")
         check_attention_int8(q16, s, shape, stats)
         x = torch.randn(LONG_B, s, D, generator=g, device=dev).to(torch.bfloat16)
-        k3 = x
-        for prep in layers:
-            k3 = l8.fused_encoder_layer_int8(k3, prep, H)
+        k3 = l8.fused_encoder_layers_int8(x, layers, H)
         same = torch.equal(l8.fused_encoder_stack_int8(x, stacked, H), k3)
-        log(f"[long S] encoder_stack_int8 [{LONG_B}, {s}, {D}] x 8 layers against 8 launches of the K3 chain: "
+        log(f"[long S] encoder_stack_int8 [{LONG_B}, {s}, {D}] x 8 layers against the 8-layer K3 chain: "
             f"{'bit-identical' if same else 'DIFFERENT'}")
         if not same:
             raise AssertionError(f"the stack kernel is not bit-identical to the K3 chain at S={s}")
@@ -1233,19 +1285,34 @@ def make_batch(body, rng: np.random.Generator):
 
 PER_LAYER_LAUNCHES = {  # fused_posenet mode -> kernel -> launches per layer
     "bf16": {"gemm_bf16": 4, "attention_bf16": 1, "residual_layernorm": 2},
-    "int8": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_bf16": 1, "residual_layernorm": 2},
-    "int8qa": {"quant_rows_int8": 4, "gemm_int8": 4, "attention_int8": 1, "residual_layernorm": 2},
+    # the int8 chain quantizes the attention output and h1; the LayerNorms
+    # write the codes of y and of the next layer's input
+    "int8": {"quant_rows_int8": 2, "gemm_int8": 4, "attention_bf16": 1, "residual_layernorm": 2},
+    "int8qa": {"quant_rows_int8": 2, "gemm_int8": 4, "attention_int8": 1, "residual_layernorm": 2},
     "f32": {"gemm_f32": 4, "attention_f32": 1, "residual_layernorm two-pass": 2},
 }
+# launches once per forward: the int8 chain quantizes the stack's input
+PER_FORWARD_LAUNCHES = {"int8": {"quant_rows_int8": 1}, "int8qa": {"quant_rows_int8": 1}}
+
+
+def forward_launches(mode: str, forwards: int = 1) -> dict:
+    """Launches per kernel of `forwards` 8-layer PoseNet forwards in a
+    fused_posenet mode (the int8 modes: 1 + 2 L quant_rows_int8 each)."""
+    out = dict.fromkeys(KERNELS, 0)
+    for name, k in PER_LAYER_LAUNCHES[mode].items():
+        out[name] += k * LAYERS * forwards
+    for name, k in PER_FORWARD_LAUNCHES.get(mode, {}).items():
+        out[name] += k * forwards
+    return out
 
 
 def expected_launches(batches: dict) -> dict:
     """Launches per kernel for full batches in each fused_posenet mode:
-    2 iterations x 1000 PoseNet steps x 8 layers, each layer's chain."""
+    2 iterations x 1000 PoseNet forwards, each the chain of 8 layers."""
     out = dict.fromkeys(KERNELS, 0)
     for mode, n in batches.items():
-        for name, k in PER_LAYER_LAUNCHES[mode].items():
-            out[name] += k * 2 * 1000 * LAYERS * n
+        for name, k in forward_launches(mode, 2 * 1000 * n).items():
+            out[name] += k
     return out
 
 
@@ -1736,16 +1803,14 @@ def bench_phase(seed: int, stats: dict) -> dict:
     layers = l8.prepare_posenet_int8(posenet)["layers"]
     x = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
 
-    def k3_chain(xx):
-        for prep in layers:
-            xx = l8.fused_encoder_layer_int8(xx, prep, H)
-        return xx
+    def k3_chain(xx):  # the LayerNorms write the next GEMM's codes
+        return l8.fused_encoder_layers_int8(xx, layers, H)
 
     got, k3 = l8.fused_encoder_stack_int8(x, stacked, H), k3_chain(x)
     per_sm, sms, threads = l8.stack_grid(S, D // H)
     same = torch.equal(got, k3)
     log(f"[bench] encoder_stack_int8, one cooperative launch of {per_sm} x {sms} blocks of {threads} threads for "
-        f"8 layers, against 8 launches of the K3 chain: {'bit-identical' if same else 'DIFFERENT'}")
+        f"8 layers, against the 8-layer K3 chain (1 + 9 x 8 launches): {'bit-identical' if same else 'DIFFERENT'}")
     if not same:
         raise AssertionError("the stack kernel is not bit-identical to the K3 chain")
     # a layer's kernels vs its plain chain flip a few int8 codes and bf16
@@ -1771,7 +1836,7 @@ def bench_phase(seed: int, stats: dict) -> dict:
           lambda: l8.fused_encoder_stack_int8_plain(x, stacked, H), stats, "encoder_stack_int8",
           {"int8": int8_ops, "bf16": LAYERS * 4 * r * S * D}, nbytes(x, got, *stacked), None, tag="bench")
     chain_ms, graph_ms = median_ms(lambda: k3_chain(x)), median_ms(graph.replay)
-    log(f"[bench] the same 8 layers as 88 launches of the K3 chain: {chain_ms:.4f} ms; as one CUDA graph of "
+    log(f"[bench] the same 8 layers as 73 launches of the K3 chain: {chain_ms:.4f} ms; as one CUDA graph of "
         f"that chain: {graph_ms:.4f} ms (median of 20)")
     del graph, graph_out
     # where the stack's time goes: the global timer at each grid barrier,
@@ -1791,14 +1856,13 @@ def bench_phase(seed: int, stats: dict) -> dict:
     # the per-layer prep, then on the mega prep with the same seeds
     results = {}
     for name, prepare, expected in (
-        ("int8 per layer", l8.prepare_posenet_int8,
-         {k: v * BENCH_CHAINS * bench.STEPS * LAYERS for k, v in PER_LAYER_LAUNCHES["int8"].items()}),
-        ("int8 mega", mega, {"encoder_stack_int8": BENCH_CHAINS * bench.STEPS}),
+        ("int8 per layer", l8.prepare_posenet_int8, forward_launches("int8", BENCH_CHAINS * bench.STEPS)),
+        ("int8 mega", mega, {**dict.fromkeys(KERNELS, 0), "encoder_stack_int8": BENCH_CHAINS * bench.STEPS}),
     ):
         reset_launches()
         res = bench.run(device=dev, prepare=prepare, seed=seed)
         counts = read_launches()
-        _check_launches(f"bench chain, {name}", counts, {**dict.fromkeys(KERNELS, 0), **expected})
+        _check_launches(f"bench chain, {name}", counts, expected)
         for k in launches:
             launches[k] += counts[k]
         sample = res.pop("sample")

@@ -41,7 +41,7 @@ SIGNATURES = {
     "rt_attention_bf16": [_P, _P, _I, _I, _I, _I, _I, _P],
     "rt_attention_f32": [_P, _P, _I, _I, _I, _I, _P],
     "rt_attention_int8": [_P, _P, _I, _I, _I, _I, _P],
-    "rt_residual_layernorm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "rt_residual_layernorm": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_quant_rows_int8": [_P, _I, _P, _P, _I, _I, _I, _F, _P],
     "rt_encoder_stack_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_encoder_stack_int8_grid": [_I, _I, _P],
@@ -51,7 +51,7 @@ SIGNATURES = {
     "rt_attention_train_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "rt_layernorm_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "rt_layernorm_train_bwd": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _P],
-    "rt_colsum": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_colsum": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 

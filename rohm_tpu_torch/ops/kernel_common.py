@@ -106,25 +106,35 @@ attention_bf16.no_softmax_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def residual_layernorm_plain(a, b, scale, bias, out_f32=True, out_bf16=False, two_pass=False):
-    """LN(a.float() + b) -> (f32 or None, bf16 or None)."""
+def residual_layernorm_plain(a, b, scale, bias, out_f32=True, out_bf16=False, two_pass=False,
+                             quant=False):
+    """LN(a.float() + b) -> (f32 or None, bf16 or None), and with `quant`
+    a third item: quant_rows_int8_plain of the f32 output where it is
+    asked for, else of the bf16 one."""
+    from rohm_tpu_torch.ops.transformer_layer_int8 import quant_rows_int8_plain
+
     o = post_ln(a.float() + b, scale, bias, two_pass)
-    return (o if out_f32 else None), (o.to(torch.bfloat16) if out_bf16 else None)
+    out = (o if out_f32 else None), (o.to(torch.bfloat16) if out_bf16 else None)
+    return (*out, quant_rows_int8_plain(out[0] if out_f32 else out[1])) if quant else out
 
 
 def residual_layernorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, out_f32: bool = True, out_bf16: bool = False,
-                       two_pass: bool = False):
+                       two_pass: bool = False, quant: bool = False):
     """Post-LN residual block: LN(a + b) over rows of width D, with a bf16 or
     f32 and b f32. Returns (f32 or None, bf16 or None). The variance is the
-    one-pass E[y^2] - mu^2, or with `two_pass` E[(y - mu)^2].
+    one-pass E[y^2] - mu^2, or with `two_pass` E[(y - mu)^2]. With `quant`
+    a third item, (int8 codes [R, D], f32 row scales [R]) of the f32
+    output where it is asked for, else of the bf16 one: quant_rows_int8 of
+    that output bit for bit, without its launch.
 
     Replaces the residual adds + post_ln of the TPU kernels
-    _layer_kernel_bf16 and _layer_kernel_int8, and (two_pass) the residual
-    LayerNorms of _layer_kernel. CUDA: csrc/residual_layernorm.cu, one block
-    per row; memory-bound."""
+    _layer_kernel_bf16 and _layer_kernel_int8 (with `quant`, also the
+    `_quant_rows` of their outputs in _layer_kernel_int8), and (two_pass)
+    the residual LayerNorms of _layer_kernel. CUDA:
+    csrc/residual_layernorm.cu, one block per row; memory-bound."""
     if a.device.type == "cpu":
-        return residual_layernorm_plain(a, b, scale, bias, out_f32, out_bf16, two_pass)
+        return residual_layernorm_plain(a, b, scale, bias, out_f32, out_bf16, two_pass, quant)
     if a.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"residual_layernorm: a must be bf16 or f32, got {a.dtype}")
     check_cuda(a, a.dtype, 2, "a")
@@ -138,13 +148,15 @@ def residual_layernorm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
         raise ValueError("residual_layernorm: ask for at least one output")
     of = torch.empty(rows, d, dtype=torch.float32, device=a.device) if out_f32 else None
     ob = torch.empty(rows, d, dtype=torch.bfloat16, device=a.device) if out_bf16 else None
+    q = torch.empty(rows, d, dtype=torch.int8, device=a.device) if quant else None
+    q_scale = torch.empty(rows, dtype=torch.float32, device=a.device) if quant else None
     launch("rt_residual_layernorm", ptr(a), int(a.dtype == torch.bfloat16), ptr(b), ptr(scale),
-           ptr(bias), ptr(of), ptr(ob), rows, d, LN_EPS, int(two_pass), stream())
+           ptr(bias), ptr(of), ptr(ob), ptr(q), ptr(q_scale), rows, d, LN_EPS, int(two_pass), stream())
     if two_pass:
         residual_layernorm.two_pass_launches += 1
     else:
         residual_layernorm.launches += 1
-    return of, ob
+    return (of, ob, (q, q_scale)) if quant else (of, ob)
 
 
 residual_layernorm.launches = 0  # one-pass launches

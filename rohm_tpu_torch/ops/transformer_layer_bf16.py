@@ -168,13 +168,12 @@ def posenet_apply_prepared(
     if "layers_stacked" in prep:
         seq = l8.fused_encoder_stack_int8(seq, prep["layers_stacked"], num_heads)
     elif "layers_qattn" in prep:
-        for layer in prep["layers_qattn"]:
-            seq = l8.fused_encoder_layer_int8(seq, layer, num_heads, qattn=True)
+        seq = l8.fused_encoder_layers_int8(seq, prep["layers_qattn"], num_heads, qattn=True)
+    elif len(prep["layers"][0]) == 16:
+        seq = l8.fused_encoder_layers_int8(seq, prep["layers"], num_heads)
     else:
-        layers = prep["layers"]
-        layer_fn = l8.fused_encoder_layer_int8 if len(layers[0]) == 16 else fused_encoder_layer_bf16
-        for layer in layers:
-            seq = layer_fn(seq, layer, num_heads)
+        for layer in prep["layers"]:
+            seq = fused_encoder_layer_bf16(seq, layer, num_heads)
 
     out = seq[:, 1:].float() @ prep["out_w"] + prep["out_b"]
     return torch.cat([cond[..., :traj_feat_dim], out], dim=-1)

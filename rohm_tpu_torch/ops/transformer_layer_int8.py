@@ -8,17 +8,19 @@ K-major (the .t() view of an [N, K] buffer: the layout Hopper's int8 tensor
 cores read); each GEMM input is quantized per row right before the product;
 int32 accumulation; dequant acc*row*col, then an f32 bias. Attention,
 LayerNorm and residuals are those of the bf16 layer.
-On the H100 the layer is a chain of eleven launches of five hand-written
-CUDA kernels:
+On the H100 an L-layer stack is a chain of 1 + 9 L launches of five
+hand-written CUDA kernels, the LayerNorms writing the codes of what they
+write (so 2 L + 1 quant_rows_int8 launches, not 4 L):
 
-  qx   = quant_rows_int8(x)
+  qx   = quant_rows_int8(x)                    the stack's input only
   qkv  = gemm_int8(qx, Wqkv, bqkv, "bf16")     cast to bf16 AFTER the bias
   attn = attention_bf16(qkv)
   a    = gemm_int8(quant_rows_int8(attn), Wo, bo, "f32")
-  y    = residual_layernorm(x, a)              f32
-  h1   = gemm_int8(quant_rows_int8(y), W1, b1, "gelu")   f32
+  y, qy = residual_layernorm(x, a, quant)      f32, and y's codes
+  h1   = gemm_int8(qy, W1, b1, "gelu")         f32
   h2   = gemm_int8(quant_rows_int8(h1), W2, b2, "f32")
-  out  = residual_layernorm(y, h2) -> bf16
+  out, qx = residual_layernorm(y, h2, quant) -> bf16, and its codes for
+                                               the next layer (none after the last)
 
 With qattn=True ("int8qa") `attention_int8` (csrc/attention_int8.cu) takes
 the place of attention_bf16: both attention products on int8 codes.
@@ -91,7 +93,10 @@ def quant_rows_int8(x: torch.Tensor, fixed_scale: float | None = None):
     launches count in `fixed_launches`.
 
     Replaces `_quant_rows` inside _layer_kernel_int8. CUDA:
-    csrc/quant_rows_int8.cu, one block per row; memory-bound."""
+    csrc/quant_rows_int8.cu, one warp per row from registers filled by
+    16-byte loads; memory-bound. Each row must start on a 16-byte boundary
+    and hold whole 16-byte vectors (C and the row stride multiples of 8
+    bf16 or 4 f32 elements); other rows raise ValueError."""
     if x.device.type == "cpu":
         return quant_rows_int8_plain(x, fixed_scale)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -100,6 +105,10 @@ def quant_rows_int8(x: torch.Tensor, fixed_scale: float | None = None):
         raise ValueError(f"x: expected a CUDA tensor, got {x.device}")
     if x.dim() != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
         raise ValueError(f"quant_rows_int8: expected rows of contiguous columns, got strides {x.stride()}")
+    per_vec = 16 // x.element_size()
+    if x.shape[1] % per_vec or x.stride(0) % per_vec or x.data_ptr() % 16:
+        raise ValueError(f"quant_rows_int8: rows must start on 16-byte boundaries and hold whole 16-byte vectors "
+                         f"(width and row stride multiples of {per_vec}), got {tuple(x.shape)}, strides {x.stride()}")
     if fixed_scale is not None and not fixed_scale > 0.0:
         raise ValueError(f"quant_rows_int8: fixed_scale must be positive, got {fixed_scale}")
     rows, cols = x.shape
@@ -280,36 +289,60 @@ attention_int8.launches = 0
 ATTENTION_INT8_HEAD_KEYS = 192  # csrc/attention_int8.cu's HEAD_KEYS: one block per (sequence, head) up to it
 
 
-def _layer(x, prepared, num_heads, quant, gemm, attention, res_ln):
-    """One int8 layer through the given kernel functions (wrappers or plain)."""
+def _layer(x2, qx, prepared, seq_len, num_heads, gemm, attention, quant, res_ln, last):
+    """One int8 layer on rows x2 [R, D] bf16 and their codes qx, through the
+    given kernel functions (wrappers or plain) -> (out [R, D] bf16, out's
+    codes, or None for the `last` layer). The LayerNorms write the codes of
+    their outputs (residual_layernorm's `quant`)."""
     (wqkv, sqkv, bqkv, wo, so, bo, ln1_s, ln1_b,
      w1, s1, b1, w2, s2, b2, ln2_s, ln2_b) = prepared
+    qkv = gemm(*qx, wqkv, sqkv, bqkv, "bf16")
+    attn = gemm(*quant(attention(qkv, seq_len, num_heads)), wo, so, bo, "f32")
+    y, _, qy = res_ln(x2, attn, ln1_s, ln1_b, True, False, quant=True)
+    h1 = gemm(*qy, w1, s1, b1, "gelu")
+    h2 = gemm(*quant(h1), w2, s2, b2, "f32")
+    _, out, *q_out = res_ln(y, h2, ln2_s, ln2_b, False, True, quant=not last)
+    return out, (q_out[0] if q_out else None)
+
+
+def _layers(x, layers, num_heads, gemm, attention, quant, res_ln):
+    """The layers in turn on x [B, S, D] bf16: one quantization of the
+    stack's input, then each layer on the codes the one before wrote."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    qkv = gemm(*quant(x2), wqkv, sqkv, bqkv, "bf16")
-    attn = gemm(*quant(attention(qkv, s, num_heads)), wo, so, bo, "f32")
-    y, _ = res_ln(x2, attn, ln1_s, ln1_b, True, False)
-    h1 = gemm(*quant(y), w1, s1, b1, "gelu")
-    h2 = gemm(*quant(h1), w2, s2, b2, "f32")
-    _, out = res_ln(y, h2, ln2_s, ln2_b, False, True)
-    return out.reshape(b, s, d)
+    qx = quant(x2)
+    for i, prepared in enumerate(layers):
+        x2, qx = _layer(x2, qx, prepared, s, num_heads, gemm, attention, quant, res_ln, i == len(layers) - 1)
+    return x2.reshape(b, s, d)
+
+
+def fused_encoder_layers_int8(x: torch.Tensor, layers, num_heads: int = 4, qattn: bool = False) -> torch.Tensor:
+    """A stack of int8 encoder layers, each a 16-tuple of prepare_layer_int8,
+    launched layer by layer (1 + 9 L launches). x [B, S, D] bf16 -> [B, S,
+    D] bf16; with `qattn` the attention runs on int8 codes too."""
+    return _layers(x.to(torch.bfloat16).contiguous(), layers, num_heads, gemm_int8,
+                   attention_int8 if qattn else attention_bf16, quant_rows_int8, residual_layernorm)
+
+
+def fused_encoder_layers_int8_plain(x: torch.Tensor, layers, num_heads: int = 4,
+                                    qattn: bool = False) -> torch.Tensor:
+    """The same stack through the plain PyTorch versions, on any device."""
+    return _layers(x.to(torch.bfloat16), layers, num_heads, gemm_int8_plain,
+                   attention_int8_plain if qattn else attention_bf16_plain, quant_rows_int8_plain,
+                   residual_layernorm_plain)
 
 
 def fused_encoder_layer_int8(x: torch.Tensor, prepared: tuple, num_heads: int = 4,
                              qattn: bool = False) -> torch.Tensor:
     """One int8 encoder layer. x [B, S, D] bf16 -> [B, S, D] bf16; with
     `qattn` the attention runs on int8 codes too."""
-    return _layer(x.to(torch.bfloat16).contiguous(), prepared, num_heads,
-                  quant_rows_int8, gemm_int8, attention_int8 if qattn else attention_bf16,
-                  residual_layernorm)
+    return fused_encoder_layers_int8(x, (prepared,), num_heads, qattn)
 
 
 def fused_encoder_layer_int8_plain(x: torch.Tensor, prepared: tuple, num_heads: int = 4,
                                    qattn: bool = False) -> torch.Tensor:
     """The same layer through the plain PyTorch versions, on any device."""
-    return _layer(x.to(torch.bfloat16), prepared, num_heads, quant_rows_int8_plain,
-                  gemm_int8_plain, attention_int8_plain if qattn else attention_bf16_plain,
-                  residual_layernorm_plain)
+    return fused_encoder_layers_int8_plain(x, (prepared,), num_heads, qattn)
 
 
 def prepare_layer_int8(layer) -> tuple:
@@ -340,9 +373,8 @@ def prepare_layer_int8(layer) -> tuple:
 def fused_encoder_stack_int8_plain(x: torch.Tensor, stacked: tuple, num_heads: int = 4) -> torch.Tensor:
     """The whole stack through the plain PyTorch versions: the plain layer
     on each layer's slice of the stacked tensors, on any device."""
-    for l in range(stacked[0].shape[0]):
-        x = fused_encoder_layer_int8_plain(x, tuple(t[l] for t in stacked), num_heads)
-    return x
+    layers = [tuple(t[l] for t in stacked) for l in range(stacked[0].shape[0])]
+    return fused_encoder_layers_int8_plain(x, layers, num_heads)
 
 
 STACK_PHASES = ("QKV GEMM", "attention", "quant attn", "out GEMM", "LN1 + quant y", "FF1 GEMM + gelu",
@@ -363,8 +395,8 @@ def fused_encoder_stack_int8(x: torch.Tensor, stacked: tuple, num_heads: int = 4
     CUDA: csrc/encoder_stack_int8.cu, one persistent cooperative kernel
     whose phases (the K3 chain's GEMM tiles on the TMA + wgmma s8 main
     loop, attention items and rows, separated by grid-wide barriers) run
-    the per-layer kernels' routines: bit-identical to L launches of the
-    fused_encoder_layer_int8 chain. The four weights are stored K-major
+    the per-layer kernels' routines: bit-identical to the L-layer
+    fused_encoder_layers_int8 chain. The four weights are stored K-major
     (check_stack_int8_weights). The intermediates live in a workspace
     allocated here per call (~66 MB at B=32, S=144). A grid the card cannot
     hold at once raises."""

@@ -442,9 +442,6 @@ layernorm_train_bwd.launches = 0
 # colsum
 # ---------------------------------------------------------------------------
 
-COLSUM_ROWS = 64  # rows per stage-1 chunk
-
-
 def colsum_plain(a, b=None):
     """sum over rows of a, and (with b) of a * b first: (sum a*b, sum a)."""
     if b is None:
@@ -456,7 +453,10 @@ def colsum(a: torch.Tensor, b=None):
     """Deterministic column sums (bias and LayerNorm parameter gradients).
 
     Replaces the per-group gradient sums of _bwd_kernel (K7). CUDA:
-    csrc/colsum.cu, chunked partial sums added in a fixed order."""
+    csrc/colsum.cu, one launch: a cluster of 8 blocks per 32 columns, each
+    block a range of rows in 16-byte loads, the partial sums added in a
+    fixed order in shared memory and across the cluster; the same bits
+    from run to run. N must be a multiple of 4."""
     if a.device.type == "cpu":
         return colsum_plain(a, b)
     check_cuda(a, torch.float32, 2, "a")
@@ -465,12 +465,11 @@ def colsum(a: torch.Tensor, b=None):
         if b.shape != a.shape:
             raise ValueError("colsum: shape mismatch")
     rows, n = a.shape
-    chunks = -(-rows // COLSUM_ROWS)
+    if n % 4:
+        raise ValueError(f"colsum: N must be a multiple of 4 (16-byte loads), got {n}")
     out_a = torch.empty(n, dtype=torch.float32, device=a.device)
     out_ab = torch.empty_like(out_a) if b is not None else None
-    ws = torch.empty(2, chunks, n, dtype=torch.float32, device=a.device)
-    launch("rt_colsum", ptr(a), ptr(b), ptr(out_a), ptr(out_ab), ptr(ws), rows, n, COLSUM_ROWS,
-           stream())
+    launch("rt_colsum", ptr(a), ptr(b), ptr(out_a), ptr(out_ab), rows, n, stream())
     colsum.launches += 1
     return out_a if b is None else (out_ab, out_a)
 

@@ -31,7 +31,11 @@ four on two other tile choices, INT8_TILE_VARIANTS, from variant
 libraries built once before the runs)
 and the four `gemm_f32` products of an f32 layer (each, their sum), the
 f32, bf16, int8 and int8qa inference layers (`fused_encoder_layer`,
-`fused_encoder_layer_bf16` / `_int8`), and the whole-stack
+`fused_encoder_layer_bf16` / `_int8`), `quant_rows_int8` on the int8
+layer's four GEMM inputs, its two LayerNorms as the int8 chain runs them
+(writing the codes of their outputs where the checkout's
+`residual_layernorm` can), the 8-layer int8 chain, the six `colsum`
+calls of a training layer's backward (each, and together), and the whole-stack
 `encoder_stack_int8` (8 layers, with its phases from the global timer at
 its barriers, the median of 9 launches, and its registers and spills from
 the build log; in this checkout's runs also two other tile choices and
@@ -354,6 +358,30 @@ def measure(seed: int, variant_libs: dict | None = None, stack_libs: dict | None
         "ln_bwd_bf16": ln_bwd_bf16, "ln_bwd": lambda: lt.layernorm_train_bwd(dy, n_ln, r_ln, g2, mf, ik),
     })
 
+    # quant_rows_int8 on the int8 layer's four GEMM inputs, the two
+    # LayerNorms as the int8 chain runs them (writing the codes of their
+    # outputs where the tree's residual_layernorm can), the 8-layer int8
+    # chain, and the six colsum calls of a training layer's backward
+    y_q, h1_q = (torch.randn(rows, n, generator=gl2, device="cuda") for n in (D, F))
+    folded = "quant" in inspect.signature(kc.residual_layernorm).parameters
+    codes = {"quant": True} if folded else {}
+    inference.update({
+        "quant_rows_int8_x": lambda: l8.quant_rows_int8(x2), "quant_rows_int8_attn": lambda: l8.quant_rows_int8(a_d),
+        "quant_rows_int8_y": lambda: l8.quant_rows_int8(y_q), "quant_rows_int8_h1": lambda: l8.quant_rows_int8(h1_q),
+        "residual_layernorm_ln1_int8": lambda: kc.residual_layernorm(x2, y_q, p8[6], p8[7], True, False, **codes),
+        "residual_layernorm_ln2_int8": lambda: kc.residual_layernorm(y_q, a_df, p8[14], p8[15], False, True, **codes),
+    })
+    layers8 = l8.prepare_posenet_int8(PoseNet().cuda())["layers"]
+    if hasattr(l8, "fused_encoder_layers_int8"):
+        inference["int8_chain_8_layers"] = lambda: l8.fused_encoder_layers_int8(x_inf, layers8, H)
+    else:
+        inference["int8_chain_8_layers"] = lambda: functools.reduce(
+            lambda xx, prep: l8.fused_encoder_layer_int8(xx, prep, H), layers8, x_inf)
+    cs = [torch.randn(TB * TS, n, generator=gl2, device="cuda") for n in (D, D, F, 3 * D)]
+    colsum_calls = ((cs[0], cs[1]), (cs[0], None), (cs[2], None), (cs[1], cs[0]), (cs[1], None), (cs[3], None))
+    for i, (a_, b_) in enumerate(colsum_calls):
+        inference[f"colsum_{i}_n{a_.shape[1]}{'_ab' if b_ is not None else ''}"] = functools.partial(lt.colsum, a_, b_)
+
     def fwd():
         return lt.layer_train_fwd(x, kp, fm, TS, H, ik, True)
 
@@ -371,7 +399,7 @@ def measure(seed: int, variant_libs: dict | None = None, stack_libs: dict | None
         lt.layer_train_bwd(dy, saved32_k, params, fm, TS, H, ik, False)
 
     out = {"tree": str(Path(lt.__file__).resolve().parents[2]), "staged": staged, "bf16_qkv": bf16_qkv,
-           "gemm_12_digest": digest.hexdigest()[:16]}
+           "gemm_12_digest": digest.hexdigest()[:16], "ln_codes_folded": folded}
     for name, fn in (("attention_fwd", attention), ("attention_bwd", attention_bwd),
                      ("attention_fwd_f32_mode", attention_f32_mode), ("attention_bwd_f32_mode", attention_bwd_f32_mode),
                      ("gemm_12", gemms), ("layer_fwd", fwd), ("layer_bwd", bwd), ("gemm_12_f32", gemms32),
@@ -380,6 +408,8 @@ def measure(seed: int, variant_libs: dict | None = None, stack_libs: dict | None
     out["gemm_bf16_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_bf16)
     out["gemm_int8_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in gemm_int8)
     out["int_mm_4_card_ms"] = sum(out[f"{name}_card_ms"] for name in int_mm)
+    out["quant_rows_int8_4_card_ms"] = sum(out[f"quant_rows_int8_{n}_card_ms"] for n in ("x", "attn", "y", "h1"))
+    out["colsum_6_card_ms"] = sum(v for k, v in out.items() if k.startswith("colsum_") and k.endswith("_card_ms"))
     for variant, path in (variant_libs or {}).items():
         # the four products on the variant library's tiles
         from rohm_tpu_torch.ops import _build
@@ -575,7 +605,7 @@ def main(argv=None) -> list:
     for k in keys:
         print(f"{k:36s} " + " / ".join(f"{r[k]:.4f}" if k in r else "-" for r in runs))
     for k in dict.fromkeys(k for r in runs for k in r):
-        if k == "gemm_12_digest" or k.endswith(("_grid", "_same")) or "_build" in k:
+        if k in ("gemm_12_digest", "ln_codes_folded") or k.endswith(("_grid", "_same")) or "_build" in k:
             print(f"{k:36s} " + " / ".join(str(r.get(k, "-")) for r in runs))
     return runs
 

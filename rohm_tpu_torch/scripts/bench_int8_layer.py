@@ -10,7 +10,9 @@ its ablations, each variant a switch of `int8_layer_variant`:
   fixed_quant  every quantization at the fixed scale 1/8 (codes
                clip(rint(x * 8))) instead of the per-row amax
   no_gelu      FF1 without its gelu
-"full" is exactly the K3 chain (`fused_encoder_layer_int8`). The LayerNorms
+"full" is the K3 layer (`fused_encoder_layer_int8`, bit for bit) with its
+four GEMM inputs quantized by quant_rows_int8 (the K3 chain takes the
+LayerNorms' codes from residual_layernorm instead). The LayerNorms
 are one-pass, var = E[y^2] - mu^2, as in the JAX script. Weights come from
 np.random.default_rng(0) (the JAX script draws them with jax.random: the
 same distributions, other values). Times: CUDA events over the chain run

@@ -178,9 +178,7 @@ def test_stack_kernel_matches_the_k3_chain_and_plain_on_cuda():
         before = l8.fused_encoder_stack_int8.launches
         got = l8.fused_encoder_stack_int8(x, stacked, 4)
         assert l8.fused_encoder_stack_int8.launches == before + 1
-        ref = x
-        for prep in layers:
-            ref = l8.fused_encoder_layer_int8(ref, prep, 4)
+        ref = l8.fused_encoder_layers_int8(x, layers, 4)  # the K3 chain, the LayerNorms writing the codes
         assert torch.equal(got, ref)
         err = (got.float() - l8.fused_encoder_stack_int8_plain(x, stacked, 4).float()).abs()
         assert err.max().item() < 0.3 and err.mean().item() < 5e-2
@@ -373,9 +371,7 @@ def test_stack_kernel_at_long_sequences_on_cuda(s):
     posenet = PoseNet(latent_dim=64, ff_size=128, num_layers=2, num_heads=4).cuda()
     stacked = l8.prepare_posenet_int8(posenet, mega=True)["layers_stacked"]
     x = torch.randn(2, s, 64, device="cuda").to(torch.bfloat16)
-    ref = x
-    for prep in l8.prepare_posenet_int8(posenet)["layers"]:  # the same codes, K-major for the K3 chain
-        ref = l8.fused_encoder_layer_int8(ref, prep, 4)
+    ref = l8.fused_encoder_layers_int8(x, l8.prepare_posenet_int8(posenet)["layers"], 4)  # the same codes
     assert torch.equal(l8.fused_encoder_stack_int8(x, stacked, 4), ref)
 
 
@@ -572,3 +568,87 @@ def test_layernorm_bf16_copies_and_two_casts_on_cuda():
     before = [fn.launches for fn in counters]
     lt.fused_train_layer(layer, x, masks, h, 0.1, "bfloat16").sum().backward()
     assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 2, 2]
+
+
+# (dtype, C, row stride): the layer's widths in both types, a row past one
+# span of registers (f32 1024, bf16 2048), a narrow one, and strided rows
+QUANT_CASES = [(torch.bfloat16, 512, 512), (torch.float32, 1024, 1024), (torch.float32, 1040, 1040),
+               (torch.bfloat16, 2056, 2056), (torch.bfloat16, 8, 8), (torch.float32, 4, 12),
+               (torch.bfloat16, 512, 1536)]
+
+
+@pytest.mark.parametrize("dtype,c,ld", QUANT_CASES)
+def test_quant_rows_int8_widths_on_cuda(dtype, c, ld):
+    """quant_rows_int8 (one warp per row, 16-byte loads) equal to its plain
+    version at any whole number of 16-byte vectors, with an all-zero row
+    (amax clamps to 1e-12) and a row of ties (x * 127/amax on .5 steps);
+    one launch; rows off 16-byte boundaries refused."""
+    g = torch.Generator(device="cuda").manual_seed(c + ld)
+    r = 2 * 145 + 3
+    buf = torch.randn(r, ld, device="cuda", generator=g).to(dtype)
+    buf[0] = 0.0
+    buf[1] = torch.arange(ld, device="cuda").remainder(5).to(dtype) * 0.5 - 1.0  # amax 1: x * 127 ends in .5
+    x = buf[:, :c]
+    before = l8.quant_rows_int8.launches
+    q, s = l8.quant_rows_int8(x)
+    assert l8.quant_rows_int8.launches == before + 1
+    q_ref, s_ref = l8.quant_rows_int8_plain(x)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    per_vec = 16 // buf.element_size()
+    for bad in (buf[:, 1:c], buf[:, : c - 1] if c > 1 else buf[:, :0]):
+        if bad.shape[1] % per_vec or bad.data_ptr() % 16:
+            with pytest.raises(ValueError, match="16-byte"):
+                l8.quant_rows_int8(bad)
+
+
+def test_residual_layernorm_codes_on_cuda():
+    """residual_layernorm with `quant`: the codes and scales equal
+    quant_rows_int8_plain of the kernel's own output (f32 where it writes
+    one, else bf16), the outputs equal those of the launch without codes,
+    and the int8 chain launches quant_rows_int8 1 + 2 L times and
+    residual_layernorm 2 L times for L layers, bit for bit the chain of
+    single-layer calls (each quantizing its input itself)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    r, d = 2 * 145 + 3, 64
+    x16 = torch.randn(r, d, device="cuda", generator=g).to(torch.bfloat16)
+    a32, b = (torch.randn(r, d, device="cuda", generator=g) for _ in range(2))
+    gamma, beta = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g), 0.1 * torch.randn(d, device="cuda", generator=g)
+    for a, of, ob in ((x16, True, False), (a32, False, True), (x16, True, True)):
+        f32, bf16, (q, s) = kc.residual_layernorm(a, b, gamma, beta, of, ob, quant=True)
+        assert torch.equal(q, l8.quant_rows_int8_plain(f32 if of else bf16)[0])
+        assert torch.equal(s, l8.quant_rows_int8_plain(f32 if of else bf16)[1])
+        f32_, bf16_ = kc.residual_layernorm(a, b, gamma, beta, of, ob)
+        assert all(u is None and v is None or torch.equal(u, v) for u, v in ((f32, f32_), (bf16, bf16_)))
+    torch.manual_seed(0)
+    posenet = PoseNet(latent_dim=64, ff_size=128, num_layers=3, num_heads=4).cuda()
+    for key, qattn in (("layers", False), ("layers_qattn", True)):
+        layers = l8.prepare_posenet_int8(posenet, qattn=qattn)[key]
+        x = torch.randn(2, 145, 64, device="cuda", generator=g).to(torch.bfloat16)
+        before = (l8.quant_rows_int8.launches, kc.residual_layernorm.launches)
+        got = l8.fused_encoder_layers_int8(x, layers, 4, qattn=qattn)
+        after = (l8.quant_rows_int8.launches, kc.residual_layernorm.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == (1 + 2 * 3, 2 * 3)
+        ref = x
+        for prep in layers:
+            ref = l8.fused_encoder_layer_int8(ref, prep, 4, qattn=qattn)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("r,n", [(64 * 145, 512), (64 * 145, 1536), (2 * 145 + 3, 64), (5, 36)])
+def test_colsum_one_launch_repeatable_on_cuda(r, n):
+    """colsum (one launch, a cluster of blocks per 32 columns) within
+    chip_smoke.py's gate (1e-5 of sum|terms|) of its plain version, bit
+    for bit the same in two runs, with and without the product; N off a
+    multiple of 4 refused."""
+    g = torch.Generator(device="cuda").manual_seed(r + n)
+    a, b = (torch.randn(r, n, device="cuda", generator=g) for _ in range(2))
+    for args, sums in (((a,), (a.abs().sum(0),)), ((a, b), ((a * b).abs().sum(0), a.abs().sum(0)))):
+        before = lt.colsum.launches
+        got, again = lt.colsum(*args), lt.colsum(*args)
+        assert lt.colsum.launches == before + 2
+        got, again, ref = ((t,) if len(args) == 1 else t for t in (got, again, lt.colsum_plain(*args)))
+        for g_, a_, r_, sm in zip(got, again, ref, sums):
+            assert torch.equal(g_, a_)
+            assert ((g_ - r_).abs() <= 1e-5 * sm + 1e-6).all()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        lt.colsum(torch.zeros(8, 6, device="cuda"))

@@ -130,13 +130,13 @@ def test_layers_qattn_prep_and_dispatch(posenet_pair, monkeypatch):
     out = l16.posenet_apply_prepared(prep, tx, tc, 5, num_heads=H)
 
     calls = []
-    orig = l8.fused_encoder_layer_int8
+    orig = l8.fused_encoder_layers_int8
 
-    def spy(x, layer, num_heads, qattn=False):
-        calls.append(qattn)
-        return orig(x, layer, num_heads, qattn=qattn)
+    def spy(x, layers, num_heads, qattn=False):  # one entry per layer of the chain
+        calls.extend([qattn] * len(layers))
+        return orig(x, layers, num_heads, qattn=qattn)
 
-    monkeypatch.setattr(l8, "fused_encoder_layer_int8", spy)
+    monkeypatch.setattr(l8, "fused_encoder_layers_int8", spy)
     l16.posenet_apply_prepared(prep, tx, tc, 5, num_heads=H)
     l16.posenet_apply_prepared(plain, tx, tc, 5, num_heads=H)
     monkeypatch.undo()

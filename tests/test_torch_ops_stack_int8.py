@@ -124,18 +124,18 @@ def test_layers_stacked_dispatch_takes_precedence(setup, monkeypatch):
     both = prepare_posenet_int8(port, qattn=True, mega=True)
     assert "layers_stacked" in both and "layers_qattn" not in both
     calls = []
-    stack, layer = l8.fused_encoder_stack_int8, l8.fused_encoder_layer_int8
+    stack, layers_fn = l8.fused_encoder_stack_int8, l8.fused_encoder_layers_int8
 
     def stack_spy(seq, stacked, num_heads):
         calls.append("stack")
         return stack(seq, stacked, num_heads)
 
-    def layer_spy(seq, prep, num_heads, qattn=False):
-        calls.append("qattn" if qattn else "layer")
-        return layer(seq, prep, num_heads, qattn=qattn)
+    def layers_spy(seq, layers, num_heads, qattn=False):  # one entry per layer of the chain
+        calls.extend(["qattn" if qattn else "layer"] * len(layers))
+        return layers_fn(seq, layers, num_heads, qattn=qattn)
 
     monkeypatch.setattr(l8, "fused_encoder_stack_int8", stack_spy)
-    monkeypatch.setattr(l8, "fused_encoder_layer_int8", layer_spy)
+    monkeypatch.setattr(l8, "fused_encoder_layers_int8", layers_spy)
     tx, tc = torch.from_numpy(x), torch.from_numpy(cond)
     qattn = prepare_posenet_int8(port, qattn=True)
     mixed = {**qattn, "layers_stacked": tprep["layers_stacked"], "layers": qattn["layers_qattn"]}
