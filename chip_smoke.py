@@ -1444,7 +1444,9 @@ def breakdown_phase(pipes: dict, cond: torch.Tensor, x_pose: torch.Tensor) -> No
 
 def device_busy(fn, n: int, what: str, tag: str) -> float:
     """Run fn n times under torch.profiler: log the device's busy share of
-    the wall time and the largest kernels; returns the busy share."""
+    the wall time under the profiler (which slows the host side of an eager
+    step), the kernels' time per call and the largest kernels; returns the
+    busy share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1453,14 +1455,16 @@ def device_busy(fn, n: int, what: str, tag: str) -> float:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a record_function span (AdamW's "Optimizer.step#...") also shows on the
+    # device's timeline, over the kernels it covers: counted once, as those
     kernels = sorted(
         ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
+         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
         key=lambda kv: -kv[1],
     )
     busy = sum(us for _, us in kernels)
     log(f"[{tag}] {what} x{n} under the profiler: device busy {busy / wall_us:.3f} "
-        f"of {wall_us / 1e3:.1f} ms wall")
+        f"of {wall_us / 1e3:.1f} ms wall, {busy / (n * 1e3):.2f} ms of kernels each")
     for name, us in kernels[:8]:
         log(f"[{tag}]   {us / busy:.3f}  {us / (n * 1e3):.4f} ms each  {name[:90]}")
     return busy / wall_us
@@ -1473,6 +1477,9 @@ def device_busy(fn, n: int, what: str, tag: str) -> float:
 TRAIN_STEPS = {"bfloat16": 20, "float32": 4, "": 4}  # --fused_train -> --num_steps
 TRAIN_EVAL_AT = 10  # --log_interval of the bf16 run: one in-training eval
 CLIPS_PER_TRAIN_SEQ = 8
+# the training trees under the work directory: name, train and test sequences
+# per dataset (phase 6 writes them, phase 6b trains on them too)
+TRAIN_TREES = {"full": ("train_full", 12, 11), "small": ("train_small", 3, 1)}
 
 
 def write_train_tree(root: Path, body, train_seqs: int, test_seqs: int, seed: int) -> None:
@@ -1509,6 +1516,24 @@ def expected_train_launches(mode: str, steps: int) -> dict:
     return out
 
 
+def time_steps(step) -> tuple[float, int, int]:
+    """ms per optimizer step (host clock around a synchronised step, median
+    of 10 after 3 warm-up steps), the peak memory of the 10 steps, and what
+    was allocated before them (the model, the optimizer, earlier phases)."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), torch.cuda.max_memory_allocated(), held
+
+
 def train_timing(loop, mode: str) -> dict:
     """ms per optimizer step (host clock around a synchronised step, median
     of 10 after 3 warm-up steps), its pieces timed alone (median CUDA-event
@@ -1522,18 +1547,7 @@ def train_timing(loop, mode: str) -> dict:
     def step():
         loop.train_step(loop.state, sb, loop.generator, skating)
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()  # allocated before the steps (the model, the optimizer, earlier phases)
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
+    step_ms, peak, held = time_steps(step)
     model = loop.state.model
     gen = torch.Generator(device="cuda").manual_seed(7)
     clean, cond = sb["motion_repr_clean"], sb["cond"]
@@ -1567,7 +1581,6 @@ def train_timing(loop, mode: str) -> dict:
         "losses through SMPL-X, forward + backward": median_ms(losses),
         "optimizer (AdamW)": median_ms(loop.state.optimizer.step),
     }
-    step_ms = statistics.median(times)
     log(f"[train] --fused_train={mode!r}: {step_ms:.2f} ms per optimizer step (host clock, median of 10 "
         f"after 3 warm-up; batch {TB} x {frames} frames), peak memory of the steps "
         f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above what was allocated before them")
@@ -1589,7 +1602,7 @@ def train_phase(seed: int, work: Path, body_path: Path) -> dict:
 
     body = synthetic_model(num_verts=10475, seed=seed, device="cuda")
     t0 = time.perf_counter()
-    trees = {"full": (work / "train_full", 12, 11), "small": (work / "train_small", 3, 1)}
+    trees = {k: (work / name, train_seqs, test_seqs) for k, (name, train_seqs, test_seqs) in TRAIN_TREES.items()}
     for root, train_seqs, test_seqs in trees.values():
         write_train_tree(root, body, train_seqs, test_seqs, seed)
     log(f"[train] synthetic trees: 15 train datasets x 12 / 3 sequences of {CLIPS_PER_TRAIN_SEQ} clips "
@@ -1644,6 +1657,132 @@ def train_phase(seed: int, work: Path, body_path: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: TrajNet and TrajControl training through the CLI
+# ---------------------------------------------------------------------------
+
+# run -> (YAML, tree, --num_steps, --log_interval): 20 steps of the 22
+# batches of the full tree with one in-training eval of the 100-step chain,
+# then the TrajControl fine-tune from its checkpoint on the small tree's 5
+TRAJ_TRAIN_RUNS = {
+    "vanilla": ("trajnet_train_vanilla_stage1.yaml", "full", 20, 10),
+    "trajcontrol": ("trajnet_ft_trajcontrol.yaml", "small", 4, 10**9),
+}
+
+
+def trajnet_train_timing(loop, run: str) -> dict:
+    """As train_timing for a TrajNet run: ms per optimizer step and the
+    peak memory of the steps (time_steps), the step's pieces timed alone
+    (median CUDA-event ms) and the device's busy share over 5 steps. The
+    steps keep training the run's model (its trainable parameters)."""
+    sb = loop.step_batch(next(loop.train_dataset.batches(TB, seed=123)), 0)
+
+    def step():
+        loop.train_step(loop.state, sb, loop.generator)
+
+    step_ms, peak, held = time_steps(step)
+    model = loop.state.model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    clean, cond, cc = sb["motion_repr_clean"], sb["cond"], sb.get("control_cond")
+    d = loop.traj_feat_dim
+    t = torch.randint(0, 100, (TB,), generator=gen, device="cuda")
+    x_t = torch.randn(clean[..., :d].shape, generator=gen, device="cuda")
+
+    def forward():
+        with torch.enable_grad():
+            return model.forward_train(x_t, cond, t, control_cond=cc)
+
+    out_graph = forward()  # its graph is kept for the timed backward passes
+    out0 = out_graph.detach()
+    g_out = torch.randn(out0.shape, generator=gen, device="cuda")
+
+    def losses():
+        o = out0.clone().requires_grad_()
+        with torch.enable_grad():
+            loop.eval_loss_fn(o, clean)["loss"].backward()
+
+    ms = {
+        "draws (t, noise)": median_ms(
+            lambda: (torch.randint(0, 100, (TB,), generator=gen, device="cuda"),
+                     torch.randn(clean[..., :d].shape, generator=gen, device="cuda"))),
+        "U-Net forward": median_ms(forward),
+        "U-Net backward": median_ms(lambda: out_graph.backward(g_out, retain_graph=True)),
+        "trajnet_losses through SMPL-X, forward + backward": median_ms(losses),
+        "optimizer (AdamW)": median_ms(loop.state.optimizer.step),
+    }
+    log(f"[trajtrain] {run}: {step_ms:.2f} ms per optimizer step (host clock, median of 10 after 3 warm-up; "
+        f"batch {TB} x {clean.shape[1]} frames), peak memory of the steps {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} GiB above what was allocated before them")
+    for name, v in ms.items():
+        log(f"[trajtrain]   {name}: {v:.3f} ms (median of 20)")
+    busy = device_busy(step, 5, f"TrajNet {run} optimizer steps", "trajtrain")
+    return {"step_ms": step_ms, "pieces_ms": ms, "busy": busy, "steps_peak_bytes": peak, "held_bytes": held}
+
+
+def trajnet_train_phase(seed: int, work: Path, body_path: Path) -> dict:
+    """train_trajnet.main at full width (mid_dim 512, batch 64 x 145-frame
+    clips, 100 cosine steps) on phase 6's trees: the vanilla stage-1 run,
+    then the TrajControl fine-tune from its checkpoint. Checks finite
+    losses, every vanilla tensor moved, the TrajControl backbone bit for
+    bit its bootstrap and every branch tensor moved, the checkpoints and
+    the eval, and no kernel launch; returns the launch counts (all 0), the
+    two checkpoints and the timings."""
+    from types import SimpleNamespace
+
+    from rohm_tpu_torch.cli import train_trajnet
+    from rohm_tpu_torch.cli.common import bootstrap_trajcontrol, build_trajnet, load_pretrained
+    from rohm_tpu_torch.train.checkpoint import latest_checkpoint
+
+    args = SimpleNamespace(mid_dim=512)
+    out, ckpts = {}, {}
+    for run, (yaml, tree, steps, log_interval) in TRAJ_TRAIN_RUNS.items():
+        trajcontrol = run == "trajcontrol"
+        extra = [f"--pretrained_backbone_path={ckpts['vanilla']}"] if trajcontrol else []
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop = train_trajnet.main([
+            f"--config=cfg_files/train_cfg/{yaml}", f"--dataset_root={work / TRAIN_TREES[tree][0]}",
+            f"--body_model_path={body_path}", f"--save_dir={work / ('runs_' + run)}", f"--num_steps={steps}",
+            f"--log_interval={log_interval}", "--save_interval=1000000000", f"--seed={seed}", "--device=0",
+            *extra,
+        ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_launches()
+        log(f"[trajtrain] {run}: main() {seconds:.2f} s, {loop.step} steps, peak memory {peak / 2**30:.2f} GiB; "
+            f"launches {counts}")
+        if loop.step != steps or any(counts.values()):
+            raise AssertionError(f"the TrajNet {run} run took {loop.step} steps or launched a kernel: {counts}")
+        losses = {k: float(v) for k, v in loop.last_losses.items()}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses in the TrajNet {run} run: {losses}")
+        init = build_trajnet(args, 13, trajcontrol, seed=seed).state_dict()
+        if trajcontrol:  # the bootstrap: the vanilla checkpoint grafted onto the same init
+            backbone = build_trajnet(args, 13, False, seed=seed)
+            load_pretrained(backbone, ckpts["vanilla"])
+            init = bootstrap_trajcontrol(init, backbone.state_dict())
+        params = {n: p.detach().cpu() for n, p in loop.state.model.named_parameters()}
+        frozen = [n for n in params if trajcontrol and not n.startswith("controlnet.")]
+        moved = [n for n in params if not torch.equal(params[n], init[n])]
+        if sorted(moved) != sorted(set(params) - set(frozen)):
+            raise AssertionError(f"the TrajNet {run} run moved {len(moved)} of {len(params)} tensors; "
+                                 f"{len(frozen)} are frozen and must keep their bootstrap value bit for bit")
+        ckpts[run] = latest_checkpoint(loop.logdir)
+        evals = "".join(p.read_text() for p in Path(loop.logdir).glob("run_*.log")).count("[eval]  loss:")
+        log(f"[trajtrain] {run}: last loss {losses['loss']:.4f}, {len(moved)} tensors moved, {len(frozen)} frozen "
+            f"bit for bit, checkpoint {Path(ckpts[run]).name}, in-training evals {evals}")
+        if not ckpts[run].endswith(f"model{steps:09d}.npz") or evals != (0 if trajcontrol else 1):
+            raise AssertionError(f"the TrajNet {run} run's checkpoint or eval is missing")
+        out[run] = {"main_s": seconds, "peak_bytes": peak, "losses": losses, "checkpoint": ckpts[run],
+                    **trajnet_train_timing(loop, run)}
+        del loop
+        torch.cuda.empty_cache()
+    return {"launches": dict.fromkeys(KERNELS, 0), "runs": out, "checkpoints": ckpts}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the CLI
 # ---------------------------------------------------------------------------
 
@@ -1664,13 +1803,14 @@ def write_smplx_npz(path: Path, seed: int) -> None:
     )
 
 
-def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str) -> dict:
+def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ckpts: dict) -> dict:
     """`test_amass_full.main` at full width on a synthetic AMASS test tree
     (3 datasets x 11 sequences of 149 frames: 33 clips) with a real-size
     synthetic SMPL-X file, one batch of 32 clips in each of "f32" (PoseNet
     loaded from `posenet_ckpt`, the training phase's checkpoint, and its
-    run directory's stats) and "int8qa" (random PoseNet), then
-    `eval_amass_full.main` on each pickle."""
+    run directory's stats; TrajNet and TrajControl from `traj_ckpts`, phase
+    6b's) and "int8qa" (random weights), then `eval_amass_full.main` on
+    each pickle."""
     from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
     from rohm_tpu_torch.cli.common import AMASS_TEST_DATASETS
     from rohm_tpu_torch.data import write_synthetic_amass
@@ -1682,7 +1822,8 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str) -> dict
         f"frames, {time.perf_counter() - t0:.2f} s")
     launches = dict.fromkeys(KERNELS, 0)
     out = {}
-    for mode, ckpt in (("f32", posenet_ckpt), ("int8qa", "")):
+    trained = {"posenet": posenet_ckpt, "trajnet": traj_ckpts["vanilla"], "trajnet_control": traj_ckpts["trajcontrol"]}
+    for mode, ckpts in (("f32", trained), ("int8qa", dict.fromkeys(trained, ""))):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1690,7 +1831,7 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str) -> dict
             "--config=cfg_files/test_cfg/amass_occ_leg_noise_3.yaml", "--synthetic_data=True",
             f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}",
             "--batch_size=32", "--max_batches=1", "--load_noise=False", f"--fused_posenet={mode}",
-            "--model_path_trajnet=", "--model_path_trajnet_control=", f"--model_path_posenet={ckpt}",
+            *[f"--model_path_{net}={path}" for net, path in ckpts.items()],
             f"--save_root={work / ('results_' + mode)}", f"--seed={seed}", "--device=0",
         ])
         torch.cuda.synchronize()
@@ -1705,7 +1846,7 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str) -> dict
         batch_s = timing["batch_dispatch"] + timing["device_wait_and_collect"]
         log(f"[cli] fused_posenet={mode}: one batch of 32 clips {batch_s:.2f} s "
             f"(batch_dispatch + device_wait_and_collect), main() {seconds:.2f} s in all; "
-            f"PoseNet {'from ' + Path(ckpt).name if ckpt else 'random'}")
+            + ", ".join(f"{net} {'from ' + Path(p).name if p else 'random'}" for net, p in ckpts.items()))
 
         with open(pkl, "rb") as f:
             saved = pickle.load(f)
@@ -1973,12 +2114,13 @@ def main(argv=None) -> None:
     body_path = work / "SMPLX_NEUTRAL.npz"
     write_smplx_npz(body_path, args.seed)
     train = train_phase(args.seed, work, body_path)
-    cli = cli_phase(args.seed, work, body_path, train["checkpoint"])
+    trajtrain = trajnet_train_phase(args.seed, work, body_path)
+    cli = cli_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
-    # launches: the slice's, the training runs', the CLI's and the bench
-    # phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
+    # launches: the slice's, the training runs' (TrajNet's launch none), the
+    # CLI's and the bench phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
     # / library_ms are per layer (summed over the launches one layer
     # makes), per 8-layer forward for encoder_stack_int8, and summed over
     # the probe's sizes or variants for gemm_skeleton and int8_layer_variant
@@ -1987,7 +2129,7 @@ def main(argv=None) -> None:
         st = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(ph["launches"][name] for ph in (sl, train, cli, bench)),
+            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
             "library_ms": st["library_ms"], "card_ms": st["card_ms"], "library_card_ms": st["library_card_ms"],

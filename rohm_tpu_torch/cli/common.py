@@ -66,16 +66,29 @@ def resolve_body_model(body_model_path: str, device, gender: str = "neutral") ->
     return synthetic_model(device=device)
 
 
-def build_trajnet(args, traj_feat_dim: int, trajcontrol: bool = False) -> TrajNet:
+def _seeded(make, seed: int | None):
+    """make() with its random init drawn from a generator seeded with
+    `seed` (the global one is left as it was); without, from the global
+    generator."""
+    if seed is None:
+        return make()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return make()
+
+
+def build_trajnet(args, traj_feat_dim: int, trajcontrol: bool = False,
+                  seed: int | None = None) -> TrajNet:
     """Hyperparameters as constructed by the reference entry scripts
-    (train_trajnet.py:128-142: time_dim=32, mid_dim=512)."""
-    return TrajNet(
+    (train_trajnet.py:128-142: time_dim=32, mid_dim=512). `seed` as in
+    build_posenet."""
+    return _seeded(lambda: TrajNet(
         traj_feat_dim=traj_feat_dim,
         cond_dim=traj_feat_dim,
         mid_dim=getattr(args, "mid_dim", None) or 512,
         time_dim=32,
         trajcontrol=trajcontrol,
-    )
+    ), seed)
 
 
 def build_posenet(args, seed: int | None = None) -> PoseNet:
@@ -83,20 +96,37 @@ def build_posenet(args, seed: int | None = None) -> PoseNet:
     4 heads, dropout 0.1 (train mode only). With `seed`, the random init
     is drawn from a generator seeded with it (the global one is left as it
     was); without, from the global generator."""
-    def make():
-        return PoseNet(
-            latent_dim=getattr(args, "latent_dim", None) or 512,
-            ff_size=1024,
-            num_layers=8,
-            num_heads=4,
-            dropout=0.1,
-        )
+    return _seeded(lambda: PoseNet(
+        latent_dim=getattr(args, "latent_dim", None) or 512,
+        ff_size=1024,
+        num_layers=8,
+        num_heads=4,
+        dropout=0.1,
+    ), seed)
 
-    if seed is None:
-        return make()
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return make()
+
+# the U-Net encoder and mid blocks the TrajControl branch copies
+# (reference train_trajnet.py:149-164)
+_CONTROL_COPIES = tuple(f"enc{i}" for i in range(1, 5)) + tuple(
+    f"downsample{i}" for i in range(1, 5)) + ("mid_block1", "mid_block2")
+
+
+def bootstrap_trajcontrol(control_state: dict, backbone_state: dict) -> dict:
+    """Copy a pretrained U-Net into a TrajControl model's state_dict: the
+    backbone's entries verbatim (condition encoder, U-Net, time MLP, final
+    conv), plus its diffusion encoder and mid blocks (`diff_enc1-4`,
+    `diff_downsample1-4`, `diff_mid_block1-2`) duplicated into the branch as
+    `controlnet.control_*` (reference train_trajnet.py:149-164). The six zero
+    convs keep the control state's values (zero at init). Returns a new
+    state_dict."""
+    out = dict(control_state)
+    for key, val in backbone_state.items():
+        if key in out:
+            out[key] = val
+        block = key[len("diff_"):].split(".", 1)[0] if key.startswith("diff_") else None
+        if block in _CONTROL_COPIES:
+            out["controlnet.control_" + key[len("diff_"):]] = val
+    return out
 
 
 def load_pretrained(model: torch.nn.Module, path: str) -> None:

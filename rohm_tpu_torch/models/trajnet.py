@@ -134,6 +134,11 @@ class TrajNet(nn.Module):
     def forward(self, x_t, cond, t, control_cond=None) -> torch.Tensor:
         """x_t [B, T, traj_feat_dim], cond [B, T, cond_dim], t [B] or int,
         control_cond [B, T, 272] (TrajControl only) -> [B, T, traj_feat_dim]."""
+        return self.forward_train(x_t, cond, t, control_cond)
+
+    def forward_train(self, x_t, cond, t, control_cond=None) -> torch.Tensor:
+        """The same forward under autograd, for training (TrajNet has no
+        dropout, so train and eval mode compute the same function)."""
         bsz, seq_len, _ = x_t.shape
         if seq_len % 16:
             raise ValueError(f"TrajNet needs T divisible by 16, got {seq_len}")

@@ -1,4 +1,5 @@
-"""Checkpoints of PoseNet training as `.npz` files of flattened flax params.
+"""Checkpoints of TrajNet and PoseNet training as `.npz` files of flattened
+flax params.
 
 The port of rohm_tpu/train/checkpoint.py. The JAX package saves orbax
 directories `model{step:09d}` in the run directory, beside the
@@ -10,7 +11,10 @@ flattened with "/" (keys "params/..."): the format both the JAX package's
 `load_pretrained` (rohm_tpu/cli/common.py) and the port's read. With the
 optimizer state, the AdamW moments ride along in the flax layout under
 "opt_state/mu/params/...", "opt_state/nu/params/..." with their step count
-under "opt_state/count".
+under "opt_state/count": those of the parameters the optimizer holds, which
+in a TrajControl run are the `controlnet.` branch's alone (the frozen
+backbone has none; train/state.py). The model's type picks the layout:
+TrajNet (plain or TrajControl, from its `trajcontrol`) or PoseNet.
 """
 
 from __future__ import annotations
@@ -21,7 +25,13 @@ import re
 import numpy as np
 import torch
 
-from rohm_tpu_torch.utils.convert_flax import posenet_flax_params, posenet_state_dict
+from rohm_tpu_torch.models.trajnet import TrajNet
+from rohm_tpu_torch.utils.convert_flax import (
+    posenet_flax_params,
+    posenet_state_dict,
+    trajnet_flax_params,
+    trajnet_state_dict,
+)
 
 CKPT_RE = re.compile(r"model(\d{9})\.npz")
 
@@ -41,16 +51,35 @@ def _moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
     return {"count": count, "mu": mu, "nu": nu}
 
 
+def _flax_params(model: torch.nn.Module, tensors: dict) -> dict:
+    """Tensors under the model's parameter names -> flat flax params."""
+    if isinstance(model, TrajNet):
+        return trajnet_flax_params(tensors)
+    return posenet_flax_params(tensors, model.num_heads)
+
+
+def _state_dict(model: torch.nn.Module, flat: dict, names, prefix: str = "params/") -> dict:
+    """Flat flax params under `prefix` -> the tensors of `names`. The entries
+    under `prefix` are laid over the params, so moments held for only some
+    parameters (a TrajControl run's branch) decode with the same converter."""
+    tree = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
+    tree.update({k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)})
+    if isinstance(model, TrajNet):
+        sd = trajnet_state_dict(tree, trajcontrol=model.trajcontrol)
+    else:
+        sd = posenet_state_dict(tree, num_layers=model.num_layers)
+    return {n: sd[n] for n in names}
+
+
 def save_checkpoint(logdir: str, step: int, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None) -> str:
     """Write `<logdir>/model{step:09d}.npz`; returns its path."""
-    num_heads = model.num_heads
-    payload = posenet_flax_params(model.state_dict(), num_heads)
+    payload = _flax_params(model, model.state_dict())
     if optimizer is not None and optimizer.state:
         m = _moments(model, optimizer)
         payload["opt_state/count"] = np.asarray(m["count"], np.int64)
         for kind in ("mu", "nu"):
-            for k, v in posenet_flax_params(m[kind], num_heads).items():
+            for k, v in _flax_params(model, m[kind]).items():
                 payload[f"opt_state/{kind}/{k}"] = v
     path = os.path.abspath(os.path.join(logdir, ckpt_name(step)))
     tmp = path[: -len(".npz")] + ".tmp.npz"
@@ -74,16 +103,14 @@ def load_checkpoint(path: str, model: torch.nn.Module,
         )
     with np.load(path) as z:
         flat = dict(z)
-    sd = posenet_state_dict(flat, num_layers=model.num_layers)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(_state_dict(model, flat, dict(model.named_parameters())), strict=True)
     if optimizer is None or "opt_state/count" not in flat:
         return False
-    moments = {kind: posenet_state_dict({k[len(f"opt_state/{kind}/"):]: v for k, v in flat.items()
-                                         if k.startswith(f"opt_state/{kind}/")},
-                                        num_layers=model.num_layers)
-               for kind in ("mu", "nu")}
+    names = {p: n for n, p in model.named_parameters()}
+    held = {names[p]: p for group in optimizer.param_groups for p in group["params"]}
+    moments = {kind: _state_dict(model, flat, held, f"opt_state/{kind}/params/") for kind in ("mu", "nu")}
     count = float(flat["opt_state/count"])
-    for name, p in model.named_parameters():
+    for name, p in held.items():
         optimizer.state[p] = {
             "step": torch.tensor(count),
             "exp_avg": moments["mu"][name].to(p.device),

@@ -97,6 +97,19 @@ def full_window_mask(
     return vis
 
 
+def traj_infill_mask(
+    rng: np.random.Generator, batch_size: int, clip_len: int, max_infill_ratio: float
+) -> np.ndarray:
+    """Random contiguous zero-window over the traj condition, per sample
+    (training_loop_trajnet.py:69-82). Returns [bs, T] float (1 keep)."""
+    start = rng.integers(0, clip_len - 1, size=batch_size)
+    mask_len = (clip_len * rng.uniform(size=batch_size) * max_infill_ratio).astype(int)
+    end = np.minimum(start + mask_len, clip_len)
+    t = np.arange(clip_len)
+    in_window = (t[None, :] >= start[:, None]) & (t[None, :] < end[:, None])
+    return (~in_window).astype(np.float32)
+
+
 def expand_joint_visibility(mask_clip: np.ndarray, clip_len: int | None = None) -> np.ndarray:
     """Expand a per-joint visibility clip [T, 22] (1 = visible) into the flat
     repr visibility vector [T, 294].

@@ -6,8 +6,14 @@ eps = 1e-8 added outside the square root, bias-corrected moments and
 decoupled weight decay (p <- p - lr * (update + wd * p)).
 `torch.optim.AdamW` computes the same update when every one of those is
 passed explicitly; its own default weight decay is 0.01, the CLI's is 0.0.
-The `frozen_mask` of the JAX package (TrajControl fine-tuning) is not
-ported: it belongs to TrajNet training.
+
+The TrajControl freeze (`frozen_mask`, reference train_trajnet.py:167-175):
+the JAX package chains `optax.masked(set_to_zero)` after AdamW, so a frozen
+leaf takes no update and no decay. Here AdamW is given the trainable
+parameters alone and the frozen ones stop requiring gradients: they stay
+bit for bit as they were, and their weight gradients are not computed
+(gradients still flow through their activations into the branch). optax
+keeps moments for the frozen leaves; this optimizer holds none for them.
 """
 
 from __future__ import annotations
@@ -36,8 +42,25 @@ class TrainState:
         return self
 
 
-def create_train_state(model: torch.nn.Module, lr: float = 1e-4,
-                       weight_decay: float = 0.0) -> TrainState:
-    opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=ADAMW_BETAS, eps=ADAMW_EPS,
-                            weight_decay=weight_decay)
+def create_train_state(model: torch.nn.Module, lr: float = 1e-4, weight_decay: float = 0.0,
+                       trainable: dict | None = None) -> TrainState:
+    """AdamW over the model's parameters. trainable: optional {parameter
+    name: bool} (True = trainable, `trajcontrol_frozen_mask`); the others
+    are frozen."""
+    params = []
+    for name, p in model.named_parameters():
+        if trainable is None or trainable[name]:
+            params.append(p)
+        else:
+            p.requires_grad_(False)
+    opt = torch.optim.AdamW(params, lr=lr, betas=ADAMW_BETAS, eps=ADAMW_EPS, weight_decay=weight_decay)
     return TrainState(model=model, optimizer=opt)
+
+
+def trajcontrol_frozen_mask(model: torch.nn.Module) -> dict:
+    """{parameter name: True (= trainable)} for the ControlNet branch only.
+
+    Mirrors the reference freeze of everything outside `controlnet.`
+    (train_trajnet.py:167-175): the shared condition encoder, the time MLP,
+    the U-Net and its final conv are frozen."""
+    return {name: name.startswith("controlnet.") for name, _ in model.named_parameters()}

@@ -5,10 +5,11 @@ Turns the JAX package's flax param trees (nested dicts of numpy arrays, e.g.
 and a JAX `SmplxModel` into the port's body container. The torch parameter
 names are the reference's state_dict names, i.e. the inverse of
 rohm_tpu/utils/convert_torch_ckpt.py, so flax -> torch -> flax through that
-converter is the identity. `posenet_flax_params` goes the other way for
-PoseNet (the port's own copy of that converter's `convert_posenet`): the
-port's training checkpoints are flattened flax params, the format the JAX
-package's `load_pretrained` reads. Layout rules (flax -> torch):
+converter is the identity. `posenet_flax_params` and `trajnet_flax_params`
+go the other way (the port's own copies of that converter's
+`convert_posenet` and `convert_trajnet`): the port's training checkpoints
+are flattened flax params, the format the JAX package's `load_pretrained`
+reads. Layout rules (flax -> torch):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel [k, in, out]        -> Conv1d weight [out, in, k]
@@ -118,6 +119,75 @@ def trajnet_state_dict(flax_params, trajcontrol: bool = False) -> dict:
         names = [f"control_zero_conv_{i}" for i in range(5)] + ["control_zero_conv_mid"]
         for slot, name in enumerate(names):
             _conv_entry(p, f"ControlNet_0/ZeroConv1x1_{slot}/Conv_0", f"controlnet.{name}", out)
+    return out
+
+
+def _trajnet_scopes() -> dict:
+    """Module prefix of the port's TrajNet (+ControlNet) -> (flax scope, kind):
+    the scopes trajnet_state_dict reads, one per torch module."""
+    s = {"time_mlp.1": ("TimeMlp_0/Dense_0", "dense"), "time_mlp.3": ("TimeMlp_0/Dense_1", "dense"),
+         "diff_final_conv.0": ("Conv1dBlock_0", "block"), "diff_final_conv.1": ("Conv_0", "conv")}
+    for i in range(1, 5):
+        s[f"cond_enc{i}"] = (f"CondEncoder_0/ResidualTemporalBlock_{i - 1}", "rtb")
+        if i < 4:
+            s[f"cond_downsample{i}.conv"] = (f"CondEncoder_0/Downsample1d_{i - 1}/Conv_0", "conv")
+    for prefix, scope in (("diff_", ""), ("controlnet.control_", "ControlNet_0/")):
+        for i in range(1, 5):
+            s[f"{prefix}enc{i}"] = (f"{scope}ResidualTemporalBlock_{i - 1}", "rtb")
+            s[f"{prefix}downsample{i}.conv"] = (f"{scope}Downsample1d_{i - 1}/Conv_0", "conv")
+        s[f"{prefix}mid_block1"] = (f"{scope}ResidualTemporalBlock_4", "rtb")
+        s[f"{prefix}mid_block2"] = (f"{scope}ResidualTemporalBlock_5", "rtb")
+    for slot, i in enumerate((4, 3, 2, 1)):
+        s[f"diff_upsample{i}.conv"] = (f"Upsample1d_{slot}", "upsample")
+        s[f"diff_dec{i}"] = (f"ResidualTemporalBlock_{6 + slot}", "rtb")
+    names = [f"control_zero_conv_{i}" for i in range(5)] + ["control_zero_conv_mid"]
+    for slot, name in enumerate(names):
+        s[f"controlnet.{name}"] = (f"ControlNet_0/ZeroConv1x1_{slot}/Conv_0", "conv")
+    return s
+
+
+_TRAJNET_SCOPES = _trajnet_scopes()
+# suffix of a Conv1dBlock entry (Conv1d, GroupNorm) -> (flax leaf, layout)
+_BLOCK_LEAVES = {"block.0.weight": ("Conv_0/kernel", "conv"), "block.0.bias": ("Conv_0/bias", "vec"),
+                 "block.2.weight": ("GroupNorm_0/scale", "vec"), "block.2.bias": ("GroupNorm_0/bias", "vec")}
+
+
+def _trajnet_flax_key(name: str) -> tuple[str, str]:
+    """A TrajNet state_dict name -> (flat flax key, layout of the torch tensor)."""
+    prefix = next(p for p in _TRAJNET_SCOPES if name.startswith(p + "."))
+    scope, kind = _TRAJNET_SCOPES[prefix]
+    leaf = name[len(prefix) + 1:]
+    if kind == "rtb":  # blocks.{0,1}.<Conv1dBlock entry>, time_mlp.1.*, residual_conv.*
+        if leaf.startswith("blocks."):
+            i, leaf = leaf[len("blocks."):].split(".", 1)
+            scope, kind = f"{scope}/Conv1dBlock_{i}", "block"
+        else:
+            sub, leaf = leaf.rsplit(".", 1)
+            scope, kind = {"time_mlp.1": (f"{scope}/Dense_0", "dense"),
+                           "residual_conv": (f"{scope}/Conv_0", "conv")}[sub]
+    if kind == "block":
+        flax_leaf, layout = _BLOCK_LEAVES[leaf]
+        return f"{scope}/{flax_leaf}", layout
+    if leaf == "weight":
+        return f"{scope}/kernel", kind
+    return f"{scope}/bias", "vec"
+
+
+# torch layout -> flax layout (the inverses of _dense, _conv, _conv_t)
+_TO_FLAX = {"vec": lambda w: w, "dense": lambda w: w.T, "conv": lambda w: np.transpose(w, (2, 1, 0)),
+            "upsample": lambda w: np.transpose(w, (2, 0, 1))}
+
+
+def trajnet_flax_params(state_dict: dict) -> dict:
+    """Port TrajNet (+ControlNet) state_dict (or any dict of tensors under
+    its parameter names, e.g. the optimizer moments of some of them) ->
+    flat flax params, "/"-separated keys under "params/" (numpy float32):
+    the inverse of trajnet_state_dict, entry by entry."""
+    out = {}
+    for name, v in state_dict.items():
+        w = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, np.float32)
+        key, layout = _trajnet_flax_key(name)
+        out[f"params/{key}"] = np.ascontiguousarray(_TO_FLAX[layout](w))
     return out
 
 
