@@ -64,6 +64,21 @@ Phases (each failure ends the run with a non-zero exit code):
      checkpoint phase 6 trained, and one with "int8qa", then
      `eval_amass_full.main` on each pickle. Checks the launch counts, the
      pickle's keys, shapes and finiteness.
+  7b. video: `rohm_tpu_torch.cli.test_prox_egobody.main` at full width with
+     the shipped prox_rgb.yaml and egobody_rgb.yaml on synthetic PROX (2862
+     frames: 20 windows, one batch of 20) and EgoBody (717 frames: 5
+     windows, padded to 8) trees written by the port's writers, PROX with
+     fused_posenet "bf16", EgoBody with "int8": 2 iterations, TrajControl,
+     100 + 1000 cosine steps with early stop (980 PoseNet forwards), 2-D +
+     skating guidance. PoseNet loads through the torch state_dict route (a
+     torch.save of phase 6's checkpoint beside its stats, bit-identical on
+     the card to the .npz route), TrajNet and TrajControl from phase 6b.
+     Before each run, its fused PoseNet step is held to the f32 module at
+     the rows the run gives the kernels (20 and 8 windows x 143 frames),
+     within phase 5's envelopes. Checks the launch counts, the pickles' keys, shapes and finiteness,
+     and `eval_prox_egobody.main` (finite metrics, stitched windows) on
+     each; then one guided step (both terms, forward and backward through
+     SMPL-X) timed alone and the device's busy share over 5.
   8. bench: the int8 measurement path at full width. The whole-stack
      kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
      random PoseNet(): bit-identical to the 8-layer K3 chain (whose
@@ -79,7 +94,7 @@ Phases (each failure ends the run with a non-zero exit code):
      `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
      Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-8; card_ms and library_card_ms: the time on the
+paths' runs of phases 5-8, 7b included; card_ms and library_card_ms: the time on the
 card alone with a cold L2); the last line is {"ok": true, "device":
 {...}}.
 """
@@ -1353,20 +1368,8 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
     noisy_n = ((batches[0][1] - mean_t) / std_t)[:, : S - 1]
     x_t = torch.randn(B, S - 1, 294, device=dev, generator=torch.Generator(dev).manual_seed(seed))
     ref = posenet(x_t, noisy_n, 500)
-    # the per-layer envelope of tests/test_ops.py on the mean; the max may
-    # grow over eight layers, so it is held at
-    # four times the per-layer one; the f32 path is f32 throughout, so only
-    # summation order (and erff against torch's erf) separates it
-    for mode, atol, mean_tol in (("bf16", 6e-2 * 4, 1e-2), ("int8", 0.3 * 4, 5e-2),
-                                 ("int8qa", 0.3 * 4, 5e-2), ("f32", 2e-3, 1e-4)):
-        out = pipes[mode]._pose_model_fn(noisy_n)(x_t, 500)
-        err = (out - ref).abs()
-        log(f"[slice] PoseNet {mode} kernels vs f32 module, 8 layers, one step: "
-            f"max {err.max().item():.3e} mean {err.mean().item():.3e}")
-        if not (torch.isfinite(out).all() and err.mean().item() < mean_tol and err.max().item() < atol):
-            raise AssertionError(f"PoseNet {mode} kernels stray from the f32 module")
-        if not torch.equal(out[..., :22], noisy_n[..., :22]):
-            raise AssertionError("traj passthrough dims are not the condition's")
+    for mode in ("bf16", "int8", "int8qa", "f32"):
+        posenet_envelope("slice", pipes[mode], noisy_n, x_t, ref)
 
     reset_launches()
     batch_s = []
@@ -1398,6 +1401,32 @@ def slice_phase(seed: int, n_int8: int, n_bf16: int) -> dict:
         raise AssertionError("kernel launch counts do not match the chain")
     breakdown_phase(pipes, noisy_n, x_t)
     return {"launches": launches, "batch_seconds": batch_s}
+
+
+# fused PoseNet vs the f32 module, one step, mode -> (max, mean) |err|: the
+# per-layer envelope of tests/test_ops.py on the mean; the max may grow over
+# eight layers, so it is held at four times the per-layer one; the f32 path
+# is f32 throughout, so only summation order (and erff against torch's erf)
+# separates it
+POSENET_ENVELOPES = {"bf16": (6e-2 * 4, 1e-2), "int8": (0.3 * 4, 5e-2),
+                     "int8qa": (0.3 * 4, 5e-2), "f32": (2e-3, 1e-4)}
+
+
+def posenet_envelope(tag: str, pipe: RohmPipeline, cond: torch.Tensor, x_t: torch.Tensor,
+                     ref: torch.Tensor) -> None:
+    """The pipeline's fused PoseNet step on (x_t, cond) at t=500 against
+    `ref`, the f32 module's output on the same inputs, within its mode's
+    envelope; the traj dims pass the condition through unchanged."""
+    mode = pipe.fused_posenet
+    atol, mean_tol = POSENET_ENVELOPES[mode]
+    out = pipe._pose_model_fn(cond)(x_t, 500)
+    err = (out - ref).abs()
+    log(f"[{tag}] PoseNet {mode} kernels vs f32 module, {pipe.posenet.num_layers} layers, one step "
+        f"at {list(x_t.shape)}: max {err.max().item():.3e} mean {err.mean().item():.3e}")
+    if not (torch.isfinite(out).all() and err.mean().item() < mean_tol and err.max().item() < atol):
+        raise AssertionError(f"PoseNet {mode} kernels stray from the f32 module")
+    if not torch.equal(out[..., :22], cond[..., :22]):
+        raise AssertionError("traj passthrough dims are not the condition's")
 
 
 def breakdown_phase(pipes: dict, cond: torch.Tensor, x_pose: torch.Tensor) -> None:
@@ -1868,6 +1897,185 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ck
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the video CLIs (PROX, EgoBody)
+# ---------------------------------------------------------------------------
+
+# dataset -> (YAML, frames, --fused_posenet, recording): PROX 2862 frames make
+# 20 windows of 145 at stride 143, one full batch of the YAML's batch_size
+# 20; EgoBody 717 make 5, padded to 8 by the bucket
+VIDEO_RUNS = {
+    "prox": ("prox_rgb.yaml", 2862, "bf16", "MPH11_00034_01"),
+    "egobody": ("egobody_rgb.yaml", 717, "int8", "recording_20211004_S12_S20_01"),
+}
+VIDEO_STRIDE = CLIP_LEN - 2  # --window_size 2
+VIDEO_POSE_FORWARDS = 1000 - 20  # early stop: 980 of the 1000 PoseNet steps
+
+
+def video_windows(frames: int) -> int:
+    return (frames - CLIP_LEN) // VIDEO_STRIDE + 1
+
+
+def guided_step_timing(work: Path, body_path: Path, stats_dir: str, seed: int) -> dict:
+    """One guided step of the video chain alone: both 'prox' terms (2-D
+    reprojection, skating), forward and backward through SMPL-X, on the
+    PROX run's first batch of 20 windows (its dataset read back from the
+    disk cache the CLI wrote); median CUDA-event ms and the device's busy
+    share over 5 steps."""
+    from rohm_tpu_torch.cli.common import resolve_body_model
+    from rohm_tpu_torch.data import VideoClipDataset
+    from rohm_tpu_torch.diffusion.sampler import _guidance_shift
+    from rohm_tpu_torch.models.guidance import prox_guidance
+
+    yaml, frames, _, rec = VIDEO_RUNS["prox"]
+    root = work / "prox"
+    body = resolve_body_model(str(body_path), "cuda")
+    ds = VideoClipDataset(body_model=body, dataset="prox", init_root=str(root / "init"),
+                          base_dir=str(root / "base"), recording_name=rec, use_scene_floor_height=True,
+                          task="pose", overlap_len=2, clip_len=CLIP_LEN, logdir=stats_dir,
+                          disk_cache_dir=str(root / "base" / "_repr_cache"), device="cuda")
+    bp = next(ds.batches(20, pad_last="bucket"))
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in bp.items() if isinstance(v, np.ndarray)}
+    mean, std = torch.as_tensor(ds.mean, device="cuda"), torch.as_tensor(ds.std, device="cuda")
+    specs = prox_guidance(mean, std, body, t["transf_matrix"], torch.as_tensor(ds.cam_r, device="cuda").float(),
+                          torch.as_tensor(ds.cam_t, device="cuda").float(), t["focal_length"],
+                          t["camera_center"], t["keypoints_2d"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pred_x0 = t["motion_repr_noisy"][:, : CLIP_LEN - 2] + 0.1 * torch.randn(
+        (20, CLIP_LEN - 2, 294), generator=gen, device="cuda")
+    var = torch.tensor(1e-4, device="cuda")
+
+    def step():
+        return _guidance_shift(specs, pred_x0, 50, var)
+
+    shift = step()
+    if not (shift is not None and torch.isfinite(shift).all() and shift.abs().max() > 0):
+        raise AssertionError("the guided step's shift is empty or non-finite")
+    ms = median_ms(step)
+    log(f"[video] one guided step (2-D reprojection + skating, forward and backward through SMPL-X, "
+        f"20 windows x {CLIP_LEN - 2} frames): {ms:.3f} ms (median of 20)")
+    busy = device_busy(step, 5, "guided steps", "video")
+    return {"guided_step_ms": ms, "busy": busy}
+
+
+def video_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ckpts: dict) -> dict:
+    """`test_prox_egobody.main` at full width with the shipped video YAMLs on
+    synthetic PROX and EgoBody trees written by the port's writers (the
+    real-size synthetic SMPL-X file), PROX with fused_posenet "bf16" and
+    EgoBody with "int8": 2 iterations, TrajControl, 100 + 1000 cosine steps
+    with early stop, 2-D + skating guidance. PoseNet through the torch
+    state_dict route (a `torch.save` of phase 6's trained PoseNet, beside
+    its stats, named without an extension as the released weights are),
+    held bit for bit to the `.npz` route on the card; TrajNet and
+    TrajControl from phase 6b's `.npz`. Before each run, the run's fused
+    PoseNet is held to the f32 module at the batch the CLI gives it (20
+    and 8 windows of 143 frames). Then `eval_prox_egobody.main` on each
+    pickle with --stitch_save_dir."""
+    from types import SimpleNamespace
+
+    from rohm_tpu_torch.cli import eval_prox_egobody, test_prox_egobody
+    from rohm_tpu_torch.cli.common import build_posenet, load_pretrained
+    from rohm_tpu_torch.data import write_synthetic_egobody, write_synthetic_prox
+    from rohm_tpu_torch.data.clips import pad_tail_size
+    from rohm_tpu_torch.reprs.stats import load_stats
+
+    # the released-weights route: a torch state_dict next to the stats
+    pt_path = str(Path(posenet_ckpt).with_suffix(""))
+    routes = {}
+    for route, path in (("npz", posenet_ckpt), ("pt", pt_path)):
+        if route == "pt":
+            torch.save(routes["npz"].state_dict(), pt_path)
+        model = build_posenet(SimpleNamespace(latent_dim=D), seed=seed + 1).to("cuda")
+        load_pretrained(model, path)
+        routes[route] = model
+    same = [torch.equal(a, b) for a, b in zip(routes["npz"].state_dict().values(),
+                                               routes["pt"].state_dict().values())]
+    log(f"[video] PoseNet through the .pt route ({Path(pt_path).name}) and the .npz route: "
+        f"{same.count(True)} of {len(same)} tensors bit-identical on the card")
+    if not all(same):
+        raise AssertionError("the .pt and .npz routes load different PoseNet parameters")
+    posenet = routes["pt"].eval()
+    del routes
+
+    body = synthetic_model(num_verts=10475, seed=seed, device="cuda")
+    mean, std = (torch.as_tensor(a, device="cuda") for a in load_stats(str(Path(posenet_ckpt).parent)))
+    ckpts = {"posenet": pt_path, "trajnet": traj_ckpts["vanilla"], "trajnet_control": traj_ckpts["trajcontrol"]}
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for dataset, (yaml, frames, mode, rec) in VIDEO_RUNS.items():
+        root = work / dataset
+        writer = write_synthetic_prox if dataset == "prox" else write_synthetic_egobody
+        t0 = time.perf_counter()
+        writer(str(root / "init"), str(root / "base"), body, recording_name=rec, n_frames=frames, seed=seed)
+        n = video_windows(frames)
+        log(f"[video] synthetic {dataset} tree: {frames} frames, {n} windows, {time.perf_counter() - t0:.2f} s")
+        # the run's kernels at the rows it gives them ({20, 8} x 143), which
+        # no earlier phase checks; only PoseNet and the stats are used here
+        pipe = RohmPipeline(trajnet=None, trajcontrol=None, posenet=posenet,
+                            sched_traj=None, sched_pose=None, body_model=body, mean=mean, std=std,
+                            fused_posenet=mode)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        x_t, cond = (torch.randn(pad_tail_size(n, 20, "bucket"), CLIP_LEN - 2, 294, device="cuda",
+                                 generator=gen) for _ in range(2))
+        with torch.no_grad():
+            posenet_envelope("video", pipe, cond, x_t, posenet(x_t, cond, 500))
+        del pipe
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pkl, timing = test_prox_egobody.run([
+            f"--config=cfg_files/test_cfg/{yaml}", f"--dataset_root={root / 'base'}",
+            f"--init_root={root / 'init'}", f"--recording_name={rec}", f"--body_model_path={body_path}",
+            f"--fused_posenet={mode}", *[f"--model_path_{net}={path}" for net, path in ckpts.items()],
+            f"--save_root={work / ('video_results_' + dataset)}", f"--seed={seed}", "--device=0",
+        ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        expected = forward_launches(mode, 2 * VIDEO_POSE_FORWARDS)  # one batch
+        log(f"[video] {dataset} fused_posenet={mode}: launches {counts}; expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"the {dataset} CLI run did not go through its kernels as the chain implies")
+        for name in launches:
+            launches[name] += counts[name]
+        batch_s = timing["batch_dispatch"] + timing["device_wait_and_collect"]
+        log(f"[video] {dataset} fused_posenet={mode}: one batch of {n} windows (padded to "
+            f"{pad_tail_size(n, 20, 'bucket')}) {batch_s:.2f} s (batch_dispatch + device_wait_and_collect), "
+            f"dataset_build {timing['dataset_build']:.2f} s, main() {seconds:.2f} s in all")
+
+        with open(pkl, "rb") as f:
+            saved = pickle.load(f)
+        t_out = CLIP_LEN - 2
+        want = {"trans_scene2cano_list": (n, 4, 4), "joints_input_scene_coord_list": (n, CLIP_LEN, 22, 3),
+                "mask_joint_vis_list": (n, t_out, 22), "motion_repr_rec_list": (n, t_out, 294),
+                "motion_repr_noisy_list": (n, t_out, 294)}
+        want.update({k: (n, t_out, 22, 3) for k in (
+            "rec_ric_data_noisy_list", "rec_ric_data_rec_list_from_abs_traj", "rec_ric_data_rec_list_from_smpl")})
+        meta = {"repr_name_list", "repr_dim_dict", "recording_name", "frame_name_list", "scene_name",
+                "color_cam", "window_stride"}
+        if dataset == "egobody":
+            want["joints_gt_scene_coord_list"] = (n, CLIP_LEN, 22, 3)
+            meta.add("gender_gt")
+        shapes = {k: tuple(v.shape) for k, v in saved.items() if isinstance(v, np.ndarray)}
+        if shapes != want or set(saved) != set(want) | meta or len(saved["frame_name_list"]) != n:
+            raise AssertionError(f"bad {dataset} pickle: keys {sorted(saved)}, shapes {shapes}")
+        if not all(np.isfinite(saved[k]).all() for k in want):
+            raise AssertionError(f"non-finite values in the {dataset} pickle")
+        metrics = eval_prox_egobody.main([
+            f"--dataset={dataset}", f"--saved_data_dir={Path(pkl).parent}", f"--recording_list={rec}",
+            f"--stitch_save_dir={work / ('video_stitched_' + dataset)}",
+        ])
+        stitched = np.load(work / f"video_stitched_{dataset}" / f"{rec}.npz")
+        if not (all(np.isfinite(v) for v in metrics.values())
+                and stitched["joints_rec"].shape == (VIDEO_STRIDE * (n - 1) + t_out, 22, 3)
+                and np.isfinite(stitched["joints_rec"]).all()):
+            raise AssertionError(f"non-finite {dataset} metrics or a bad stitched sequence: {metrics}")
+        log(f"[video] {dataset} metrics {metrics}")
+        out[dataset] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "windows": n}
+    out["guided"] = guided_step_timing(work, body_path, str(Path(posenet_ckpt).parent), seed)
+    return {"launches": launches, "runs": out}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the int8 measurement path (K5, the bench chain, K8, K9)
 # ---------------------------------------------------------------------------
 
@@ -2116,11 +2324,12 @@ def main(argv=None) -> None:
     train = train_phase(args.seed, work, body_path)
     trajtrain = trajnet_train_phase(args.seed, work, body_path)
     cli = cli_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
+    video = video_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
     # launches: the slice's, the training runs' (TrajNet's launch none), the
-    # CLI's and the bench phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
+    # CLIs' (AMASS, video) and the bench phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
     # / library_ms are per layer (summed over the launches one layer
     # makes), per 8-layer forward for encoder_stack_int8, and summed over
     # the probe's sizes or variants for gemm_skeleton and int8_layer_variant
@@ -2129,7 +2338,7 @@ def main(argv=None) -> None:
         st = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, bench)),
+            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
             "library_ms": st["library_ms"], "card_ms": st["card_ms"], "library_card_ms": st["library_card_ms"],

@@ -5,14 +5,16 @@ train_trajnet.py:82-194, test_amass_full.py:77-188).
 Checkpoints: a `.npz` of flattened flax params ("/"-separated keys, the
 format rohm_tpu/cli/common.py::load_pretrained reads) is converted by
 rohm_tpu_torch/utils/convert_flax.py and loaded strictly; that is how the
-JAX package's weights come across. Orbax checkpoint directories are not
-read by the port.
+JAX package's weights come across. Any other file is a torch state_dict
+under the reference's names (its released weights), loaded directly.
+Orbax checkpoint directories are not read by the port.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -30,6 +32,39 @@ AMASS_TRAIN_DATASETS = [
     "SSM", "GRAB", "SOMA",
 ]
 AMASS_TEST_DATASETS = ["TCDHands", "TotalCapture", "SFU"]
+
+
+class PhaseTimer:
+    """Host-clock seconds per named phase of a CLI run, summed over
+    repeats. `t0 = timer("name", t0)` closes the phase that began at t0 and
+    returns the start of the next; `summary()` adds the unaccounted rest
+    ("other") and the run's "total", rounded to 0.01 s."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, name: str, t0: float) -> float:
+        self.seconds[name] = self.seconds.get(name, 0.0) + (time.perf_counter() - t0)
+        return time.perf_counter()
+
+    def summary(self) -> dict:
+        total = time.perf_counter() - self.start
+        return {**{k: round(v, 2) for k, v in self.seconds.items()},
+                "other": round(total - sum(self.seconds.values()), 2), "total": round(total, 2)}
+
+
+# batches of device outputs a CLI keeps in flight: the host prepares the
+# next batch while the card finishes this one's decode
+MAX_PENDING = 3
+
+
+def keep_in_flight(pending: list, entry, drain) -> None:
+    """Queue one batch's device outputs and drain (copy to the host) the
+    oldest ones beyond MAX_PENDING."""
+    pending.append(entry)
+    while len(pending) > MAX_PENDING:
+        drain(pending.pop(0))
 
 
 def resolve_device(spec) -> torch.device:
@@ -129,17 +164,50 @@ def bootstrap_trajcontrol(control_state: dict, backbone_state: dict) -> dict:
     return out
 
 
-def load_pretrained(model: torch.nn.Module, path: str) -> None:
-    """Load a flattened-flax-params `.npz` into a TrajNet or PoseNet, strictly:
-    a parameter the model expects and the file lacks raises (silently keeping
-    random init would produce garbage metrics with rc=0); keys the model does
-    not use are ignored."""
-    if os.path.isdir(path) or not path.endswith(".npz"):
-        raise ValueError(
-            f"checkpoint {path!r} is not a .npz: the port reads flattened flax params "
-            "saved as .npz ('/'-separated keys, e.g. np.savez(path, **flax.traverse_util."
-            "flatten_dict(params, sep='/'))); orbax checkpoint directories are not read"
+def _load_torch_state_dict(model: torch.nn.Module, path: str) -> None:
+    """A torch state_dict under the reference's names (a released `.pt`,
+    or a `torch.save` of one of the port's modules): a parameter the model
+    expects and the file lacks raises; keys the model does not use (a
+    positional-table buffer, another branch) are ignored with a warning.
+    Never `load_state_dict(strict=True)` on the raw file."""
+    device = next(model.parameters()).device
+    sd = torch.load(path, map_location=device, weights_only=True)
+    if not isinstance(sd, dict):
+        raise ValueError(f"checkpoint {path!r} holds a {type(sd).__name__}, not a state_dict")
+    expected = model.state_dict()
+    missing = [k for k in expected if k not in sd]
+    if missing:
+        raise KeyError(
+            f"checkpoint {path} is missing parameter(s) the model expects: "
+            f"{missing[:8]}{'...' if len(missing) > 8 else ''} "
+            "(wrong architecture flags, or not a state_dict of this net)"
         )
+    unused = sorted(k for k in sd if k not in expected)
+    if unused:
+        log.warning("checkpoint %s has %d key(s) the model does not use: %s",
+                    path, len(unused), unused[:8])
+    model.load_state_dict({k: sd[k] for k in expected}, strict=True)
+
+
+def load_pretrained(model: torch.nn.Module, path: str) -> None:
+    """Load a checkpoint into a TrajNet, TrajControl or PoseNet, strictly: a
+    parameter the model expects and the file lacks raises (silently keeping
+    random init would produce garbage metrics with rc=0); keys the model
+    does not use are ignored. The route follows what `path` is: a `*.npz`
+    file holds flattened flax params (the port's and the JAX package's
+    training checkpoints); any other file is a torch state_dict (the
+    reference's released weights, named without an extension in the
+    shipped YAMLs); a directory (an orbax checkpoint) is refused."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"checkpoint {path!r} is a directory: the port reads flattened flax params "
+            "saved as .npz ('/'-separated keys, e.g. np.savez(path, **flax.traverse_util."
+            "flatten_dict(params, sep='/'))) or a torch state_dict file; orbax checkpoint "
+            "directories are not read"
+        )
+    if not path.endswith(".npz"):
+        _load_torch_state_dict(model, path)
+        return
     with np.load(path) as z:
         flat = dict(z)
     try:

@@ -24,8 +24,10 @@ import torch
 
 from rohm_tpu_torch.cli.common import (
     AMASS_TEST_DATASETS,
+    PhaseTimer,
     build_posenet,
     build_trajnet,
+    keep_in_flight,
     load_or_init,
     resolve_body_model,
     resolve_device,
@@ -126,13 +128,7 @@ def result_filename(args) -> str:
 def run(argv=None) -> tuple[str, dict]:
     """The whole test run; returns the result pickle's path and the
     phase-timing dict (seconds) that it also prints."""
-    t_start = time.perf_counter()
-    phase_t = {}
-
-    def _phase(name, t0):
-        phase_t[name] = phase_t.get(name, 0.0) + (time.perf_counter() - t0)
-        return time.perf_counter()
-
+    _phase = PhaseTimer()
     args = build_parser().parse_args(argv)
     for flag in ("via_server", "data_parallel"):
         if getattr(args, flag):
@@ -245,10 +241,6 @@ def run(argv=None) -> tuple[str, dict]:
     t_repr = args.clip_len - 1  # 144
     mask_len = int(args.traj_mask_ratio * 145)
 
-    # keep at most MAX_PENDING batches of device outputs in flight: the host
-    # prepares the next batch while the card finishes this one's decode
-    MAX_PENDING = 3
-
     # entry key -> reference pickle key (test_amass_full.py:443-454)
     pickle_key = {
         "motion_repr_clean": "motion_repr_clean_list",
@@ -321,9 +313,7 @@ def run(argv=None) -> tuple[str, dict]:
             entry["motion_repr_noisy"], entry["rec_ric_data_noisy"] = decode_noisy(
                 torch.as_tensor(noisy, device=device), mean_d, std_d
             )
-        pending.append(entry)
-        while len(pending) > MAX_PENDING:
-            drain(pending.pop(0))
+        keep_in_flight(pending, entry, drain)
         t0 = _phase("batch_dispatch", t0)
         print(f"[test_amass_full] batch {step}: dispatched")
 
@@ -348,10 +338,7 @@ def run(argv=None) -> tuple[str, dict]:
         # protocol-agnostic (pickle.load)
         pickle.dump(save_data, f, protocol=5)
     t0 = _phase("result_pickle_write", t0)
-    total = time.perf_counter() - t_start
-    accounted = sum(phase_t.values())
-    timing = {**{k: round(v, 2) for k, v in phase_t.items()},
-              "other": round(total - accounted, 2), "total": round(total, 2)}
+    timing = _phase.summary()
     print(f"[test_amass_full] timing (s): {timing}")
     print(f"results saved to {pkl_path}")
     return pkl_path, timing

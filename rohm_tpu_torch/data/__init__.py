@@ -1,4 +1,5 @@
-"""Data layer: AMASS clip datasets, the noise model, synthetic trees.
+"""Data layer: AMASS and video (PROX/EgoBody) clip datasets, the noise
+model, synthetic trees.
 
 Host-side numpy/scipy, with FK and the repr encoding through the port's
 torch functions; every batch is a fixed-shape float32 array.
@@ -11,7 +12,10 @@ from rohm_tpu_torch.data.synthetic import (
     synthetic_clip_batch,
     synthetic_motion,
     write_synthetic_amass,
+    write_synthetic_egobody,
+    write_synthetic_prox,
 )
+from rohm_tpu_torch.data.video import VideoClipDataset
 
 __all__ = [
     "AmassClipDataset",
@@ -23,4 +27,7 @@ __all__ = [
     "synthetic_clip_batch",
     "synthetic_amass_arrays",
     "write_synthetic_amass",
+    "write_synthetic_egobody",
+    "write_synthetic_prox",
+    "VideoClipDataset",
 ]

@@ -1,16 +1,20 @@
-"""Deterministic synthetic motion sequences for tests and benchmarks.
+"""Deterministic synthetic motion sequences and data trees for tests and
+benchmarks.
 
-The port of the AMASS part of rohm_tpu/data/synthetic.py: the same numpy
-generators (one seed, the same params in both packages), with forward
-kinematics through the port's torch body model on the model's device.
-Real AMASS data and SMPL-X weights are not shipped; these produce
+The port of rohm_tpu/data/synthetic.py: the same numpy generators (one
+seed, the same params in both packages) and the same AMASS, PROX and
+EgoBody trees, with forward kinematics through the port's torch body model
+on the model's device. Real AMASS/PROX/EgoBody data and SMPL-X weights are
+not shipped; these produce
 kinematically-consistent sequences (params + FK joints from the same body
 model) so every pipeline stage runs with realistic shapes and dynamics.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -207,3 +211,141 @@ def write_synthetic_amass(
             os.makedirs(pdir, exist_ok=True)
             np.save(os.path.join(jdir, "motion.npy"), joints25)
             np.save(os.path.join(pdir, "motion.npy"), flat)
+
+
+def _write_frame_params(path_dir: str, params: dict, i: int) -> None:
+    """One frame's init (or GT) params as `<dir>/000.pkl`, [1, k] float32."""
+    os.makedirs(path_dir, exist_ok=True)
+    payload = {k: params[k][i : i + 1].astype(np.float32)
+               for k in ("global_orient", "transl", "betas", "body_pose")}
+    with open(os.path.join(path_dir, "000.pkl"), "wb") as f:
+        pickle.dump(payload, f, protocol=2)
+
+
+def _write_keypoints(path: str, joints: np.ndarray, focal: float) -> None:
+    """OpenPose BODY_25 json of camera-coord joints [22, 3] through a pinhole
+    (principal point 960, 540), confidence 0.9 on every SMPL-X slot."""
+    from rohm_tpu_torch.data.video import OPENPOSE_TO_SMPL
+
+    z = np.maximum(np.abs(joints[:, 2]), 0.5)
+    uv = joints[:, :2] / z[:, None] * focal + np.array([960.0, 540.0])
+    # scatter smpl-topology keypoints back into BODY_25 slots
+    kp25 = np.zeros((25, 3))
+    for smpl_j, op_j in enumerate(OPENPOSE_TO_SMPL):
+        kp25[op_j, :2] = uv[smpl_j]
+        kp25[op_j, 2] = 0.9
+    with open(path, "w") as f:
+        json.dump({"people": [{"pose_keypoints_2d": kp25.reshape(-1).tolist()}]}, f)
+
+
+def write_synthetic_prox(
+    init_root: str,
+    base_dir: str,
+    model: SmplxModel,
+    recording_name: str = "MPH11_00034_01",
+    n_frames: int = 40,
+    seed: int = 0,
+) -> None:
+    """Write a synthetic PROX-format recording tree (per-frame 000.pkl params,
+    cam2world json, Color.json intrinsics, OpenPose keypoint jsons,
+    mask_joint.npy) so the video pipeline runs end-to-end without real data.
+
+    The body moves in CAMERA coordinates here (the loader lifts to world)."""
+    scene_name = recording_name.split("_")[0]
+    positions, params = synthetic_motion(model, n_frames, seed)
+
+    results_dir = os.path.join(init_root, recording_name, "results")
+    for i in range(n_frames):
+        _write_frame_params(os.path.join(results_dir, f"s001_frame_{i + 1:05d}"), params, i)
+
+    # camera extrinsics/intrinsics
+    os.makedirs(os.path.join(base_dir, "cam2world"), exist_ok=True)
+    cam2world = np.eye(4)
+    cam2world[:3, 3] = [0.1, -0.2, 0.05]
+    with open(os.path.join(base_dir, "cam2world", scene_name + ".json"), "w") as f:
+        json.dump(cam2world.tolist(), f)
+    os.makedirs(os.path.join(base_dir, "calibration"), exist_ok=True)
+    color_cam = {
+        "f": [1060.0, 1060.0],
+        "c": [960.0, 540.0],
+        "camera_mtx": [[1060.0, 0.0, 960.0], [0.0, 1060.0, 540.0], [0.0, 0.0, 1.0]],
+        "k": [0.0, 0.0, 0.0, 0.0, 0.0],
+    }
+    with open(os.path.join(base_dir, "calibration", "Color.json"), "w") as f:
+        json.dump(color_cam, f)
+
+    # keypoints: project camera-coord joints through the pinhole
+    kp_dir = os.path.join(base_dir, "keypoints_openpose", recording_name)
+    os.makedirs(kp_dir, exist_ok=True)
+    for i in range(n_frames):
+        _write_keypoints(os.path.join(kp_dir, f"s001_frame_{i + 1:05d}_keypoints.json"), positions[i], 1060.0)
+
+    # depth-test visibility mask: all visible except an occluded leg window
+    mask = np.ones((n_frames, 25), np.int64)
+    occ_start = n_frames // 4
+    for j in (1, 4, 7, 10):
+        mask[occ_start : occ_start + 10, j] = 0
+    mask_dir = os.path.join(base_dir, "mask_joint", recording_name)
+    os.makedirs(mask_dir, exist_ok=True)
+    np.save(os.path.join(mask_dir, "mask_joint.npy"), mask)
+
+
+def write_synthetic_egobody(
+    init_root: str,
+    base_dir: str,
+    model: SmplxModel,
+    recording_name: str = "recording_20211004_S12_S20_01",
+    scene_name: str = "seminar_g110",
+    view: str = "sub_1",
+    n_frames: int = 40,
+    seed: int = 0,
+) -> None:
+    """Write a synthetic EgoBody-format tree: info/splits CSVs, kinect
+    calibration chain, per-frame init + GT pkls, cleaned keypoints, masks."""
+    body_idx = 0
+    positions, params = synthetic_motion(model, n_frames, seed)
+
+    # csvs
+    os.makedirs(base_dir, exist_ok=True)
+    with open(os.path.join(base_dir, "egobody_rohm_info.csv"), "w") as f:
+        f.write("recording_name,target_idx,target_gender,view,scene_name,body_idx_fpv\n")
+        f.write(f"{recording_name},{body_idx},female,{view},{scene_name},0 female\n")
+    with open(os.path.join(base_dir, "data_splits.csv"), "w") as f:
+        f.write("train,val,test\n")
+        f.write(f",,{recording_name}\n")
+
+    # calibration chain: master->world and sub->master
+    calib = os.path.join(base_dir, "calibrations", recording_name, "cal_trans")
+    os.makedirs(os.path.join(calib, "kinect12_to_world"), exist_ok=True)
+    m2w = np.eye(4)
+    m2w[:3, 3] = [0.2, 0.1, -0.1]
+    with open(os.path.join(calib, "kinect12_to_world", scene_name + ".json"), "w") as f:
+        json.dump({"trans": m2w.tolist()}, f)
+    s2m = np.eye(4)
+    s2m[:3, 3] = [0.05, 0.0, 0.02]
+    with open(os.path.join(calib, "kinect_11to12_color.json"), "w") as f:
+        json.dump({"trans": s2m.tolist()}, f)
+
+    cam_dir = os.path.join(base_dir, "kinect_cam_params", f"kinect_{view}")
+    os.makedirs(cam_dir, exist_ok=True)
+    with open(os.path.join(cam_dir, "Color.json"), "w") as f:
+        json.dump({"f": [980.0, 980.0], "c": [960.0, 540.0]}, f)
+
+    # per-frame init + GT pkls (the same motion for both; the loader runs
+    # the GT through the gendered model, here the same synthetic body)
+    fit_dir = os.path.join(init_root, recording_name, f"body_idx_{body_idx}", "results")
+    gt_dir = os.path.join(
+        base_dir, "smplx_interactee_test", recording_name, f"body_idx_{body_idx}", "results"
+    )
+    kp_dir = os.path.join(base_dir, "keypoints_cleaned", recording_name, view)
+    os.makedirs(kp_dir, exist_ok=True)
+    for i in range(n_frames):
+        frame_name = f"frame_{i + 1:05d}"
+        for d in (fit_dir, gt_dir):
+            _write_frame_params(os.path.join(d, frame_name), params, i)
+        _write_keypoints(os.path.join(kp_dir, frame_name + "_keypoints.json"), positions[i], 980.0)
+
+    mask = np.ones((n_frames, 25), np.int64)
+    mask_dir = os.path.join(base_dir, "mask_joint", recording_name, view)
+    os.makedirs(mask_dir, exist_ok=True)
+    np.save(os.path.join(mask_dir, "mask_joint.npy"), mask)

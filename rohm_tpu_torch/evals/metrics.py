@@ -1,9 +1,11 @@
-"""AMASS benchmark metrics, formula-exact vs the reference eval script.
+"""Benchmark metrics, formula-exact vs the reference eval scripts.
 
 A copy of the functions of rohm_tpu/evals/metrics.py that eval_amass_full
-uses (reference eval_amass_full.py:72-147: MPJPE, contact accuracy,
-skating, acceleration, ground penetration). Pure numpy on
-[n_seq, T, 22, 3] joint arrays in meters, 30 fps.
+and eval_prox_egobody use (reference eval_amass_full.py:72-147: MPJPE,
+contact accuracy, skating, acceleration, ground penetration;
+eval_prox_egobody.py:184-264: the fixed-floor skating and penetration and
+EgoBody's MPJPE set). Pure numpy on [n_seq, T, 22, 3] joint arrays in
+meters, 30 fps.
 """
 
 from __future__ import annotations
@@ -102,3 +104,41 @@ def ground_penetration(
     dist = pene.copy()
     dist[dist >= 0] = 0.0
     return freq, float(dist.mean())
+
+
+def skating_ratio_fixed_floor(joints: np.ndarray, ground_height: float, up_axis: int = 2) -> float:
+    """Video-data skating: per-scene preset floor height, axis-aware
+    (eval_prox_egobody.py:184-210; z-up for PROX, y-up for EgoBody)."""
+    min_h = np.full(len(joints), ground_height)
+    return float(_skating_mask(joints, min_h, up_axis).mean())
+
+
+def ground_penetration_fixed_floor(
+    rec: np.ndarray, ground_height: float, up_axis: int = 2, thresh: float = 0.05
+) -> tuple[float, float]:
+    """(freq, mean_dist<0) of toes below the preset floor
+    (eval_prox_egobody.py:256-264)."""
+    pene = rec[:, :, TOE_JOINTS, up_axis] - ground_height
+    freq = float((pene < -thresh).mean())
+    dist = pene.copy()
+    dist[dist >= 0] = 0.0
+    return freq, float(dist.mean())
+
+
+def egobody_mpjpe_set(
+    gt_scene: np.ndarray, rec_scene: np.ndarray, mask_joint_vis: np.ndarray
+) -> dict:
+    """G-MPJPE (global), MPJPE (root-relative), and vis/occ splits weighted by
+    the per-joint visibility mask (eval_prox_egobody.py:229-254, :486-490)."""
+    g = np.linalg.norm(gt_scene - rec_scene, axis=-1)  # [n, T, 22]
+    local_gt = gt_scene - gt_scene[:, :, [0]]
+    local_rec = rec_scene - rec_scene[:, :, [0]]
+    err = np.linalg.norm(local_gt - local_rec, axis=-1)
+    vis_sum = mask_joint_vis.sum()
+    occ_sum = (1 - mask_joint_vis).sum()
+    return {
+        "gmpjpe": float(g.mean()),
+        "mpjpe": float(err.mean()),
+        "mpjpe_vis": float((err * mask_joint_vis).sum() / max(vis_sum, 1)),
+        "mpjpe_occ": float((err * (1 - mask_joint_vis)).sum() / max(occ_sum, 1)),
+    }

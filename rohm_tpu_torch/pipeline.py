@@ -1,12 +1,18 @@
 """The RoHM iterative inference pipeline, in eager PyTorch.
 
-The port of rohm_tpu/pipeline.py (reference test_amass_full.py:200-385).
+The port of rohm_tpu/pipeline.py (reference test_amass_full.py:200-385 and
+test_prox_egobody.py:185-324).
 Per batch (sample_iter, default 2):
   iter 0: vanilla TrajNet sample -> bridge -> PoseNet guided sample
   iter 1: TrajControl TrajNet (control_cond = PoseNet output pose dims,
           last frame duplicated) -> bridge -> PoseNet guided sample
 The bridge decodes the TrajNet output, runs SMPL-X forward kinematics and
 re-encodes it (decode -> FK -> get_repr -> renormalize).
+
+Guidance: grad_type "amass" (foot skating) or "prox" (PROX/EgoBody: 2-D
+keypoint reprojection + skating, on the cameras and keypoints a batch's
+`guidance_data` carries); None runs none. mask_scheme "video" means the
+caller hands the real per-frame visibility masks of the data.
 
 PoseNet runs through the hand-written Hopper kernels when `fused_posenet`
 is True/"bf16" (bf16 layers), "int8" (W8A8 layers), "int8qa" (W8A8 layers
@@ -24,7 +30,7 @@ from rohm_tpu_torch.body.model import SmplxModel, forward_joints
 from rohm_tpu_torch.diffusion.sampler import p_sample_loop
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from rohm_tpu_torch.geometry.rotations import rot6d_to_rotmat
-from rohm_tpu_torch.models.guidance import amass_guidance
+from rohm_tpu_torch.models.guidance import amass_guidance, prox_guidance
 from rohm_tpu_torch.models.losses import merge_traj_output
 from rohm_tpu_torch.models.posenet import PoseNet
 from rohm_tpu_torch.models.trajnet import TrajNet
@@ -33,6 +39,8 @@ from rohm_tpu_torch.reprs.schema import TRAJ_FEAT_DIM_FULL, split_repr
 from rohm_tpu_torch.train.masking import UPPER_BODY_JOINTS, joint_mask_to_vec, lower_body_mask
 
 PRESET_NOISE_KEYS = ("traj_init", "traj_step", "pose_init", "pose_step")
+# the per-batch inputs of the 'prox' guidance
+GUIDANCE_DATA_KEYS = ("transf_matrix", "cam_r", "cam_t", "focal_length", "camera_center", "keypoints_2d")
 
 
 def traj_to_pose_bridge(
@@ -139,8 +147,8 @@ class RohmPipeline:
                 f"fused_posenet={self.fused_posenet!r}: expected False, True, 'bf16', "
                 "'int8', 'int8qa' or 'f32'"
             )
-        if self.grad_type not in (None, "amass"):
-            raise ValueError(f"grad_type={self.grad_type!r} is not yet ported (only 'amass')")
+        if self.grad_type not in (None, "amass", "prox"):
+            raise ValueError(f"grad_type={self.grad_type!r}: expected None, 'amass' or 'prox'")
         # cuDNN runs f32 convolutions in TF32 by default, which keeps ~3
         # digits; over a 100-step TrajNet chain that difference matters, so
         # every f32 product and convolution runs in full f32
@@ -163,11 +171,18 @@ class RohmPipeline:
             self._prepared_posenet = prep
         return self._prepared_posenet
 
-    def _guidance(self):
+    def _guidance(self, guidance_data: dict | None = None):
+        guidance_data = guidance_data or {}
         if self.guidance_override is not None:
             return self.guidance_override
         if self.grad_type == "amass":
             return amass_guidance(self.mean, self.std, self.body_model)
+        if self.grad_type == "prox":
+            missing = [k for k in GUIDANCE_DATA_KEYS if k not in guidance_data]
+            if missing:
+                raise ValueError(f"grad_type='prox' needs guidance_data with {missing}")
+            return prox_guidance(self.mean, self.std, self.body_model,
+                                 *(guidance_data[k] for k in GUIDANCE_DATA_KEYS))
         return ()
 
     def _pose_model_fn(self, cond: torch.Tensor):
@@ -194,15 +209,18 @@ class RohmPipeline:
         return fn
 
     def _run(self, traj_cond, traj_clean, pose_noisy, pose_mask, traj_mask,
-             generator: torch.Generator, preset_noise: dict):
+             generator: torch.Generator, guidance_data: dict, preset_noise: dict):
         """Returns (posenet output [B,143,294], traj output [B,144,traj_feat_dim]).
+
+        guidance_data: the 'prox' guidance's tensors on the pipeline's
+        device (GUIDANCE_DATA_KEYS), else empty.
 
         preset_noise: any subset of traj_init [I,B,144,tf],
         traj_step [I,S_traj,B,144,tf], pose_init [I,B,143,294],
         pose_step [I,S_pose,B,143,294]; absent keys sample from `generator`.
         """
         mean, std = self.mean, self.std
-        guidance = self._guidance()
+        guidance = self._guidance(guidance_data)
         early = self.early_stop_steps if self.early_stop else 0
         b, t_traj = traj_cond.shape[0], traj_cond.shape[1]
         t_pose = t_traj - 1
@@ -266,9 +284,10 @@ class RohmPipeline:
                   preset_noise: dict | None = None):
         """One batch; array arguments as numpy arrays or tensors. `generator`
         draws all noise that `preset_noise` does not replay (see _run).
-        guidance_data is for the video ('prox') guidance, not yet ported."""
-        if guidance_data:
-            raise ValueError("guidance_data ('prox' guidance) is not yet ported")
+        guidance_data carries the 'prox' guidance's per-batch inputs
+        (GUIDANCE_DATA_KEYS: transf_matrix [B,4,4], cam_r [3,3], cam_t [3],
+        focal_length [B,2], camera_center [B,2], keypoints_2d [B,T,22,3]);
+        they move to the pipeline's device once per batch."""
         dev = self.device
 
         def as_t(a):
@@ -284,10 +303,11 @@ class RohmPipeline:
                 "fall back to generator sampling)"
             )
         pn = {k: as_t(v) for k, v in pn.items()}
+        gd = {k: as_t(v) for k, v in (guidance_data or {}).items()}
         pm = as_t(pose_mask)
         if pm.dim() == 3:  # one mask for every iteration
             pm = pm.expand((self.sample_iter,) + tuple(pm.shape))
         return self._run(
             as_t(traj_cond), as_t(traj_clean), as_t(pose_noisy), pm, as_t(traj_mask),
-            generator, pn,
+            generator, gd, pn,
         )

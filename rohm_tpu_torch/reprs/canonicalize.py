@@ -1,5 +1,6 @@
 """Per-clip canonicalization (host-side numpy; runs in the data layer).
-A copy of rohm_tpu/reprs/canonicalize.py without the EgoBody y-up variant.
+A copy of rohm_tpu/reprs/canonicalize.py: z-up sequences (AMASS, PROX)
+and the y-up EgoBody variant.
 
 Normalizes each clip so the floor is at z=0, frame 0's pelvis xy is at the
 origin, and frame 0 faces y+. Rewrites SMPL-X global_orient/transl through the
@@ -10,6 +11,8 @@ utils/other_utils.py:189-240 (update_globalRT_for_smplx).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 from scipy.spatial.transform import Rotation as R
@@ -76,6 +79,64 @@ def cano_seq_smplx(
     m2 = np.eye(4)
     m2[:3, :3] = rot.T
     transf = m2 @ m1
+
+    delta_t = positions[:, 0] - smplx_params["transl"]
+    cano_params = update_global_rt(smplx_params, transf, delta_t)
+    if return_transf_mat:
+        return pos, cano_params, transf
+    return pos, cano_params
+
+
+def cano_seq_smplx_egobody(
+    positions: np.ndarray,
+    smplx_params: dict,
+    preset_floor_height: float | None = None,
+    return_transf_mat: bool = False,
+):
+    """Canonicalize a y-up sequence (EgoBody) into the z-up canonical frame."""
+    pos = positions.copy()
+    r_hip, l_hip, sdr_r, sdr_l = _FACE_JOINTS
+
+    floor = preset_floor_height if preset_floor_height is not None else pos.min(axis=(0, 1))[1]
+    pos[:, :, 1] -= floor
+
+    root_xz = pos[0, 0] * np.array([1.0, 0.0, 1.0])
+    pos = pos - root_xz
+
+    j0 = pos[0]
+    across = (j0[r_hip] - j0[l_hip]) + (j0[sdr_r] - j0[sdr_l])
+    across[1] = 0.0
+    x_axis = across / np.linalg.norm(across)
+    z_axis = np.array([0.0, 1.0, 0.0])
+    y_axis = np.cross(z_axis, x_axis)
+    y_axis /= np.linalg.norm(y_axis)
+    rot = -np.stack([x_axis, z_axis, y_axis], axis=1)  # negated for det +1
+    pos = pos @ rot  # y axis now points down
+
+    rot_x = np.array(
+        [
+            [1, 0, 0],
+            [0, math.cos(-math.pi / 2), -math.sin(-math.pi / 2)],
+            [0, math.sin(-math.pi / 2), math.cos(-math.pi / 2)],
+        ]
+    )
+    rot_z = np.array(
+        [
+            [math.cos(math.pi), -math.sin(math.pi), 0],
+            [math.sin(math.pi), math.cos(math.pi), 0],
+            [0, 0, 1],
+        ]
+    )
+    add = rot_z @ rot_x
+    pos = pos @ add.T  # z-up now
+
+    m1 = np.eye(4)
+    m1[:3, 3] = [-root_xz[0], -floor, -root_xz[2]]
+    m2 = np.eye(4)
+    m2[:3, :3] = rot.T
+    m3 = np.eye(4)
+    m3[:3, :3] = add
+    transf = m3 @ m2 @ m1
 
     delta_t = positions[:, 0] - smplx_params["transl"]
     cano_params = update_global_rt(smplx_params, transf, delta_t)
