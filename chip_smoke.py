@@ -79,6 +79,20 @@ Phases (each failure ends the run with a non-zero exit code):
      and `eval_prox_egobody.main` (finite metrics, stitched windows) on
      each; then one guided step (both terms, forward and backward through
      SMPL-X) timed alone and the device's busy share over 5.
+  7c. single-net: `rohm_tpu_torch.cli.preprocessing_amass.main` on the card
+     over a raw AMASS tree (both npz layouts, 60 and 120 fps, an SSM
+     sequence, a file for each rule that drops one; 960 frames each), its
+     25 joints held against the CPU's FK; `test_trajnet.main` (mid_dim
+     512, 100 steps, one batch of phase 7's 33 clips) on phase 6b's vanilla
+     checkpoint and with --trajcontrol on its TrajControl one; then
+     `test_posenet.main --fused_posenet=True --cond_fn_with_grad=True
+     --early_stop=True --save_results=True` on phase 6's PoseNet (one batch
+     of 32 clips x 144 frames, 980 steps through K1's chain, the last 31
+     guided), after its fused step is held to the f32 module at those rows
+     within phase 5's f32 envelope. Checks the launch counts (none for
+     TrajNet), the results, the pickle's keys, shapes and finiteness, and
+     times each CLI's chain per batch; then `forward_vertices` at 10475
+     vertices against the CPU, timed on 32 x 144 frames and on one.
   8. bench: the int8 measurement path at full width. The whole-stack
      kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
      random PoseNet(): bit-identical to the 8-layer K3 chain (whose
@@ -94,7 +108,7 @@ Phases (each failure ends the run with a non-zero exit code):
      `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
      Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-8, 7b included; card_ms and library_card_ms: the time on the
+paths' runs of phases 5-8, 7b and 7c included; card_ms and library_card_ms: the time on the
 card alone with a cold L2); the last line is {"ok": true, "device":
 {...}}.
 """
@@ -2076,6 +2090,192 @@ def video_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: the single-net CLIs and the host tools
+# ---------------------------------------------------------------------------
+
+RAW_FRAMES = 960  # per raw AMASS sequence: 8 s at 120 fps, 16 s at 60
+SINGLE_POSE_FORWARDS = 1000 - 20  # test_posenet --early_stop: 980 of the 1000 steps
+VERTS_FRAMES = (B, S)  # forward_vertices timed on a batch of 32 x 144 frames
+VERTS_CPU_FRAMES = 64  # of which the CPU recomputes the first 64
+
+
+def timed_sampler(make, seconds: list):
+    """`make` (make_posenet_sampler or make_trajnet_sampler) whose samplers
+    append the host-clock seconds of each synchronised call to `seconds`:
+    a CLI batch's reverse chain."""
+    def make_timed(*args, **kwargs):
+        sample = make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sample(*a, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    return make_timed
+
+
+def run_timed_cli(cli, sampler_name: str, argv: list) -> tuple:
+    """cli.main(argv) with its sampler timed (timed_sampler); returns (the
+    result, main()'s seconds, the seconds of each batch's chain)."""
+    make = getattr(cli, sampler_name)
+    chains = []
+    setattr(cli, sampler_name, timed_sampler(make, chains))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, chains
+    finally:
+        setattr(cli, sampler_name, make)
+
+
+def preprocessing_check(seed: int, work: Path, body_path: Path) -> dict:
+    """preprocessing_amass.main on the card over a raw AMASS tree (both npz
+    layouts, 60 and 120 fps, an SSM sequence, files each rule drops), its
+    25 joints held against the same FK on the CPU."""
+    from rohm_tpu_torch.body.model import load_smplx_npz
+    from rohm_tpu_torch.cli import preprocessing_amass
+    from rohm_tpu_torch.data import write_synthetic_amass_raw
+    from rohm_tpu_torch.data.synthetic import RAW_AMASS_SEQUENCES
+
+    kept = write_synthetic_amass_raw(str(work / "amass_raw"), n_frames=RAW_FRAMES, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = preprocessing_amass.main([f"--amass_root={work / 'amass_raw'}", f"--save_root={work / 'amass_pre'}",
+                                  f"--body_model_path={body_path}", "--device=0"])
+    seconds = time.perf_counter() - t0
+    cpu_body = load_smplx_npz(str(body_path), "cpu")
+    worst, frames = 0.0, 0
+    for path in sorted((work / "amass_pre" / "pose_data_fps_30").rglob("*.npy")):
+        joints = np.load(path)
+        params = torch.from_numpy(np.load(str(path).replace("pose_data_fps_30", "smpl_data_fps_30"))).float()
+        ref = forward_joints(cpu_body, params[:, 6:16], params[:, 0:3], params[:, 16:79], params[:, 3:6],
+                             num_joints=25).numpy()
+        if joints.shape != ref.shape or joints.shape[1:] != (25, 3):
+            raise AssertionError(f"bad joints {joints.shape} in {path}")
+        worst, frames = max(worst, float(np.abs(joints - ref).max())), frames + len(joints)
+    total = sum(len(seqs) for seqs in RAW_AMASS_SEQUENCES.values())
+    log(f"[single] preprocessing_amass: {n} of {total} raw sequences kept (expected {kept}), {frames} frames at "
+        f"30 fps, main() {seconds:.2f} s; 25 joints vs the CPU FK: max |err| {worst:.3e} m "
+        f"(tolerance 1e-4: f32 FK on two devices, summation order only)")
+    if n != kept or not worst < 1e-4:
+        raise AssertionError("preprocessing_amass kept the wrong sequences or its FK strays from the CPU's")
+    return {"main_s": seconds, "max_abs_err": worst}
+
+
+def vertices_check(seed: int, body_path: Path) -> dict:
+    """forward_vertices on the card at 10475 vertices against the CPU (the
+    first VERTS_CPU_FRAMES frames), then its median CUDA-event ms on a batch
+    of 32 x 144 frames and on one frame (get_occlusion_mask's call)."""
+    from rohm_tpu_torch.body import forward_vertices
+    from rohm_tpu_torch.body.model import load_smplx_npz
+
+    rng = np.random.default_rng(seed)
+    params = synthetic_params(rng, *VERTS_FRAMES)
+    args = [params[k] for k in ("betas", "global_orient", "body_pose", "transl")]
+    body = load_smplx_npz(str(body_path), "cuda")
+    dev_args = [torch.from_numpy(a).cuda() for a in args]
+    with torch.no_grad():
+        verts, joints = forward_vertices(body, *dev_args)
+        cpu_verts, cpu_joints = forward_vertices(
+            load_smplx_npz(str(body_path), "cpu"),
+            *(torch.from_numpy(a[0, :VERTS_CPU_FRAMES].copy()) for a in args))
+        err = max((verts[0, :VERTS_CPU_FRAMES].cpu() - cpu_verts).abs().max().item(),
+                  (joints[0, :VERTS_CPU_FRAMES].cpu() - cpu_joints).abs().max().item())
+        ms = median_ms(lambda: forward_vertices(body, *dev_args))
+        one = [a[:1, :1] for a in dev_args]
+        ms_one = median_ms(lambda: forward_vertices(body, *one))
+    log(f"[single] forward_vertices at {body.num_verts} vertices, {VERTS_CPU_FRAMES} frames against the CPU: "
+        f"max |err| {err:.3e} m (tolerance 1e-4: f32 on two devices); {list(verts.shape)}: {ms:.3f} ms, "
+        f"one frame {ms_one:.3f} ms (median of 20)")
+    if not (torch.isfinite(verts).all() and err < 1e-4):
+        raise AssertionError("forward_vertices on the card strays from the CPU's")
+    return {"ms": ms, "ms_one_frame": ms_one, "max_abs_err": err}
+
+
+def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ckpts: dict) -> dict:
+    """The single-net test CLIs and the host tools at full width:
+    `preprocessing_amass.main` (preprocessing_check), `test_trajnet.main`
+    on phase 6b's vanilla checkpoint and with --trajcontrol on its
+    TrajControl one (100 steps, one batch of phase 7's 33 clips; no kernel
+    of ours), and `test_posenet.main --fused_posenet=True
+    --cond_fn_with_grad=True --early_stop=True --save_results=True` on phase
+    6's PoseNet (its run directory's stats; one batch of 32 clips x 144
+    frames, 980 steps through K1's chain, the last 31 guided), after its
+    fused step is held to the f32 module at those rows within phase 5's f32
+    envelope; then forward_vertices (vertices_check)."""
+    from types import SimpleNamespace
+
+    from rohm_tpu_torch.cli import test_posenet, test_trajnet
+    from rohm_tpu_torch.cli.common import build_posenet, load_pretrained
+    from rohm_tpu_torch.reprs.stats import load_stats
+
+    out = {"preprocessing": preprocessing_check(seed, work, body_path)}
+    launches = dict.fromkeys(KERNELS, 0)
+    common = [f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}", f"--seed={seed}", "--device=0"]
+    for run, flags in (("vanilla", []), ("trajcontrol", ["--trajcontrol=True"])):
+        reset_launches()
+        res, seconds, chains = run_timed_cli(
+            test_trajnet, "make_trajnet_sampler", [*common, f"--model_path={traj_ckpts[run]}", *flags])
+        counts = read_launches()
+        log(f"[single] test_trajnet {run}: one batch of {3 * CLI_SEQS} clips, chain {chains[0]:.2f} s, "
+            f"main() {seconds:.2f} s; "
+            f"{', '.join(f'{k} {v:.4g}' for k, v in res.items())}")
+        if len(chains) != 1 or any(counts.values()) or len(res) != 15 or not all(np.isfinite(list(res.values()))):
+            raise AssertionError(f"test_trajnet {run}: bad results {res} or a kernel launched: {counts}")
+        out[f"trajnet_{run}"] = {"chain_s": chains[0], "main_s": seconds, "results": res}
+
+    # the run's K1 chain at the rows it gives it (32 x 145 tokens)
+    posenet = build_posenet(SimpleNamespace(latent_dim=D), seed=seed + 1).cuda()
+    load_pretrained(posenet, posenet_ckpt)
+    posenet.eval()
+    mean, std = (torch.as_tensor(a, device="cuda") for a in load_stats(str(Path(posenet_ckpt).parent)))
+    pipe = RohmPipeline(trajnet=None, trajcontrol=None, posenet=posenet, sched_traj=None, sched_pose=None,
+                        body_model=None, mean=mean, std=std, fused_posenet="f32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    x_t, cond = (torch.randn(B, S, 294, device="cuda", generator=gen) for _ in range(2))
+    with torch.no_grad():
+        posenet_envelope("single", pipe, cond, x_t, posenet(x_t, cond, 500))
+    del pipe, posenet
+
+    reset_launches()
+    save_root = work / "results_single"
+    mpjpe, seconds, chains = run_timed_cli(test_posenet, "make_posenet_sampler", [
+        *common, f"--model_path={posenet_ckpt}", "--fused_posenet=True", "--cond_fn_with_grad=True",
+        "--early_stop=True", "--save_results=True", f"--save_root={save_root}", "--max_batches=1"])
+    counts = read_launches()
+    expected = forward_launches("f32", SINGLE_POSE_FORWARDS)
+    log(f"[single] test_posenet fused f32, guided, early stop: launches {counts}; expected {expected}")
+    if counts != expected:
+        raise AssertionError("test_posenet did not go through K1's kernels as the chain implies")
+    for name in launches:
+        launches[name] += counts[name]
+    pkl = save_root / f"test_posenet_mask_lower_grad_True_seed_{seed}.pkl"
+    with open(pkl, "rb") as f:
+        saved = pickle.load(f)
+    want = {k: (B, S, 22, 3) for k in ("rec_ric_data_clean_list", "rec_ric_data_rec_list_from_smpl",
+                                       "rec_ric_data_noisy_list")}
+    want.update({k: (B, S, 294) for k in ("motion_repr_clean_list", "motion_repr_rec_list")})
+    shapes = {k: tuple(v.shape) for k, v in saved.items() if isinstance(v, np.ndarray)}
+    if shapes != want or set(saved) != set(want) | {"mask_scheme", "repr_name_list", "repr_dim_dict"}:
+        raise AssertionError(f"bad test_posenet pickle: keys {sorted(saved)}, shapes {shapes}")
+    if not (all(np.isfinite(saved[k]).all() for k in want) and np.isfinite(mpjpe)):
+        raise AssertionError("non-finite test_posenet results")
+    log(f"[single] test_posenet: one batch of {B} clips x {S} frames, chain {chains[0]:.2f} s "
+        f"({SINGLE_POSE_FORWARDS} fused f32 steps, 31 guided), main() {seconds:.2f} s, "
+        f"mpjpe_global {mpjpe * 1000:.1f} mm, pickle {pkl.name}")
+    out["posenet"] = {"chain_s": chains[0], "main_s": seconds, "mpjpe_m": mpjpe}
+    out["vertices"] = vertices_check(seed, body_path)
+    return {"launches": launches, "runs": out}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the int8 measurement path (K5, the bench chain, K8, K9)
 # ---------------------------------------------------------------------------
 
@@ -2325,11 +2525,12 @@ def main(argv=None) -> None:
     trajtrain = trajnet_train_phase(args.seed, work, body_path)
     cli = cli_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     video = video_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
+    single = single_net_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
     # launches: the slice's, the training runs' (TrajNet's launch none), the
-    # CLIs' (AMASS, video) and the bench phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
+    # CLIs' (AMASS, video, single-net) and the bench phase's main-path runs, each counted from 0; ms / plain_ms / bound_ms
     # / library_ms are per layer (summed over the launches one layer
     # makes), per 8-layer forward for encoder_stack_int8, and summed over
     # the probe's sizes or variants for gemm_skeleton and int8_layer_variant
@@ -2338,7 +2539,7 @@ def main(argv=None) -> None:
         st = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, bench)),
+            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, single, bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
             "library_ms": st["library_ms"], "card_ms": st["card_ms"], "library_card_ms": st["library_card_ms"],

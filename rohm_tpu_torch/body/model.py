@@ -1,12 +1,14 @@
-"""SMPL-X joints in PyTorch: the body model the guided chain differentiates.
+"""SMPL-X in PyTorch: the body model the guided chain differentiates.
 
-The port of rohm_tpu/body/model.py's joints path. The first 22 SMPL-X joints
-depend only on the shaped rest skeleton and the kinematic chain, so
-``j_template = J_regressor @ v_template`` and ``j_shapedirs = J_regressor @
-shapedirs`` are precomputed once and a forward is a (..., 10) x (10, 55*3)
-product plus a 22-joint chain of 3x3 products, unrolled in Python. Everything
-is plain torch, so autograd flows through it (skating guidance takes its
-gradient through here on every guided step).
+The port of rohm_tpu/body/model.py. Skeleton joints depend only on the
+shaped rest skeleton and the kinematic chain, so ``j_template =
+J_regressor @ v_template`` and ``j_shapedirs = J_regressor @ shapedirs``
+are precomputed once and `forward_joints` is a (..., 10) x (10, 55*3)
+product plus a chain of 3x3 products, unrolled in Python (22 joints on the
+guided path; up to 55). `forward_vertices` adds the mesh: shape and pose
+blendshapes, then linear blend skinning. Everything is plain torch, so
+autograd flows through it (skating guidance takes its gradient through
+here on every guided step).
 """
 
 from __future__ import annotations
@@ -149,6 +151,56 @@ def synthetic_model(num_verts: int = 512, seed: int = 0, device="cpu",
                       fingerprint=f"synthetic-{num_verts}-{seed}-{dtype}")
 
 
+def _pose_rotmats(global_orient, body_pose, num_joints: int, global_orient_mat=None,
+                  body_pose_mat=None) -> torch.Tensor:
+    """Per-joint rotation matrices [..., num_joints, 3, 3]: the root and the
+    21 body joints from axis-angle (or from the given matrices); joints 22
+    and above (jaw, eyes, hands) are the identity, as RoHM zeroes them
+    (flat_hand_mean=True)."""
+    if global_orient_mat is not None and body_pose_mat is not None:
+        rots = torch.cat([global_orient_mat[..., None, :, :], body_pose_mat], dim=-3)
+    else:
+        aa = torch.cat(
+            [global_orient[..., None, :], body_pose.reshape(body_pose.shape[:-1] + (21, 3))],
+            dim=-2,
+        )
+        rots = aa_to_rotmat(aa)
+    rots = rots[..., :num_joints, :, :]
+    if num_joints > NUM_BODY_JOINTS:
+        eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
+        rots = torch.cat([rots, eye.expand(rots.shape[:-3] + (num_joints - NUM_BODY_JOINTS, 3, 3))], dim=-3)
+    return rots
+
+
+def _kinematic_chain(rots: torch.Tensor, joints_rest: torch.Tensor, parents) -> tuple[list, list]:
+    """The chain unrolled in Python: per joint its world rotation and posed
+    position (lists of [..., 3, 3] and [..., 3]). A joint past the body's 22
+    has an identity rotation, so it takes its parent's world rotation as it
+    is (the product with the identity is exact)."""
+    world_rots = [rots[..., 0, :, :]]
+    world_pos = [joints_rest[..., 0, :]]
+    for j in range(1, rots.shape[-3]):
+        p = parents[j]
+        rel = joints_rest[..., j, :] - joints_rest[..., p, :]
+        world_rots.append(world_rots[p] @ rots[..., j, :, :] if j < NUM_BODY_JOINTS else world_rots[p])
+        world_pos.append(world_pos[p] + (world_rots[p] @ rel[..., None])[..., 0])
+    return world_rots, world_pos
+
+
+def _rigid_transform(rots: torch.Tensor, joints_rest: torch.Tensor, parents
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """rots [..., J, 3, 3], joints_rest [..., J, 3] -> (posed joints
+    [..., J, 3], skinning matrices [..., J, 3, 4]): A_k = [R_k | t_k] with
+    R_k the joint's world rotation and t_k = posed_k - R_k rest_k, the
+    world transform with the rest joint's contribution removed (the top
+    three rows of rohm_tpu/body/model.py::_rigid_transform's 4 x 4)."""
+    world_rots, world_pos = _kinematic_chain(rots, joints_rest, parents)
+    rots_w = torch.stack(world_rots, dim=-3)
+    posed = torch.stack(world_pos, dim=-2)
+    t = posed - (rots_w @ joints_rest[..., None])[..., 0]
+    return posed, torch.cat([rots_w, t[..., None]], dim=-1)
+
+
 def forward_joints(
     model: SmplxModel,
     betas: torch.Tensor,
@@ -159,29 +211,51 @@ def forward_joints(
     global_orient_mat: torch.Tensor | None = None,
     body_pose_mat: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Posed skeleton joints [..., num_joints, 3] (num_joints <= 22).
+    """Posed skeleton joints [..., num_joints, 3], num_joints <= 55.
 
-    Pass global_orient_mat [..., 3, 3] / body_pose_mat [..., 21, 3, 3] to skip
-    the axis-angle conversion (the repr decode path and the bridge do).
+    SMPL-X's skeleton joints are regressed from the shaped (not posed)
+    template, so no vertex skinning is needed. Pass global_orient_mat
+    [..., 3, 3] / body_pose_mat [..., 21, 3, 3] to skip the axis-angle
+    conversion (the repr decode path and the bridge do).
     """
-    if num_joints > NUM_BODY_JOINTS:
-        raise ValueError("the port's forward_joints covers the 22 body joints only")
+    if not 1 <= num_joints <= NUM_JOINTS:
+        raise ValueError(f"num_joints must be in 1..{NUM_JOINTS}, got {num_joints}")
     joints_rest = model.j_template + torch.einsum("...k,jck->...jc", betas, model.j_shapedirs)
     joints_rest = joints_rest[..., :num_joints, :]
-    if global_orient_mat is not None and body_pose_mat is not None:
-        rots = torch.cat([global_orient_mat[..., None, :, :], body_pose_mat], dim=-3)
-    else:
-        aa = torch.cat(
-            [global_orient[..., None, :], body_pose.reshape(body_pose.shape[:-1] + (21, 3))],
-            dim=-2,
-        )
-        rots = aa_to_rotmat(aa)
-    parents = model.parents
-    world_rots = [rots[..., 0, :, :]]
-    world_pos = [joints_rest[..., 0, :]]
-    for j in range(1, num_joints):
-        p = parents[j]
-        rel = joints_rest[..., j, :] - joints_rest[..., p, :]
-        world_rots.append(world_rots[p] @ rots[..., j, :, :])
-        world_pos.append(world_pos[p] + (world_rots[p] @ rel[..., None])[..., 0])
+    rots = _pose_rotmats(global_orient, body_pose, num_joints, global_orient_mat, body_pose_mat)
+    _, world_pos = _kinematic_chain(rots, joints_rest, model.parents)
     return torch.stack(world_pos, dim=-2) + transl[..., None, :]
+
+
+def forward_vertices(
+    model: SmplxModel,
+    betas: torch.Tensor,
+    global_orient: torch.Tensor | None,
+    body_pose: torch.Tensor | None,
+    transl: torch.Tensor,
+    global_orient_mat: torch.Tensor | None = None,
+    body_pose_mat: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full linear blend skinning: (vertices [..., V, 3], joints [..., 55, 3]).
+
+    Shape blendshapes, pose blendshapes from the 54 non-root rotations
+    (`posedirs`), then each vertex moved by its weighted sum of the joints'
+    skinning matrices. The weights are contracted with the 3 x 4 part of
+    those matrices, so a call holds [..., V, 3, 4] (12 floats per vertex
+    and frame), never the [..., V, 4, 4] of the JAX package; the same
+    function up to summation order.
+    """
+    v_shaped = model.v_template + torch.einsum("...k,vck->...vc", betas, model.shapedirs)
+    joints_rest = model.j_template + torch.einsum("...k,jck->...jc", betas, model.j_shapedirs)
+    rots = _pose_rotmats(global_orient, body_pose, NUM_JOINTS, global_orient_mat, body_pose_mat)
+    posed_joints, skin = _rigid_transform(rots, joints_rest, model.parents)
+
+    eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
+    pose_feature = (rots[..., 1:, :, :] - eye).reshape(rots.shape[:-3] + ((NUM_JOINTS - 1) * 9,))
+    v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(v_shaped.shape)
+
+    tf = torch.einsum("vj,...jab->...vab", model.lbs_weights, skin)  # [..., V, 3, 4]
+    # elementwise, not a batched [3, 3] @ [3, 1] product, which cuBLAS
+    # runs as hundreds of gemv launches on the card
+    verts = (tf[..., :3] * v_posed[..., None, :]).sum(-1) + tf[..., 3]
+    return verts + transl[..., None, :], posed_joints + transl[..., None, :]

@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: body-model resolution, dataset lists, model builders,
-checkpoint loading. The port of rohm_tpu/cli/common.py (reference
+"""Shared CLI plumbing: body-model resolution, dataset lists, preset noise
+and stats, model builders, checkpoint loading. The port of rohm_tpu/cli/common.py (reference
 train_trajnet.py:82-194, test_amass_full.py:77-188).
 
 Checkpoints: a `.npz` of flattened flax params ("/"-separated keys, the
@@ -20,7 +20,9 @@ import numpy as np
 import torch
 
 from rohm_tpu_torch.body.model import SmplxModel, load_smplx_npz, synthetic_model
+from rohm_tpu_torch.data.amass import AmassClipDataset, load_noise_dict
 from rohm_tpu_torch.models import PoseNet, TrajNet
+from rohm_tpu_torch.reprs.stats import save_stats
 from rohm_tpu_torch.utils.convert_flax import posenet_state_dict, trajnet_state_dict
 
 log = logging.getLogger("rohm_tpu_torch.cli")
@@ -99,6 +101,41 @@ def resolve_body_model(body_model_path: str, device, gender: str = "neutral") ->
         body_model_path,
     )
     return synthetic_model(device=device)
+
+
+def load_eval_noise(args) -> dict | None:
+    """--load_noise: the preset noise of data/eval_noise_smplx/
+    smplx_noise_level_<--load_noise_level>.pkl. Where that file is absent
+    the CLI draws fresh noise: a warning, args.load_noise set to False and
+    None returned."""
+    if not args.load_noise:
+        return None
+    noise_path = os.path.join("data", "eval_noise_smplx", f"smplx_noise_level_{args.load_noise_level}.pkl")
+    if os.path.exists(noise_path):
+        return load_noise_dict(noise_path)
+    print(f"[WARN] preset noise pkl not found at {noise_path}; sampling fresh noise")
+    args.load_noise = False
+    return None
+
+
+def amass_stats_dir(model_path: str, data_kw: dict) -> str:
+    """The directory of the normalization stats (AMASS_mean.pkl,
+    AMASS_std.pkl). They travel with a trained checkpoint (reference
+    test_amass_full.py:91-92), so the checkpoint's directory where it holds
+    them; else they are computed from the clean repr of the train split of
+    `data_kw`'s tree (AmassClipDataset's data arguments) and saved under
+    `<tree>/_stats_cache/`, in a directory keyed like the derived-array
+    cache ("amass_torch_<key>", never the JAX package's "amass_<key>")."""
+    stats_dir = os.path.dirname(model_path) if model_path else None
+    if stats_dir and os.path.exists(os.path.join(stats_dir, "AMASS_mean.pkl")):
+        return stats_dir
+    ds_stats = AmassClipDataset(split="train", task="pose", logdir=None, input_noise=False, **data_kw)
+    key = (os.path.splitext(os.path.basename(ds_stats._cache_path))[0]
+           if ds_stats._cache_path else "torch_default")
+    stats_dir = os.path.join(data_kw["preprocessed_amass_root"], "_stats_cache", key)
+    if not os.path.exists(os.path.join(stats_dir, "AMASS_mean.pkl")):
+        save_stats(stats_dir, ds_stats.mean, ds_stats.std)
+    return stats_dir
 
 
 def _seeded(make, seed: int | None):

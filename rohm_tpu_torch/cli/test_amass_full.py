@@ -27,17 +27,18 @@ from rohm_tpu_torch.cli.common import (
     PhaseTimer,
     build_posenet,
     build_trajnet,
+    amass_stats_dir,
     keep_in_flight,
+    load_eval_noise,
     load_or_init,
     resolve_body_model,
     resolve_device,
 )
-from rohm_tpu_torch.data import AmassClipDataset, load_noise_dict, write_synthetic_amass
+from rohm_tpu_torch.data import AmassClipDataset, write_synthetic_amass
 from rohm_tpu_torch.diffusion.schedule import make_schedule
 from rohm_tpu_torch.pipeline import RohmPipeline, amass_eval_pose_mask
 from rohm_tpu_torch.reprs import recover_from_repr, split_repr
 from rohm_tpu_torch.reprs.schema import REPR_DIM_DICT, REPR_LIST, TRAJ_FEAT_DIM_FULL
-from rohm_tpu_torch.reprs.stats import save_stats
 from rohm_tpu_torch.utils.config import ConfigParser, fused_mode
 
 
@@ -148,21 +149,7 @@ def run(argv=None) -> tuple[str, dict]:
             seq_len=args.clip_len + 4,
         )
 
-    loaded_noise = None
-    if args.load_noise:
-        noise_path = os.path.join(
-            "data", "eval_noise_smplx", f"smplx_noise_level_{args.load_noise_level}.pkl"
-        )
-        if os.path.exists(noise_path):
-            loaded_noise = load_noise_dict(noise_path)
-        else:
-            print(f"[WARN] preset noise pkl not found at {noise_path}; sampling fresh noise")
-            args.load_noise = False
-
-    # stats travel with the PoseNet checkpoint (reference test_amass_full.py:91-92)
-    stats_dir = os.path.dirname(args.model_path_posenet) if args.model_path_posenet else None
-    if not (stats_dir and os.path.exists(os.path.join(stats_dir, "AMASS_mean.pkl"))):
-        stats_dir = None
+    loaded_noise = load_eval_noise(args)
 
     noise_kw = dict(
         input_noise=args.input_noise,
@@ -179,21 +166,9 @@ def run(argv=None) -> tuple[str, dict]:
         disk_cache_dir=os.path.join(args.dataset_root, "_repr_cache"), device=device,
     )
     t0 = time.perf_counter()
-    # twin views of the same data (reference test_amass_full.py:93-127)
-    if stats_dir is None:
-        # no trained stats: compute them from this data's clean repr, under a
-        # directory keyed like the derived-array cache ("amass_torch_<key>",
-        # never the JAX package's "amass_<key>")
-        ds_stats = AmassClipDataset(
-            split="train", task="pose", logdir=None, input_noise=False, **common_kw
-        )
-        key = (
-            os.path.splitext(os.path.basename(ds_stats._cache_path))[0]
-            if ds_stats._cache_path else "torch_default"
-        )
-        stats_dir = os.path.join(args.dataset_root, "_stats_cache", key)
-        if not os.path.exists(os.path.join(stats_dir, "AMASS_mean.pkl")):
-            save_stats(stats_dir, ds_stats.mean, ds_stats.std)
+    # twin views of the same data (reference test_amass_full.py:93-127); the
+    # stats travel with the PoseNet checkpoint
+    stats_dir = amass_stats_dir(args.model_path_posenet, common_kw)
     test_pose_dataset = AmassClipDataset(
         split="test", task="pose", repr_abs_only=False, logdir=stats_dir, **common_kw, **noise_kw
     )

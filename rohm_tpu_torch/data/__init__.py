@@ -12,6 +12,7 @@ from rohm_tpu_torch.data.synthetic import (
     synthetic_clip_batch,
     synthetic_motion,
     write_synthetic_amass,
+    write_synthetic_amass_raw,
     write_synthetic_egobody,
     write_synthetic_prox,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "synthetic_clip_batch",
     "synthetic_amass_arrays",
     "write_synthetic_amass",
+    "write_synthetic_amass_raw",
     "write_synthetic_egobody",
     "write_synthetic_prox",
     "VideoClipDataset",

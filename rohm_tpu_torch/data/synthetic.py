@@ -349,3 +349,45 @@ def write_synthetic_egobody(
     mask_dir = os.path.join(base_dir, "mask_joint", recording_name, view)
     os.makedirs(mask_dir, exist_ok=True)
     np.save(os.path.join(mask_dir, "mask_joint.npy"), mask)
+
+
+# raw AMASS tree: dataset -> [(sequence dir, recording name, fps, layout,
+# gender, kept by preprocessing_amass)], one file for each rule that drops one
+RAW_AMASS_SEQUENCES = {
+    "ACCAD": [("s01", "walk_poses", 120.0, "release", "neutral", True),  # stride 4
+              ("s01", "neutral_stagei", 120.0, "release", "neutral", False)],  # skipped by name
+    "CMU": [("s02", "run_poses", 60.0, "flat", "neutral", True),  # stride 2, the flat 'poses' layout
+            ("s02", "jump_poses", 60.0, "flat", "female", False)],  # not neutral
+    "SSM": [("s03", "dance_poses", 59.9944, "release", "neutral", True)],  # SSM's fractional fps: stride 2
+    "BMLrub": [("rub001", "rub001_treadmill_fast", 120.0, "release", "neutral", False)],  # skipped by name
+    "KIT": [("s04", "turn_poses", 100.0, "release", "neutral", False)],  # no integer stride to 30 fps
+}
+
+
+def write_synthetic_amass_raw(root: str, n_frames: int = 48, seed: int = 0) -> int:
+    """Write a raw AMASS tree (`<root>/<dataset>/<seq>/<name>.npz`, the
+    release's keys: mocap_frame_rate, gender, surface_model_type, trans,
+    betas and either root_orient/pose_body/pose_hand/pose_jaw/pose_eye or
+    the flat 165-d 'poses') for preprocessing_amass, from smooth synthetic
+    motion with small random hand, jaw and eye rotations: the sequences of
+    RAW_AMASS_SEQUENCES, `n_frames` each. Returns how many of them
+    preprocessing_amass keeps."""
+    kept = 0
+    for d, (dataset, seqs) in enumerate(RAW_AMASS_SEQUENCES.items()):
+        for s, (seq_dir, name, fps, layout, gender, keep) in enumerate(seqs):
+            rng = np.random.default_rng(seed + 100 * d + s)
+            p = _synthetic_params(n_frames, seed=seed + 100 * d + s)
+            hands, jaw, eye = (rng.normal(scale=0.1, size=(n_frames, k)) for k in (90, 3, 6))
+            out = {"mocap_frame_rate": np.float64(fps), "gender": np.array(gender),
+                   "surface_model_type": np.array("smplx"), "trans": p["transl"],
+                   "betas": np.concatenate([p["betas"][0], rng.normal(size=6)])}
+            if layout == "release":
+                out.update(root_orient=p["global_orient"], pose_body=p["body_pose"], pose_hand=hands,
+                           pose_jaw=jaw, pose_eye=eye)
+            else:
+                out["poses"] = np.concatenate(
+                    [p["global_orient"], p["body_pose"], jaw, eye[:, :3], eye[:, :3], hands], axis=-1)
+            os.makedirs(os.path.join(root, dataset, seq_dir), exist_ok=True)
+            np.savez(os.path.join(root, dataset, seq_dir, name + ".npz"), **out)
+            kept += keep
+    return kept

@@ -4,8 +4,9 @@ The port of rohm_tpu/data/video.py (reference
 data_loaders/dataloader_video.py:11-498). Per-frame init SMPL-X pkls are
 read on the host, then all frames go through batched FK on the dataset's
 device, and all windows through one batched encoding (the reference calls
-the torch smplx model once per frame). Keypoint undistortion is numpy
-(OpenCV's model and its iteration, without cv2) and the EgoBody CSVs are
+the torch smplx model once per frame). Keypoint undistortion, and the
+distorted projection the occlusion-mask tool uses, are numpy (OpenCV's
+model and its iteration, without cv2) and the EgoBody CSVs are
 read with the `csv` module (no pandas); `__getitem__` emits fixed-shape
 float32 arrays.
 
@@ -97,6 +98,16 @@ def _load_keypoints(path: str, body_idx: int) -> np.ndarray:
         return np.zeros((JOINTS_NUM, 3))
 
 
+def _dist5(dist_coeffs) -> np.ndarray:
+    """OpenCV's distortion vector as (k1, k2, p1, p2, k3) in float64: a
+    shorter one is padded with zeros, and past the fifth the coefficients
+    are not read."""
+    k = np.zeros(5)
+    dist = np.asarray(dist_coeffs, np.float64).reshape(-1)
+    k[: min(len(dist), 5)] = dist[:5]
+    return k
+
+
 def undistort_points(points: np.ndarray, camera_mtx, dist_coeffs) -> np.ndarray:
     """cv2.undistortPoints(points, camera_mtx, dist_coeffs, P=camera_mtx) in
     float64 numpy, points [..., 2] in pixels: normalize by the intrinsics,
@@ -105,9 +116,7 @@ def undistort_points(points: np.ndarray, camera_mtx, dist_coeffs) -> np.ndarray:
     factor turns negative keeps its distorted coordinates, as OpenCV's does),
     then map back through the same matrix."""
     mtx = np.asarray(camera_mtx, np.float64)
-    k = np.zeros(5)
-    dist = np.asarray(dist_coeffs, np.float64).reshape(-1)
-    k[: min(len(dist), 5)] = dist[:5]
+    k = _dist5(dist_coeffs)
     k1, k2, p1, p2, k3 = k
     fx, fy, cx, cy = mtx[0, 0], mtx[1, 1], mtx[0, 2], mtx[1, 2]
     pts = np.asarray(points, np.float64)
@@ -129,6 +138,25 @@ def undistort_points(points: np.ndarray, camera_mtx, dist_coeffs) -> np.ndarray:
     u = (mtx[0, 0] * x + mtx[0, 1] * y + mtx[0, 2]) * w
     v = (mtx[1, 0] * x + mtx[1, 1] * y + mtx[1, 2]) * w
     return np.stack([u, v], axis=-1)
+
+
+def project_points_distorted(points: np.ndarray, color_cam: dict) -> np.ndarray:
+    """cv2.projectPoints(points, rvec=0, tvec=0, camera_mtx, k) in float64
+    numpy: camera-frame points [N, 3] -> pixels [N, 2] through the k1, k2,
+    p1, p2, k3 forward model of the PROX color camera (`color_cam` holds
+    "camera_mtx" and "k"); OpenCV reads fx, fy, cx, cy of the matrix and
+    takes a depth of 0 as 1."""
+    mtx = np.asarray(color_cam["camera_mtx"], np.float64)
+    k1, k2, p1, p2, k3 = _dist5(color_cam["k"])
+    pts = np.asarray(points, np.float64).reshape(-1, 3)
+    z = pts[:, 2]
+    inv_z = np.where(z != 0, 1.0 / np.where(z != 0, z, 1.0), 1.0)
+    x, y = pts[:, 0] * inv_z, pts[:, 1] * inv_z
+    r2 = x * x + y * y
+    radial = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return np.stack([mtx[0, 0] * xd + mtx[0, 2], mtx[1, 1] * yd + mtx[1, 2]], axis=-1)
 
 
 def undistort_keypoints_prox(keypoints: np.ndarray, color_cam: dict) -> np.ndarray:

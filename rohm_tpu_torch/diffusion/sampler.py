@@ -1,6 +1,7 @@
 """The reverse diffusion chain with test-time guidance, in eager PyTorch.
 
-The port of rohm_tpu/diffusion/sampler.py::p_sample_loop. The JAX version
+The port of rohm_tpu/diffusion/sampler.py: p_sample_loop, and
+ddim_sample_loop for 'ddimN'-respaced schedules. The JAX version
 runs the chain as two `lax.scan` segments split at the highest guidance
 threshold, with a `lax.cond` gate inside the lower one; here a Python loop
 does the same steps and the gate is `if t <= threshold`, so the steps above
@@ -109,4 +110,45 @@ def p_sample_loop(
             x = mean
     if early_stop_steps > 0:
         return pred_x0
+    return x
+
+
+def ddim_sample_loop(
+    model_fn: Callable[[torch.Tensor, int], torch.Tensor],
+    sched: DiffusionSchedule,
+    shape: tuple,
+    generator: torch.Generator,
+    eta: float = 0.0,
+    noise: torch.Tensor | None = None,
+    dtype=torch.float32,
+    step_noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The DDIM reverse chain (rohm_tpu/diffusion/sampler.py::ddim_sample_loop;
+    the reference's ddim loops of gaussian_diffusion_*.py), for a schedule
+    respaced with 'ddimN' (make_schedule(..., timestep_respacing="ddimN")).
+
+    eta = 0 is deterministic. The generator draws x_T (unless `noise` is
+    given) and then, only when eta > 0, one normal sample per step (unless
+    `step_noise` [num_timesteps, *shape], indexed by internal timestep,
+    replays them). model_fn(x_t, t) -> pred_x0 as in p_sample_loop.
+    """
+    device = generator.device
+    tmap = sched.timestep_map.tolist()
+    if noise is None:
+        x = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    else:
+        x = noise.to(device=device, dtype=dtype)
+    for t in range(sched.num_timesteps - 1, -1, -1):
+        pred_x0 = model_fn(x, tmap[t])
+        eps = (sched.sqrt_recip_alphas_cumprod[t] * x - pred_x0) / sched.sqrt_recipm1_alphas_cumprod[t]
+        acp, acp_prev = sched.alphas_cumprod[t], sched.alphas_cumprod_prev[t]
+        sigma = eta * torch.sqrt((1 - acp_prev) / (1 - acp)) * torch.sqrt(1 - acp / acp_prev)
+        x = torch.sqrt(acp_prev) * pred_x0 + torch.sqrt(torch.clamp(1.0 - acp_prev - sigma**2, min=0.0)) * eps
+        if eta > 0:
+            if step_noise is not None:
+                noise_t = step_noise[t].to(device=device, dtype=dtype)
+            else:
+                noise_t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+            if t != 0:
+                x = x + sigma * noise_t
     return x

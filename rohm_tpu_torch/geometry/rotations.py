@@ -1,7 +1,8 @@
 """Batched, differentiable rotation conversions in PyTorch.
 
-The subset of rohm_tpu/geometry/rotations.py that forward kinematics, the
-repr encoder/decoder and the traj->pose bridge call. Every function takes
+The port of rohm_tpu/geometry/rotations.py: what forward kinematics, the
+repr encoder/decoder and the traj->pose bridge call, and the Euler, qfix
+and slerp surface of its quaternion library. Every function takes
 arbitrary leading batch dimensions. Numerically sensitive branches keep the
 JAX package's "double-where" pattern, so gradients stay finite at the branch
 boundaries: test-time guidance differentiates rot6d -> rotmat -> SMPL-X
@@ -224,3 +225,84 @@ def skew_angular_velocity(rot_seq: torch.Tensor, drdt: torch.Tensor) -> torch.Te
     w_y = (w_mat[..., 0, 2] - w_mat[..., 2, 0]) / 2.0
     w_z = (-w_mat[..., 0, 1] + w_mat[..., 1, 0]) / 2.0
     return torch.stack([w_x, w_y, w_z], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the quaternion library (rohm_tpu/geometry/rotations.py:253-351):
+# Euler angles, sequence sign continuity, slerp. No pipeline calls them.
+# ---------------------------------------------------------------------------
+
+
+_AXIS_INDEX = {"x": 0, "y": 1, "z": 2}
+
+
+def qeuler(q: torch.Tensor, order: str = "zyx", eps: float = 0.0, deg: bool = True) -> torch.Tensor:
+    """Quaternion (w, x, y, z) -> intrinsic Tait-Bryan Euler angles, in any
+    of the six distinct-axis orders. The angles are labeled by axis and
+    stacked in (x, y, z) order whatever the order of application. For order
+    (i, j, k) with permutation sign s, the middle angle is asin(s m[i, k])
+    and the outer ones atan2 of the adjacent row and column entries of the
+    rotation matrix."""
+    if len(order) != 3 or set(order) != {"x", "y", "z"}:
+        raise ValueError(f"unsupported euler order {order}")
+    i, j, k = (_AXIS_INDEX[c] for c in order)
+    sign = 1.0 if (j - i) % 3 == 1 else -1.0
+    m = quat_to_rotmat(qnormalize(q))
+    mid = torch.asin(torch.clamp(sign * m[..., i, k], -1.0 + eps, 1.0 - eps))
+    first = torch.atan2(-sign * m[..., j, k], m[..., k, k])
+    last = torch.atan2(-sign * m[..., i, j], m[..., i, i])
+    by_axis = [None, None, None]
+    by_axis[i], by_axis[j], by_axis[k] = first, mid, last
+    e = torch.stack(by_axis, dim=-1)
+    return e * (180.0 / torch.pi) if deg else e
+
+
+def qfix(q: torch.Tensor) -> torch.Tensor:
+    """Temporal sign continuity over axis -2 (a sequence of quaternions):
+    q_t is negated whenever dot(q_t, fixed q_{t-1}) < 0."""
+    out = [q[..., 0, :]]
+    for t in range(1, q.shape[-2]):
+        cur = q[..., t, :]
+        flip = (out[-1] * cur).sum(dim=-1, keepdim=True) < 0
+        out.append(torch.where(flip, -cur, cur))
+    return torch.stack(out, dim=-2)
+
+
+def qslerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions along the shortest
+    arc, elementwise with broadcasting, a lerp where sin(theta) < 1e-6. The
+    JAX package's deliberate deviation from the reference's qslerp (which
+    takes the raw arc, the long way round when dot < 0, and returns
+    t.shape + q0.shape) is kept."""
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    dot = (q0 * q1).sum(dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = dot.abs()
+    theta = torch.acos(torch.clamp(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(small, t, torch.sin(t * theta) / safe)
+    out = w0 * q0 + w1 * q1
+    return out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-12)
+
+
+def euler_to_quat(e: torch.Tensor, order: str = "zyx") -> torch.Tensor:
+    """Intrinsic Euler angles -> quaternion, the product of the axis
+    rotations in `order`; `e` holds the angles labeled by axis in (x, y, z)
+    slots. For the orders xyz, yzx and zxy the result is negated (the same
+    rotation), as the reference's euler_to_quaternion and the JAX package
+    return it, so sign-sensitive consumers such as qfix see the same
+    components."""
+    q = None
+    for ax in order:
+        half = e[..., _AXIS_INDEX[ax]] / 2.0
+        zeros = torch.zeros_like(half)
+        parts = [torch.cos(half), zeros, zeros, zeros]
+        parts[1 + _AXIS_INDEX[ax]] = torch.sin(half)
+        r = torch.stack(parts, dim=-1)
+        q = r if q is None else qmul(q, r)
+    if order in ("xyz", "yzx", "zxy"):
+        q = -q
+    return q

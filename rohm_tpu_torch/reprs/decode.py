@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from rohm_tpu_torch.body.model import SmplxModel, forward_joints
+from rohm_tpu_torch.body.model import SmplxModel, forward_joints, forward_vertices
 from rohm_tpu_torch.geometry.rotations import qinv, qrot, rot6d_to_rotmat
 from rohm_tpu_torch.reprs.schema import split_repr
 
@@ -47,9 +47,12 @@ def recover_from_repr(
     x: torch.Tensor | dict,
     mode: str = "joint_abs_traj",
     body_model: SmplxModel | None = None,
-) -> torch.Tensor:
+    return_verts: bool = False,
+):
     """Recover joint positions [..., T, 22, 3] from a (denormalized) 294-d
-    repr, given flat [..., T, 294] or as a pre-split block dict."""
+    repr, given flat [..., T, 294] or as a pre-split block dict. With
+    return_verts (smplx_params mode only): (joints, vertices [..., T, V, 3])
+    from the full SMPL-X forward."""
     d = split_repr(x) if not isinstance(x, dict) else x
 
     if mode in ("joint_abs_traj", "joint_rel_traj"):
@@ -74,6 +77,12 @@ def recover_from_repr(
         go_mat = rot6d_to_rotmat(d["smplx_rot_6d"])
         pose6d = d["smplx_body_pose_6d"]
         bp_mat = rot6d_to_rotmat(pose6d.reshape(pose6d.shape[:-1] + (21, 6)))
+        if return_verts:
+            verts, joints = forward_vertices(
+                body_model, d["smplx_betas"], None, None, d["smplx_trans"],
+                global_orient_mat=go_mat, body_pose_mat=bp_mat,
+            )
+            return joints[..., :22, :], verts
         return forward_joints(
             body_model, d["smplx_betas"], None, None, d["smplx_trans"],
             num_joints=22, global_orient_mat=go_mat, body_pose_mat=bp_mat,

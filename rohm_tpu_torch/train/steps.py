@@ -24,6 +24,7 @@ from rohm_tpu_torch.diffusion.gaussian import q_sample
 from rohm_tpu_torch.diffusion.sampler import p_sample_loop
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from rohm_tpu_torch.models.losses import posenet_losses, trajnet_losses
+from rohm_tpu_torch.ops.transformer_layer import embed_cond_f32, posenet_apply_fused
 from rohm_tpu_torch.ops.transformer_layer_train import posenet_apply_train, posenet_dropout_masks
 from rohm_tpu_torch.train.state import TrainState
 
@@ -192,13 +193,29 @@ def make_posenet_train_step(
     return step
 
 
-def make_posenet_sampler(model, sched: DiffusionSchedule) -> Callable:
-    """sample(cond, generator) -> [B, T, 294]: the reverse chain through the
-    plain PoseNet module (eval mode), as the JAX package's eval-during-
-    training sampler runs its flax model. (The JAX sampler's guidance and
-    early stop serve its single-net test CLI, which is not ported.)"""
+def make_posenet_sampler(model, sched: DiffusionSchedule, guidance: tuple = (),
+                         early_stop_steps: int = 0, fused: bool = False) -> Callable:
+    """sample(cond, generator) -> [B, T, 294]: the reverse chain (1000
+    steps at full size) through PoseNet in eval mode, with test-time
+    `guidance` (GuidanceSpec terms) and `early_stop_steps` passed to
+    p_sample_loop as they are.
+
+    fused=False runs the PoseNet module; fused=True runs each step through
+    `ops.posenet_apply_fused`, the f32 kernel chain that replaces K1
+    (`gemm_f32`, `attention_f32`, the two-pass `residual_layernorm`), on the
+    module's own weights, with the condition embedded once per chain."""
 
     def sample(cond: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        return p_sample_loop(lambda x, t: model(x, cond, t), sched, tuple(cond.shape), generator)
+        if fused:
+            cond_emb = embed_cond_f32(model, cond)
+
+            def model_fn(x, t):
+                return posenet_apply_fused(model, x, cond, t, cond_emb=cond_emb)
+        else:
+            def model_fn(x, t):
+                return model(x, cond, t)
+
+        return p_sample_loop(model_fn, sched, tuple(cond.shape), generator, guidance=guidance,
+                             early_stop_steps=early_stop_steps)
 
     return sample
