@@ -61,7 +61,7 @@ Phases (each failure ends the run with a non-zero exit code):
      shipped amass_occ_leg_noise_3.yaml, on a synthetic AMASS test tree
      (3 x 11 sequences of 149 frames) and the real-size synthetic SMPL-X
      file, one batch of 32 clips with fused_posenet "f32", loading the
-     checkpoint phase 6 trained, and one with "int8qa", then
+     checkpoint phase 6 trained, and one each with "int8qa" and "int8", then
      `eval_amass_full.main` on each pickle. Checks the launch counts, the
      pickle's keys, shapes and finiteness.
   7b. video: `rohm_tpu_torch.cli.test_prox_egobody.main` at full width with
@@ -93,6 +93,17 @@ Phases (each failure ends the run with a non-zero exit code):
      TrajNet), the results, the pickle's keys, shapes and finiteness, and
      times each CLI's chain per batch; then `forward_vertices` at 10475
      vertices against the CPU, timed on 32 x 144 frames and on one.
+  7d. data-parallel and bf16: `test_amass_full.main --data_parallel=True
+     --fused_posenet=int8` through the CLI's own start-up (one card: a
+     mesh of one rank on NCCL), bit for bit phase 7's single-process int8
+     run with the same launch counts; two gloo ranks on cuda:0 (spawned
+     processes, 16 clips each) for one guided RohmPipeline(mesh=) batch of
+     phase 5's slice in int8qa, within phase 5's int8qa envelope of the
+     single-process batch, and for one --fused_train=bfloat16 optimizer
+     step on 64 clips, its gradients and parameters against the
+     single-process step's; then train_posenet and train_trajnet with
+     --model_dtype=bfloat16 (plain path, 4 steps each on phase 6's small
+     tree), their ms per step beside phase 6's and 6b's float32 ones.
   8. bench: the int8 measurement path at full width. The whole-stack
      kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
      random PoseNet(): bit-identical to the 8-layer K3 chain (whose
@@ -108,7 +119,7 @@ Phases (each failure ends the run with a non-zero exit code):
      `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
      Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-8, 7b and 7c included; card_ms and library_card_ms: the time on the
+paths' runs of phases 5-8, 7b, 7c and 7d included (every rank's); card_ms and library_card_ms: the time on the
 card alone with a cold L2); the last line is {"ok": true, "device":
 {...}}.
 """
@@ -243,13 +254,18 @@ def read_launches() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def device_phase() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: chip_smoke.py measures the GPU and has no CPU fallback")
-    smi = subprocess.run(
+def gpu_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def device_phase() -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py measures the GPU and has no CPU fallback")
+    smi = gpu_name_and_limit()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(smi)
@@ -1846,14 +1862,24 @@ def write_smplx_npz(path: Path, seed: int) -> None:
     )
 
 
+def cli_argv(work: Path, body_path: Path, mode: str, ckpts: dict, seed: int) -> list:
+    """test_amass_full's flags for one batch of 32 clips at full width."""
+    return [
+        "--config=cfg_files/test_cfg/amass_occ_leg_noise_3.yaml", "--synthetic_data=True",
+        f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}",
+        "--batch_size=32", "--max_batches=1", "--load_noise=False", f"--fused_posenet={mode}",
+        *[f"--model_path_{net}={path}" for net, path in ckpts.items()], f"--seed={seed}", "--device=0",
+    ]
+
+
 def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ckpts: dict) -> dict:
     """`test_amass_full.main` at full width on a synthetic AMASS test tree
     (3 datasets x 11 sequences of 149 frames: 33 clips) with a real-size
     synthetic SMPL-X file, one batch of 32 clips in each of "f32" (PoseNet
     loaded from `posenet_ckpt`, the training phase's checkpoint, and its
     run directory's stats; TrajNet and TrajControl from `traj_ckpts`, phase
-    6b's) and "int8qa" (random weights), then `eval_amass_full.main` on
-    each pickle."""
+    6b's), "int8qa" and "int8" (random weights), then `eval_amass_full.main`
+    on each pickle."""
     from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
     from rohm_tpu_torch.cli.common import AMASS_TEST_DATASETS
     from rohm_tpu_torch.data import write_synthetic_amass
@@ -1866,17 +1892,13 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ck
     launches = dict.fromkeys(KERNELS, 0)
     out = {}
     trained = {"posenet": posenet_ckpt, "trajnet": traj_ckpts["vanilla"], "trajnet_control": traj_ckpts["trajcontrol"]}
-    for mode, ckpts in (("f32", trained), ("int8qa", dict.fromkeys(trained, ""))):
+    for mode, ckpts in (("f32", trained), ("int8qa", dict.fromkeys(trained, "")),
+                        ("int8", dict.fromkeys(trained, ""))):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pkl, timing = test_amass_full.run([
-            "--config=cfg_files/test_cfg/amass_occ_leg_noise_3.yaml", "--synthetic_data=True",
-            f"--dataset_root={work / 'amass'}", f"--body_model_path={body_path}",
-            "--batch_size=32", "--max_batches=1", "--load_noise=False", f"--fused_posenet={mode}",
-            *[f"--model_path_{net}={path}" for net, path in ckpts.items()],
-            f"--save_root={work / ('results_' + mode)}", f"--seed={seed}", "--device=0",
-        ])
+        pkl, timing = test_amass_full.run(cli_argv(work, body_path, mode, ckpts, seed)
+                                          + [f"--save_root={work / ('results_' + mode)}"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_launches()
@@ -1906,7 +1928,7 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ck
         metrics = eval_amass_full.main([f"--saved_data_path={pkl}"])
         if not np.isfinite(metrics["mpjpe_global_mm"]):
             raise AssertionError("non-finite MPJPE")
-        out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics}
+        out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "pickle": pkl, "counts": counts}
     return {"launches": launches, "runs": out}
 
 
@@ -2276,6 +2298,245 @@ def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, 
 
 
 # ---------------------------------------------------------------------------
+# phase 7d: data parallelism and the bf16 compute dtype
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2  # the two-rank runs share cuda:0 (gloo: NCCL refuses two ranks on one card)
+DP_LR = 1e-4  # posenet_train_stage1.yaml
+DP_DEADLINE_S = 600  # each two-rank run of this script ends within this, or fails
+STAGE1_WEIGHTS = {  # posenet_train_stage1.yaml's loss weights
+    "weight_loss_rec_repr_full_body": 1.0, "weight_loss_repr_foot_contact_mse": 1.0,
+    "weight_loss_joint_pos_global": 100.0, "weight_loss_joint_vel_global": 1000.0,
+    "weight_loss_joint_smooth": 0.0, "weight_loss_foot_skating": 0.1,
+}
+# the bf16 training mode's gradient gate of the CPU parity tests
+# (tests/test_torch_train_grads.py), as a fraction of each tensor's largest entry
+DP_GRAD_GATE = 1e-2
+# after one AdamW step, the parameters whose single-process gradient is above
+# DP_SURE of its tensor's largest entry (10x the gradient gate, so the sign
+# cannot flip) agree to DP_PARAM_GATE lr: AdamW's first step moves an entry by
+# lr * g / (|g| + eps), about lr times the sign of g whatever its size
+DP_SURE = 10 * DP_GRAD_GATE
+DP_PARAM_GATE = 1e-3
+BF16_STEPS = 4  # --num_steps of each --model_dtype=bfloat16 run
+
+
+def dp_inputs(seed: int, batches: int) -> tuple:
+    """Full-width models from `seed` (TrajNet, TrajControl mid_dim 512,
+    PoseNet 512d x 8), the synthetic body, and `batches` batches of 32
+    clips (clean and noisy reprs, normalized) with their stats; every rank
+    builds the same."""
+    dev = "cuda"
+    torch.manual_seed(seed)
+    models = (TrajNet(traj_feat_dim=13, cond_dim=13, mid_dim=512).to(dev),
+              TrajNet(traj_feat_dim=13, cond_dim=13, mid_dim=512, trajcontrol=True).to(dev),
+              PoseNet(latent_dim=D, ff_size=F, num_layers=LAYERS, num_heads=H).to(dev))
+    body = synthetic_model(num_verts=10475, seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    pairs = [make_batch(body, rng) for _ in range(batches)]
+    mean, std = compute_stats(torch.cat([c for c, _ in pairs]).cpu().numpy())
+    mean_t, std_t = torch.from_numpy(mean).to(dev), torch.from_numpy(std).to(dev)
+    clean = torch.cat([(c - mean_t) / std_t for c, _ in pairs])
+    noisy = torch.cat([(n - mean_t) / std_t for _, n in pairs])
+    return models, body, mean_t, std_t, clean, noisy
+
+
+def dp_pipeline_batch(mesh, seed: int) -> dict:
+    """One guided batch of phase 5's slice (32 clips, 100 + 1000 steps, 2
+    iterations) through RohmPipeline(mesh=) in int8qa, from a generator
+    seeded the same on every rank; None: one process."""
+    (trajnet, trajcontrol, posenet), body, mean, std, clean, noisy = dp_inputs(seed, 1)
+    pipe = RohmPipeline(
+        trajnet=trajnet, trajcontrol=trajcontrol, posenet=posenet,
+        sched_traj=make_schedule("cosine", 100, device="cuda"), sched_pose=make_schedule("cosine", 1000, device="cuda"),
+        body_model=body, mean=mean, std=std, repr_abs_only=True, traj_feat_dim=13, sample_iter=2,
+        grad_type="amass", mask_scheme="lower", input_noise=True, iter2_cond_noisy_pose=True,
+        iter2_cond_noisy_traj=True, fused_posenet="int8qa", mesh=mesh)
+    abs_index = torch.as_tensor(TRAJ_ABS_INDEX, device="cuda").long()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose, traj = pipe.run_batch(noisy[..., abs_index], clean, noisy, amass_eval_pose_mask("lower", B, S - 1),
+                                np.ones((B, S), np.float32), torch.Generator(device="cuda").manual_seed(seed + 300))
+    torch.cuda.synchronize()
+    return {"pose": pose.cpu().numpy(), "traj": traj.cpu().numpy(), "seconds": time.perf_counter() - t0,
+            "launches": read_launches()}
+
+
+def dp_train_step(mesh, seed: int, ref_path: str | None = None) -> dict:
+    """One PoseNet optimizer step with --fused_train=bfloat16 on 64 clips of
+    144 frames (the stage-1 loss weights, skating on), t, noise and the
+    dropout masks from a generator seeded the same on every rank; this
+    rank's rows under a mesh. With `ref_path` (the single-process step's
+    gradients and parameters, saved by torch.save) returns the largest
+    differences from it; else saves them there."""
+    from rohm_tpu_torch.parallel import shard_batch
+    from rohm_tpu_torch.train.state import create_train_state
+    from rohm_tpu_torch.train.steps import make_posenet_train_step
+
+    (_, _, posenet), body, mean, std, clean, noisy = dp_inputs(seed, TB // B)
+    step = make_posenet_train_step(posenet, make_schedule("cosine", 1000, device="cuda"), mean, std, body,
+                                   STAGE1_WEIGHTS, "bfloat16", mesh)
+    state = create_train_state(posenet, DP_LR, 0.0)
+    batch = shard_batch({"motion_repr_clean": clean, "cond": noisy}, mesh)
+    reset_launches()
+    _, losses = step(state, batch, torch.Generator(device="cuda").manual_seed(seed + 400), torch.tensor(1.0, device="cuda"))
+    torch.cuda.synchronize()
+    out = {"launches": read_launches(), "loss": float(losses["loss"])}
+    got = {n: (p.grad.detach(), p.detach()) for n, p in posenet.named_parameters()}
+    if ref_path is None:
+        return {**out, "state": {n: (g.cpu(), p.cpu()) for n, (g, p) in got.items()}}
+    ref = torch.load(ref_path)
+    grad_err = max(((g.cpu() - ref[n][0]).abs().max() / ref[n][0].abs().max()).item() for n, (g, _) in got.items())
+    param_err, covered, total = 0.0, 0, 0
+    for n, (_, p) in got.items():
+        g_ref, p_ref = ref[n]
+        sure = g_ref.abs() > DP_SURE * g_ref.abs().max()
+        off = (p.cpu() - p_ref).abs() - 2**-22 * p_ref.abs()  # float32 rounding of the parameter allowed
+        param_err = max(param_err, off[sure].max().item() / DP_LR if sure.any() else 0.0)
+        covered, total = covered + int(sure.sum()), total + p_ref.numel()
+    return {**out, "grad_err": grad_err, "param_err": param_err, "param_covered": covered / total}
+
+
+def bf16_train_timing(seed: int, work: Path, body_path: Path) -> dict:
+    """train_posenet and train_trajnet with --model_dtype=bfloat16 on the
+    plain path (no kernel), BF16_STEPS steps at full width on phase 6's
+    small tree, then the ms per optimizer step on a batch of 64 as phase 6
+    and 6b time it (time_steps) and the device's busy share over 5."""
+    from rohm_tpu_torch.cli import train_posenet, train_trajnet
+
+    out = {}
+    for net, cli, yaml in (("posenet", train_posenet, "posenet_train_stage1.yaml"),
+                           ("trajnet", train_trajnet, "trajnet_train_vanilla_stage1.yaml")):
+        reset_launches()
+        loop = cli.main([
+            f"--config=cfg_files/train_cfg/{yaml}", f"--dataset_root={work / TRAIN_TREES['small'][0]}",
+            f"--body_model_path={body_path}", f"--save_dir={work / ('runs_bf16_' + net)}",
+            f"--num_steps={BF16_STEPS}", "--log_interval=1000000000", "--save_interval=1000000000",
+            f"--seed={seed}", "--device=0", "--model_dtype=bfloat16",
+        ])
+        counts = read_launches()
+        losses = {k: float(v) for k, v in loop.last_losses.items()}
+        if loop.model.dtype != torch.bfloat16 or loop.step != BF16_STEPS or any(counts.values()):
+            raise AssertionError(f"the bf16 {net} run: dtype {loop.model.dtype}, {loop.step} steps, launches {counts}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses in the bf16 {net} run: {losses}")
+        batch = next(loop.train_dataset.batches(TB, seed=123))
+        if net == "posenet":
+            sb = {"motion_repr_clean": loop._to_device(batch["motion_repr_clean"]),
+                  "cond": loop._to_device(loop._make_cond(batch, 0))}
+            skating = torch.tensor(1.0, device="cuda")
+
+            def step():
+                loop.train_step(loop.state, sb, loop.generator, skating)
+        else:
+            sb = loop.step_batch(batch, 0)
+
+            def step():
+                loop.train_step(loop.state, sb, loop.generator)
+
+        step_ms, peak, _ = time_steps(step)
+        busy = device_busy(step, 5, f"train_{net} --model_dtype=bfloat16 optimizer steps", "dp")
+        out[net] = {"step_ms": step_ms, "busy": busy, "peak_bytes": peak, "loss": losses["loss"]}
+        del loop
+        torch.cuda.empty_cache()
+    return out
+
+
+def data_parallel_phase(seed: int, work: Path, body_path: Path, cli: dict, train: dict, trajtrain: dict) -> dict:
+    """--data_parallel and --model_dtype=bfloat16 at full width:
+    test_amass_full --data_parallel=True through the CLI's own start-up (a
+    mesh of one rank on NCCL) against phase 7's int8 run; two gloo ranks on
+    cuda:0 for one guided RohmPipeline(mesh=) batch in int8qa and one
+    --fused_train=bfloat16 optimizer step, each against the single-process
+    run; the bf16 train CLIs' ms per step beside phase 6's and 6b's f32
+    ones. Returns the launches of the runs on the main path (every rank)."""
+    import torch.distributed as dist
+
+    from rohm_tpu_torch.cli import test_amass_full
+    from rohm_tpu_torch.parallel import spawn
+
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # the CLI's own start-up: one card, so a mesh of one rank (NCCL)
+    ckpts = dict.fromkeys(("posenet", "trajnet", "trajnet_control"), "")
+    reset_launches()
+    pkl, _ = test_amass_full.run(cli_argv(work, body_path, "int8", ckpts, seed)
+                                 + [f"--save_root={work / 'results_dp'}", "--data_parallel=True"])
+    counts = read_launches()
+    add(counts)
+    ref_pkl, ref_counts = cli["runs"]["int8"]["pickle"], cli["runs"]["int8"]["counts"]
+    with open(pkl, "rb") as f, open(ref_pkl, "rb") as g:
+        got, ref = pickle.load(f), pickle.load(g)
+    same = sorted(got) == sorted(ref) and all(
+        np.array_equal(got[k], ref[k]) if isinstance(ref[k], np.ndarray) else got[k] == ref[k] for k in ref)
+    log(f"[dp] test_amass_full --data_parallel=True --fused_posenet=int8 (a mesh of 1 rank, NCCL): pickle "
+        f"{'bit-identical to' if same else 'DIFFERENT from'} phase 7's single-process int8 run; launches {counts}")
+    if not same or counts != ref_counts or Path(pkl).name != Path(ref_pkl).name or dist.is_initialized():
+        raise AssertionError("the one-rank data-parallel CLI run is not the single-process run")
+
+    # two ranks on cuda:0: one guided pipeline batch in int8qa
+    single = dp_pipeline_batch(None, seed)
+    devices = [torch.device("cuda", 0)] * DP_RANKS
+    t0 = time.perf_counter()
+    ranks = spawn(dp_pipeline_batch, DP_RANKS, (seed,), devices=devices, backend="gloo", deadline_s=DP_DEADLINE_S)
+    atol, mean_tol = POSENET_ENVELOPES["int8qa"]
+    for r, res in enumerate(ranks):
+        add(res["launches"])
+        err = np.abs(res["pose"] - single["pose"])
+        terr = np.abs(res["traj"] - single["traj"])
+        log(f"[dp] RohmPipeline(mesh=) int8qa, rank {r} of {DP_RANKS} on cuda:0 (16 of 32 clips, guided, "
+            f"2 x (100 + 1000) steps): pose vs the single-process batch max {err.max():.3e} mean {err.mean():.3e}, "
+            f"traj max {terr.max():.3e} mean {terr.mean():.3e} (gate: phase 5's int8qa envelope, max {atol}, "
+            f"mean {mean_tol}); {res['seconds']:.2f} s; launches {res['launches']}")
+        if not (err.max() < atol and err.mean() < mean_tol and terr.max() < atol and terr.mean() < mean_tol):
+            raise AssertionError("the two-rank pipeline batch strays from the single-process batch")
+        if res["launches"] != expected_launches({"int8qa": 1}):
+            raise AssertionError("a rank's pipeline batch did not go through its kernels as the chain implies")
+    if not np.array_equal(ranks[0]["pose"], ranks[1]["pose"]):
+        raise AssertionError("the ranks returned different global batches")
+    out["pipeline"] = {"single_s": single["seconds"], "ranks_s": [r["seconds"] for r in ranks],
+                       "spawn_s": time.perf_counter() - t0}
+
+    # two ranks on cuda:0: one --fused_train=bfloat16 optimizer step
+    ref = dp_train_step(None, seed)
+    ref_path = work / "dp_train_ref.pt"
+    torch.save(ref.pop("state"), ref_path)
+    ranks = spawn(dp_train_step, DP_RANKS, (seed, str(ref_path)), devices=devices, backend="gloo",
+                  deadline_s=DP_DEADLINE_S)
+    for r, res in enumerate(ranks):
+        add(res["launches"])
+        log(f"[dp] --fused_train=bfloat16 optimizer step, rank {r} of {DP_RANKS} (32 of 64 clips): loss "
+            f"{res['loss']:.6f} (single process {ref['loss']:.6f}); gradients within {res['grad_err']:.3e} of each "
+            f"tensor's largest entry (gate {DP_GRAD_GATE}), parameters after AdamW within {res['param_err']:.3e} lr "
+            f"(gate {DP_PARAM_GATE} lr) on the {res['param_covered']:.3f} of entries whose gradient is above "
+            f"{DP_SURE} of its tensor's largest; launches {res['launches']}")
+        if not (res["grad_err"] <= DP_GRAD_GATE and res["param_err"] <= DP_PARAM_GATE and res["param_covered"] > 0
+                and abs(res["loss"] - ref["loss"]) <= 1e-3 * abs(ref["loss"])):
+            raise AssertionError("the two-rank training step strays from the single-process step")
+        if res["launches"] != expected_train_launches("bfloat16", 1):
+            raise AssertionError("a rank's training step did not go through its kernels as the chain implies")
+    out["train_step"] = {r: {k: res[k] for k in ("loss", "grad_err", "param_err", "param_covered")}
+                         for r, res in enumerate(ranks)}
+
+    # --model_dtype=bfloat16, the plain path
+    out["bf16"] = bf16_train_timing(seed, work, body_path)
+    f32 = {"posenet": train["runs"][""]["step_ms"], "trajnet": trajtrain["runs"]["vanilla"]["step_ms"]}
+    for net, res in out["bf16"].items():
+        log(f"[dp] train_{net} --model_dtype=bfloat16 (plain path): {res['step_ms']:.2f} ms per optimizer step "
+            f"(batch {TB} x 144, host clock, median of 10), peak memory {res['peak_bytes'] / 2**30:.2f} GiB, "
+            f"device busy {res['busy']:.3f}; float32 in this run (phase {'6' if net == 'posenet' else '6b'}): "
+            f"{f32[net]:.2f} ms ({gpu_name_and_limit()})")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the int8 measurement path (K5, the bench chain, K8, K9)
 # ---------------------------------------------------------------------------
 
@@ -2526,6 +2787,7 @@ def main(argv=None) -> None:
     cli = cli_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     video = video_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     single = single_net_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
+    dp = data_parallel_phase(args.seed, work, body_path, cli, train, trajtrain)
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
@@ -2539,7 +2801,7 @@ def main(argv=None) -> None:
         st = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, single, bench)),
+            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, single, dp, bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
             "library_ms": st["library_ms"], "card_ms": st["card_ms"], "library_card_ms": st["library_card_ms"],

@@ -15,6 +15,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -22,8 +23,17 @@ import torch
 from rohm_tpu_torch.body.model import SmplxModel, load_smplx_npz, synthetic_model
 from rohm_tpu_torch.data.amass import AmassClipDataset, load_noise_dict
 from rohm_tpu_torch.models import PoseNet, TrajNet
+from rohm_tpu_torch.parallel.mesh import (
+    DataMesh,
+    barrier,
+    broadcast_object,
+    data_parallel_mesh,
+    launched,
+    spawn,
+)
 from rohm_tpu_torch.reprs.stats import save_stats
 from rohm_tpu_torch.utils.convert_flax import posenet_state_dict, trajnet_state_dict
+from rohm_tpu_torch.utils.runlog import make_logdir, save_params_json, setup_logger
 
 log = logging.getLogger("rohm_tpu_torch.cli")
 
@@ -81,6 +91,73 @@ def resolve_device(spec) -> torch.device:
             f"({torch.cuda.device_count()} visible); pass --device=cpu to run on the CPU"
         )
     return torch.device("cuda", index)
+
+
+def _run_rank(mesh: DataMesh, body, args):
+    """One spawned rank of run_data_parallel. What crosses back must
+    pickle: a train loop comes back as its run directory."""
+    out = body(args, mesh)
+    return getattr(out, "logdir", out)
+
+
+def run_data_parallel(body, args):
+    """--data_parallel=True: run `body(args, mesh)` as one rank of a
+    data-parallel job and return rank 0's result.
+
+    - Under a launcher that set the torchrun variables (RANK, WORLD_SIZE,
+      LOCAL_RANK, MASTER_ADDR, MASTER_PORT) this process joins that group,
+      on cuda:LOCAL_RANK (the CPU with --device=cpu).
+    - Otherwise, with more than one card visible and no --device=cpu, it
+      starts one process per card itself (parallel.spawn, a rendezvous on
+      localhost) and returns rank 0's result (a train loop's run directory).
+    - Otherwise the job is this one process: a group of one rank on
+      --device, which runs the same code path as a larger mesh.
+    """
+    cpu = str(args.device).lower() == "cpu"
+    if launched():
+        device = "cpu" if cpu else torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    elif not cpu and torch.cuda.device_count() > 1:
+        return spawn(_run_rank, torch.cuda.device_count(), (body, args))[0]
+    else:
+        device = resolve_device(args.device)
+    mesh = data_parallel_mesh(device)
+    try:
+        return body(args, mesh)
+    finally:
+        mesh.close()
+
+
+@contextmanager
+def rank_zero_first(mesh: DataMesh | None):
+    """Run the block on rank 0 first, then on the other ranks, so what it
+    writes (a synthetic tree, the derived-array caches, the stats) is in
+    place before they read it."""
+    if mesh is not None and mesh.rank != 0:
+        barrier(mesh)
+    yield
+    if mesh is not None and mesh.rank == 0:
+        barrier(mesh)
+
+
+def open_run_dir(args, mesh: DataMesh | None):
+    """A train CLI's run directory: (logdir, logger, TensorBoard writer or
+    None). Rank 0 makes `<save_dir>/<id>/` with params.json and the run
+    log and tells the other ranks its path; they write nothing there and
+    log nowhere."""
+    if mesh is not None and mesh.rank != 0:
+        return broadcast_object(None, mesh), logging.getLogger(f"rohm_tpu_torch.rank{mesh.rank}"), None
+    logdir = make_logdir(args.save_dir)
+    broadcast_object(logdir, mesh)
+    logger = setup_logger(logdir)
+    save_params_json(logdir, args)
+    logger.info("RUNDIR: %s", logdir)
+    try:
+        from tensorboardX import SummaryWriter
+
+        writer = SummaryWriter(log_dir=logdir)
+    except ImportError:
+        writer = None
+    return logdir, logger, writer
 
 
 def resolve_body_model(body_model_path: str, device, gender: str = "neutral") -> SmplxModel:
@@ -149,6 +226,19 @@ def _seeded(make, seed: int | None):
         return make()
 
 
+MODEL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def model_dtype(args) -> torch.dtype:
+    """--model_dtype: the compute dtype of PoseNet and TrajNet, float32 by
+    default (rohm_tpu/cli/common.py:48-55). Parameters, checkpoints and
+    the GroupNorm/LayerNorm statistics stay float32 in either."""
+    name = getattr(args, "model_dtype", None) or "float32"
+    if name not in MODEL_DTYPES:
+        raise ValueError(f"--model_dtype={name!r}: expected one of {sorted(MODEL_DTYPES)}")
+    return MODEL_DTYPES[name]
+
+
 def build_trajnet(args, traj_feat_dim: int, trajcontrol: bool = False,
                   seed: int | None = None) -> TrajNet:
     """Hyperparameters as constructed by the reference entry scripts
@@ -160,6 +250,7 @@ def build_trajnet(args, traj_feat_dim: int, trajcontrol: bool = False,
         mid_dim=getattr(args, "mid_dim", None) or 512,
         time_dim=32,
         trajcontrol=trajcontrol,
+        dtype=model_dtype(args),
     ), seed)
 
 
@@ -174,6 +265,7 @@ def build_posenet(args, seed: int | None = None) -> PoseNet:
         num_layers=8,
         num_heads=4,
         dropout=0.1,
+        dtype=model_dtype(args),
     ), seed)
 
 

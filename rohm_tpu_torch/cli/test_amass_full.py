@@ -11,6 +11,13 @@ the same result pickle (keys, config-encoded filename, protocol 5). Run:
 `--device` is a CUDA index (default 0) or `cpu`; an index with no CUDA
 device raises. `--fused_posenet` False/True/bf16/int8/int8qa/f32 picks the
 PoseNet path (False: the plain module; the rest: hand-written kernels).
+
+`--data_parallel=True` splits every batch over one process per card
+(cli/common.py::run_data_parallel: alone it uses every visible card; under
+torchrun each rank joins the launcher's group): each rank runs its rows
+through the pipeline, the tail batch pads to a multiple of the ranks, and
+rank 0 writes the same pickle as a single-process run. With one card (or
+--device=cpu) it runs as a mesh of one rank.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from rohm_tpu_torch.cli.common import (
     keep_in_flight,
     load_eval_noise,
     load_or_init,
+    rank_zero_first,
     resolve_body_model,
     resolve_device,
+    run_data_parallel,
 )
 from rohm_tpu_torch.data import AmassClipDataset, write_synthetic_amass
 from rohm_tpu_torch.diffusion.schedule import make_schedule
@@ -129,25 +138,35 @@ def result_filename(args) -> str:
 def run(argv=None) -> tuple[str, dict]:
     """The whole test run; returns the result pickle's path and the
     phase-timing dict (seconds) that it also prints."""
-    _phase = PhaseTimer()
     args = build_parser().parse_args(argv)
-    for flag in ("via_server", "data_parallel"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}=True is not yet ported to PyTorch")
-    device = resolve_device(args.device)
+    if args.via_server:
+        raise NotImplementedError("--via_server=True is not yet ported to PyTorch")
+    if args.data_parallel:
+        return run_data_parallel(run_rank, args)
+    return run_rank(args, None)
+
+
+def run_rank(args, mesh) -> tuple[str, dict]:
+    """`run` on parsed args, as one rank of `mesh` (None: one process)."""
+    _phase = PhaseTimer()
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None and args.batch_size % mesh.size:
+        raise ValueError(f"batch_size {args.batch_size} must divide the {mesh.size}-rank mesh")
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     body = resolve_body_model(args.body_model_path, device)
     t0 = _phase("body_model_load", t0)
 
-    if args.synthetic_data and not os.path.isdir(
-        os.path.join(args.dataset_root, "pose_data_fps_30")
-    ):
-        write_synthetic_amass(
-            args.dataset_root, body,
-            datasets={name: 1 for name in AMASS_TEST_DATASETS},
-            seq_len=args.clip_len + 4,
-        )
+    with rank_zero_first(mesh):
+        if args.synthetic_data and not os.path.isdir(
+            os.path.join(args.dataset_root, "pose_data_fps_30")
+        ):
+            write_synthetic_amass(
+                args.dataset_root, body,
+                datasets={name: 1 for name in AMASS_TEST_DATASETS},
+                seq_len=args.clip_len + 4,
+            )
 
     loaded_noise = load_eval_noise(args)
 
@@ -168,10 +187,11 @@ def run(argv=None) -> tuple[str, dict]:
     t0 = time.perf_counter()
     # twin views of the same data (reference test_amass_full.py:93-127); the
     # stats travel with the PoseNet checkpoint
-    stats_dir = amass_stats_dir(args.model_path_posenet, common_kw)
-    test_pose_dataset = AmassClipDataset(
-        split="test", task="pose", repr_abs_only=False, logdir=stats_dir, **common_kw, **noise_kw
-    )
+    with rank_zero_first(mesh):
+        stats_dir = amass_stats_dir(args.model_path_posenet, common_kw)
+        test_pose_dataset = AmassClipDataset(
+            split="test", task="pose", repr_abs_only=False, logdir=stats_dir, **common_kw, **noise_kw
+        )
     # traj view shares the pose view's preprocessed arrays (same data)
     test_traj_dataset = test_pose_dataset.view("traj", repr_abs_only=args.repr_abs_only)
     mean, std = test_pose_dataset.mean, test_pose_dataset.std
@@ -202,7 +222,7 @@ def run(argv=None) -> tuple[str, dict]:
         mask_scheme=args.mask_scheme, input_noise=args.input_noise,
         iter2_cond_noisy_pose=args.iter2_cond_noisy_pose,
         iter2_cond_noisy_traj=args.iter2_cond_noisy_traj,
-        fused_posenet=args.fused_posenet,
+        fused_posenet=args.fused_posenet, mesh=mesh,
     )
     decode_rec, decode_noisy = make_pickle_decoders(body, args.clip_len - 2)
     t0 = _phase("model_init", t0)
@@ -233,7 +253,9 @@ def run(argv=None) -> tuple[str, dict]:
             out[pickle_key[k]].append(v.cpu().numpy()[:valid])
 
     pending = []
-    batch_kw = dict(shuffle=False, drop_last=False, pad_last="bucket")
+    # the tail bucket stays divisible by the mesh (rohm_tpu/cli/test_amass_full.py:330-341)
+    batch_kw = dict(shuffle=False, drop_last=False, pad_last="bucket",
+                    pad_multiple=mesh.size if mesh is not None else 1)
     pose_batches = test_pose_dataset.batches(args.batch_size, **batch_kw)
     traj_batches = test_traj_dataset.batches(args.batch_size, **batch_kw)
     for step, (bp, bt) in enumerate(zip(pose_batches, traj_batches)):
@@ -275,6 +297,8 @@ def run(argv=None) -> tuple[str, dict]:
             traj_cond, bt["motion_repr_clean"], bp["motion_repr_noisy"],
             pose_mask, traj_mask, generator,
         )
+        if not main_rank:  # the global batch is on every rank; rank 0 writes it
+            continue
         entry = {"valid": valid}
         clean = torch.as_tensor(bp["motion_repr_clean"], device=device)
         (
@@ -297,6 +321,9 @@ def run(argv=None) -> tuple[str, dict]:
         drain(entry)
     t0 = _phase("device_wait_and_collect", t0)
 
+    pkl_path = os.path.join(args.save_root, result_filename(args))
+    if not main_rank:
+        return pkl_path, _phase.summary()
     t0 = time.perf_counter()
     os.makedirs(args.save_root, exist_ok=True)
     save_data = {
@@ -307,7 +334,6 @@ def run(argv=None) -> tuple[str, dict]:
     for k, v in out.items():
         if v:
             save_data[k] = np.concatenate(v, axis=0)
-    pkl_path = os.path.join(args.save_root, result_filename(args))
     with open(pkl_path, "wb") as f:
         # protocol 5, as the JAX package writes it; loaders are
         # protocol-agnostic (pickle.load)

@@ -15,8 +15,10 @@ The PoseNet checkpoint's directory must hold the AMASS training stats
 (AMASS_mean.pkl / AMASS_std.pkl). Checkpoints are `.npz` flax params or
 torch state_dicts (the reference's released weights). `--device` is a CUDA
 index (default 0) or `cpu`; `--fused_posenet` False/True/bf16/int8/int8qa/
-f32 picks the PoseNet path. `--data_parallel` and `--via_server` are not
-ported yet and raise.
+f32 picks the PoseNet path. `--data_parallel=True` splits every batch over
+one process per card as test_amass_full does (the 'prox' guidance takes its
+losses over the global batch); rank 0 writes the pickle. `--via_server` is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ from rohm_tpu_torch.cli.common import (
     build_trajnet,
     keep_in_flight,
     load_or_init,
+    rank_zero_first,
     resolve_body_model,
     resolve_device,
+    run_data_parallel,
 )
 from rohm_tpu_torch.data.video import VideoClipDataset
 from rohm_tpu_torch.diffusion.schedule import make_schedule
@@ -96,12 +100,21 @@ def save_dir_name(args) -> str:
 def run(argv=None) -> tuple[str, dict]:
     """The whole test run; returns the result pickle's path and the
     phase-timing dict (seconds, host clock) that it also prints."""
-    _phase = PhaseTimer()
     args = build_parser().parse_args(argv)
-    for flag in ("via_server", "data_parallel"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}=True is not yet ported to PyTorch")
-    device = resolve_device(args.device)
+    if args.via_server:
+        raise NotImplementedError("--via_server=True is not yet ported to PyTorch")
+    if args.data_parallel:
+        return run_data_parallel(run_rank, args)
+    return run_rank(args, None)
+
+
+def run_rank(args, mesh) -> tuple[str, dict]:
+    """`run` on parsed args, as one rank of `mesh` (None: one process)."""
+    _phase = PhaseTimer()
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None and args.batch_size % mesh.size:
+        raise ValueError(f"batch_size {args.batch_size} must divide the {mesh.size}-rank mesh")
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     t0 = time.perf_counter()
     body = resolve_body_model(args.body_model_path, device)
     t0 = _phase("body_model_load", t0)
@@ -113,13 +126,14 @@ def run(argv=None) -> tuple[str, dict]:
             "(reference couples them: dataloader_video.py:405-414)"
         )
 
-    test_pose_dataset = VideoClipDataset(
-        task="pose", repr_abs_only=False, body_model=body, dataset=args.dataset,
-        init_root=args.init_root, base_dir=args.dataset_root, recording_name=args.recording_name,
-        use_scene_floor_height=args.use_scene_floor_height, overlap_len=args.window_size,
-        clip_len=args.clip_len, logdir=stats_dir, device=device,
-        disk_cache_dir=os.path.join(args.dataset_root, "_repr_cache") if args.dataset_root else None,
-    )
+    with rank_zero_first(mesh):  # rank 0 writes the derived-array cache
+        test_pose_dataset = VideoClipDataset(
+            task="pose", repr_abs_only=False, body_model=body, dataset=args.dataset,
+            init_root=args.init_root, base_dir=args.dataset_root, recording_name=args.recording_name,
+            use_scene_floor_height=args.use_scene_floor_height, overlap_len=args.window_size,
+            clip_len=args.clip_len, logdir=stats_dir, device=device,
+            disk_cache_dir=os.path.join(args.dataset_root, "_repr_cache") if args.dataset_root else None,
+        )
     test_traj_dataset = test_pose_dataset.view("traj", repr_abs_only=args.repr_abs_only)
     mean, std = test_pose_dataset.mean, test_pose_dataset.std
     traj_feat_dim = test_traj_dataset.traj_feat_dim
@@ -151,7 +165,7 @@ def run(argv=None) -> tuple[str, dict]:
         input_noise=True,
         iter2_cond_noisy_pose=args.iter2_cond_noisy_pose,
         iter2_cond_noisy_traj=args.iter2_cond_noisy_traj,
-        fused_posenet=args.fused_posenet,
+        fused_posenet=args.fused_posenet, mesh=mesh,
     )
     t0 = _phase("model_init", t0)
 
@@ -191,8 +205,9 @@ def run(argv=None) -> tuple[str, dict]:
             out[k].append(t.cpu().numpy()[:v])
 
     pending = []
-    pose_batches = test_pose_dataset.batches(args.batch_size, pad_last="bucket")
-    traj_batches = test_traj_dataset.batches(args.batch_size, pad_last="bucket")
+    pad_multiple = mesh.size if mesh is not None else 1
+    pose_batches = test_pose_dataset.batches(args.batch_size, pad_last="bucket", pad_multiple=pad_multiple)
+    traj_batches = test_traj_dataset.batches(args.batch_size, pad_last="bucket", pad_multiple=pad_multiple)
     for step, (bp, bt) in enumerate(zip(pose_batches, traj_batches)):
         if args.max_batches and step >= args.max_batches:
             break
@@ -214,6 +229,8 @@ def run(argv=None) -> tuple[str, dict]:
             pose_mask, np.ones(bt["cond"].shape[:2], np.float32), generator,
             guidance_data=guidance_data,
         )
+        if not main_rank:  # the global batch is on every rank; rank 0 writes it
+            continue
         entry = {"valid": valid, "bp": bp,
                  **decode_batch(val_pose, torch.as_tensor(bp["motion_repr_noisy"], device=device))}
         keep_in_flight(pending, entry, drain)
@@ -225,6 +242,10 @@ def run(argv=None) -> tuple[str, dict]:
         drain(entry)
     t0 = _phase("device_wait_and_collect", t0)
 
+    save_dir = os.path.join(args.save_root, save_dir_name(args))
+    pkl_path = os.path.join(save_dir, f"{args.recording_name}.pkl")
+    if not main_rank:
+        return pkl_path, _phase.summary()
     save_data = {
         "repr_name_list": REPR_LIST,
         "repr_dim_dict": REPR_DIM_DICT,
@@ -243,9 +264,7 @@ def run(argv=None) -> tuple[str, dict]:
         if v:
             save_data[k] = np.concatenate(v, axis=0)
 
-    save_dir = os.path.join(args.save_root, save_dir_name(args))
     os.makedirs(save_dir, exist_ok=True)
-    pkl_path = os.path.join(save_dir, f"{args.recording_name}.pkl")
     with open(pkl_path, "wb") as f:
         pickle.dump(save_data, f, protocol=2)
     t0 = _phase("result_pickle_write", t0)

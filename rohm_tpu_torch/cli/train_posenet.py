@@ -14,7 +14,13 @@ params.json, a run_*.log, the AMASS_mean/std pickles and the checkpoints
 device raises. `--fused_train` "" trains the plain module under autograd;
 "bfloat16" / "float32" run the encoder layers through the hand-written CUDA
 forward and backward kernels with that GEMM operand mode.
-`--data_parallel` and `--model_dtype=bfloat16` are not ported and raise.
+`--model_dtype=bfloat16` runs the module in bf16 (parameters and
+checkpoints stay f32); the fused path ignores it, as in the JAX package,
+while the eval during training samples the bf16 module.
+`--data_parallel=True` splits every batch over one process per card (alone
+it uses every visible card; under torchrun each rank joins the launcher's
+group): the gradients are summed over ranks and rank 0 writes the run
+directory.
 """
 
 from __future__ import annotations
@@ -26,15 +32,18 @@ from rohm_tpu_torch.cli.common import (
     AMASS_TRAIN_DATASETS,
     build_posenet,
     load_pretrained,
+    model_dtype,
+    open_run_dir,
+    rank_zero_first,
     resolve_body_model,
     resolve_device,
+    run_data_parallel,
 )
 from rohm_tpu_torch.data import AmassClipDataset, write_synthetic_amass
 from rohm_tpu_torch.diffusion.schedule import make_schedule
 from rohm_tpu_torch.train.loop import TrainLoopPoseNet
 from rohm_tpu_torch.train.masking import build_prox_mask_bank
 from rohm_tpu_torch.utils.config import ConfigParser
-from rohm_tpu_torch.utils.runlog import make_logdir, save_params_json, setup_logger
 
 
 def build_parser() -> ConfigParser:
@@ -66,7 +75,7 @@ def build_parser() -> ConfigParser:
         p.add_argument(f"--{w}", type=float, default=d)
     p.add_argument("--start_skating_loss_epoch", type=int, default=1000)
     p.add_argument("--batch_size", type=int, default=32)
-    p.add_argument("--model_dtype", type=str, default="float32")  # bfloat16 is not ported
+    p.add_argument("--model_dtype", type=str, default="float32")  # float32 | bfloat16
     # "" (the plain module under autograd) | "bfloat16" | "float32": the
     # encoder layers through the CUDA training kernels with that GEMM dtype
     p.add_argument("--fused_train", type=str, default="")
@@ -89,40 +98,36 @@ def build_parser() -> ConfigParser:
     return p
 
 
-def main(argv=None) -> TrainLoopPoseNet:
+def main(argv=None) -> TrainLoopPoseNet | str:
+    """The training run. Returns the loop; a run that spawned one process
+    per card (`--data_parallel=True` alone on several cards) returns rank
+    0's run directory."""
     args = build_parser().parse_args(argv)
+    model_dtype(args)  # an unknown --model_dtype fails before any run directory
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel=True is not yet ported to PyTorch")
-    if args.model_dtype != "float32":
-        raise NotImplementedError(
-            f"--model_dtype={args.model_dtype} is not yet ported to PyTorch (float32 only; "
-            "--fused_train=bfloat16 runs the encoder's products in bf16)"
-        )
-    device = resolve_device(args.device)
-    logdir = make_logdir(args.save_dir)
-    logger = setup_logger(logdir)
-    save_params_json(logdir, args)
-    logger.info("RUNDIR: %s", logdir)
+        return run_data_parallel(main_rank, args)
+    return main_rank(args, None)
 
-    try:
-        from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(log_dir=logdir)
-    except ImportError:
-        writer = None
+def main_rank(args, mesh) -> TrainLoopPoseNet:
+    """`main` on parsed args, as one rank of `mesh` (None: one process)."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    logdir, logger, writer = open_run_dir(args, mesh)
+    is_main = mesh is None or mesh.rank == 0
 
     body = resolve_body_model(args.body_model_path, device)
     train_sets = AMASS_TRAIN_DATASETS if not args.debug else ["HumanEva"]
     test_sets = AMASS_TEST_DATASETS if not args.debug else ["TCDHands"]
-    if args.synthetic_data and not os.path.isdir(
-        os.path.join(args.dataset_root, "pose_data_fps_30")
-    ):
-        logger.info("generating synthetic AMASS tree at %s", args.dataset_root)
-        write_synthetic_amass(
-            args.dataset_root, body,
-            datasets={name: 2 for name in train_sets + test_sets},
-            seq_len=2 * args.clip_len + 4,
-        )
+    with rank_zero_first(mesh):
+        if args.synthetic_data and not os.path.isdir(
+            os.path.join(args.dataset_root, "pose_data_fps_30")
+        ):
+            logger.info("generating synthetic AMASS tree at %s", args.dataset_root)
+            write_synthetic_amass(
+                args.dataset_root, body,
+                datasets={name: 2 for name in train_sets + test_sets},
+                seq_len=2 * args.clip_len + 4,
+            )
 
     noise_kw = dict(
         input_noise=args.input_noise,
@@ -132,18 +137,22 @@ def main(argv=None) -> TrainLoopPoseNet:
         noise_std_smplx_betas=args.noise_std_smplx_betas,
     )
     # repr_abs_only forced False for PoseNet (reference train_posenet.py:87)
-    train_dataset = AmassClipDataset(
-        body_model=body, preprocessed_amass_root=args.dataset_root,
-        amass_datasets=train_sets, split="train", repr_abs_only=False,
-        task="pose", clip_len=args.clip_len, logdir=logdir, seed=args.seed, device=device,
-        **noise_kw,
-    )
-    test_dataset = AmassClipDataset(
-        body_model=body, preprocessed_amass_root=args.dataset_root,
-        amass_datasets=test_sets, split="test", spacing=2, repr_abs_only=False,
-        task="pose", clip_len=args.clip_len, logdir=logdir, seed=args.seed + 1, device=device,
-        **noise_kw,
-    )
+    # rank 0 first: it writes the derived-array cache and the stats that
+    # the test split reads from the run directory
+    with rank_zero_first(mesh):
+        train_dataset = AmassClipDataset(
+            body_model=body, preprocessed_amass_root=args.dataset_root,
+            amass_datasets=train_sets, split="train", repr_abs_only=False,
+            task="pose", clip_len=args.clip_len, logdir=logdir if is_main else None,
+            seed=args.seed, device=device,
+            **noise_kw,
+        )
+        test_dataset = AmassClipDataset(
+            body_model=body, preprocessed_amass_root=args.dataset_root,
+            amass_datasets=test_sets, split="test", spacing=2, repr_abs_only=False,
+            task="pose", clip_len=args.clip_len, logdir=logdir, seed=args.seed + 1, device=device,
+            **noise_kw,
+        )
 
     model = build_posenet(args, seed=args.seed)
     if args.load_pretrained_model:
@@ -173,7 +182,7 @@ def main(argv=None) -> TrainLoopPoseNet:
         input_noise=args.input_noise, start_prox_mask_epoch=args.start_prox_mask_epoch,
         start_skating_loss_epoch=args.start_skating_loss_epoch,
         mask_scheme=args.mask_scheme, prox_mask_bank=prox_bank, writer=writer,
-        seed=args.seed, run_logger=logger, save_optimizer=args.save_optimizer,
+        seed=args.seed, run_logger=logger, save_optimizer=args.save_optimizer, mesh=mesh,
         fused_train=args.fused_train,
     )
     if args.resume_from:

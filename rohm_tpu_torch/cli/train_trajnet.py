@@ -17,8 +17,11 @@ fine-tune from its checkpoint:
 
 `--device` is a CUDA index (default 0) or `cpu`; an index with no CUDA
 device raises. With `--trajcontrol`, everything outside the ControlNet
-branch is frozen (train/state.py). `--data_parallel` and
-`--model_dtype=bfloat16` are not ported and raise.
+branch is frozen (train/state.py). `--model_dtype=bfloat16` runs TrajNet in
+bf16 (parameters and checkpoints stay f32). `--data_parallel=True` splits
+every batch over one process per card (alone it uses every visible card;
+under torchrun each rank joins the launcher's group): the gradients are
+summed over ranks and rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -33,15 +36,18 @@ from rohm_tpu_torch.cli.common import (
     bootstrap_trajcontrol,
     build_trajnet,
     load_pretrained,
+    model_dtype,
+    open_run_dir,
+    rank_zero_first,
     resolve_body_model,
     resolve_device,
+    run_data_parallel,
 )
 from rohm_tpu_torch.data import AmassClipDataset, write_synthetic_amass
 from rohm_tpu_torch.diffusion.schedule import make_schedule
 from rohm_tpu_torch.train.loop import TrainLoopTrajNet
 from rohm_tpu_torch.train.state import trajcontrol_frozen_mask
 from rohm_tpu_torch.utils.config import ConfigParser
-from rohm_tpu_torch.utils.runlog import make_logdir, save_params_json, setup_logger
 
 
 def build_parser() -> ConfigParser:
@@ -78,7 +84,7 @@ def build_parser() -> ConfigParser:
     ]:
         p.add_argument(f"--{w}", type=float, default=d)
     p.add_argument("--batch_size", type=int, default=64)
-    p.add_argument("--model_dtype", type=str, default="float32")  # bfloat16 is not ported
+    p.add_argument("--model_dtype", type=str, default="float32")  # float32 | bfloat16
     p.add_argument("--debug", type=bool, default=False)
     p.add_argument("--max_infill_ratio", type=float, default=0.1)
     p.add_argument("--mask_prob", type=float, default=0.4)
@@ -99,40 +105,39 @@ def build_parser() -> ConfigParser:
     return p
 
 
-def main(argv=None) -> TrainLoopTrajNet:
+def main(argv=None) -> TrainLoopTrajNet | str:
+    """The training run. Returns the loop; a run that spawned one process
+    per card (`--data_parallel=True` alone on several cards) returns rank
+    0's run directory."""
     args = build_parser().parse_args(argv)
+    model_dtype(args)  # an unknown --model_dtype fails before any run directory
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel=True is not yet ported to PyTorch")
-    if args.model_dtype != "float32":
-        raise NotImplementedError(f"--model_dtype={args.model_dtype} is not yet ported to PyTorch (float32 only)")
-    device = resolve_device(args.device)
+        return run_data_parallel(main_rank, args)
+    return main_rank(args, None)
+
+
+def main_rank(args, mesh) -> TrainLoopTrajNet:
+    """`main` on parsed args, as one rank of `mesh` (None: one process)."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     # cuDNN runs f32 convolutions in TF32 by default, which keeps ~3 digits:
     # the U-Net trains in full f32, as the pipeline samples it
     torch.backends.cudnn.allow_tf32 = False
-    logdir = make_logdir(args.save_dir)
-    logger = setup_logger(logdir)
-    save_params_json(logdir, args)
-    logger.info("RUNDIR: %s", logdir)
-
-    try:
-        from tensorboardX import SummaryWriter
-
-        writer = SummaryWriter(log_dir=logdir)
-    except ImportError:
-        writer = None
+    logdir, logger, writer = open_run_dir(args, mesh)
+    is_main = mesh is None or mesh.rank == 0
 
     body = resolve_body_model(args.body_model_path, device)
     train_sets = AMASS_TRAIN_DATASETS if not args.debug else ["HumanEva"]
     test_sets = AMASS_TEST_DATASETS if not args.debug else ["TCDHands"]
-    if args.synthetic_data and not os.path.isdir(
-        os.path.join(args.dataset_root, "pose_data_fps_30")
-    ):
-        logger.info("generating synthetic AMASS tree at %s", args.dataset_root)
-        write_synthetic_amass(
-            args.dataset_root, body,
-            datasets={name: 2 for name in train_sets + test_sets},
-            seq_len=2 * args.clip_len + 4,
-        )
+    with rank_zero_first(mesh):
+        if args.synthetic_data and not os.path.isdir(
+            os.path.join(args.dataset_root, "pose_data_fps_30")
+        ):
+            logger.info("generating synthetic AMASS tree at %s", args.dataset_root)
+            write_synthetic_amass(
+                args.dataset_root, body,
+                datasets={name: 2 for name in train_sets + test_sets},
+                seq_len=2 * args.clip_len + 4,
+            )
 
     noise_kw = dict(
         input_noise=args.input_noise,
@@ -141,18 +146,22 @@ def main(argv=None) -> TrainLoopTrajNet:
         noise_std_smplx_trans=args.noise_std_smplx_trans,
         noise_std_smplx_betas=args.noise_std_smplx_betas,
     )
-    train_dataset = AmassClipDataset(
-        body_model=body, preprocessed_amass_root=args.dataset_root,
-        amass_datasets=train_sets, split="train", repr_abs_only=args.repr_abs_only,
-        task=args.task, clip_len=args.clip_len, logdir=logdir, seed=args.seed, device=device,
-        **noise_kw,
-    )
-    test_dataset = AmassClipDataset(
-        body_model=body, preprocessed_amass_root=args.dataset_root,
-        amass_datasets=test_sets, split="test", spacing=2,
-        repr_abs_only=args.repr_abs_only, task=args.task, clip_len=args.clip_len,
-        logdir=logdir, seed=args.seed + 1, device=device, **noise_kw,
-    )
+    # rank 0 first: it writes the derived-array cache and the stats that
+    # the test split reads from the run directory
+    with rank_zero_first(mesh):
+        train_dataset = AmassClipDataset(
+            body_model=body, preprocessed_amass_root=args.dataset_root,
+            amass_datasets=train_sets, split="train", repr_abs_only=args.repr_abs_only,
+            task=args.task, clip_len=args.clip_len, logdir=logdir if is_main else None,
+            seed=args.seed, device=device,
+            **noise_kw,
+        )
+        test_dataset = AmassClipDataset(
+            body_model=body, preprocessed_amass_root=args.dataset_root,
+            amass_datasets=test_sets, split="test", spacing=2,
+            repr_abs_only=args.repr_abs_only, task=args.task, clip_len=args.clip_len,
+            logdir=logdir, seed=args.seed + 1, device=device, **noise_kw,
+        )
 
     traj_feat_dim = train_dataset.traj_feat_dim
     model = build_trajnet(args, traj_feat_dim, args.trajcontrol, seed=args.seed)
@@ -186,7 +195,7 @@ def main(argv=None) -> TrainLoopTrajNet:
         start_infill_epoch=args.start_infill_epoch, mask_prob=args.mask_prob,
         max_infill_ratio=args.max_infill_ratio, repr_abs_only=args.repr_abs_only,
         trajcontrol=args.trajcontrol, trainable=trainable, writer=writer,
-        seed=args.seed, run_logger=logger, save_optimizer=args.save_optimizer,
+        seed=args.seed, run_logger=logger, save_optimizer=args.save_optimizer, mesh=mesh,
     )
     if args.resume_from:
         loop.restore(args.resume_from)

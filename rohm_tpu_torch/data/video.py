@@ -498,16 +498,16 @@ class VideoClipDataset:
             item["control_cond"] = noisy[:, -self.pose_feat_dim :]
         return item
 
-    def batches(self, batch_size: int, pad_last=False):
-        """Stacked batch dicts in recording order; pad_last as
-        AmassClipDataset.batches (the dict then carries '_valid'). The
+    def batches(self, batch_size: int, pad_last=False, pad_multiple: int = 1):
+        """Stacked batch dicts in recording order; pad_last and pad_multiple
+        as AmassClipDataset.batches (the dict then carries '_valid'). The
         per-item params dicts and frame names stay lists."""
         skip_keys = {"cano_smplx_params_dict", "frame_name"}
         for s in range(0, self.n_samples, batch_size):
             idx = np.arange(s, min(s + batch_size, self.n_samples))
             valid = len(idx)
             if pad_last and valid < batch_size:
-                pad_to = pad_tail_size(valid, batch_size, pad_last)
+                pad_to = pad_tail_size(valid, batch_size, pad_last, pad_multiple)
                 idx = np.concatenate([idx, np.full(pad_to - valid, idx[-1])])
             items = [self[int(i)] for i in idx]
             out = {k: np.stack([it[k] for it in items]) for k in items[0] if k not in skip_keys}

@@ -21,6 +21,7 @@ import torch
 
 from rohm_tpu_torch.diffusion.gaussian import p_mean_from_x0
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
+from rohm_tpu_torch.parallel.mesh import DataMesh, draw_rows
 
 
 @dataclass(frozen=True)
@@ -65,6 +66,7 @@ def p_sample_loop(
     early_stop_steps: int = 0,
     dtype=torch.float32,
     step_noise: torch.Tensor | None = None,
+    mesh: DataMesh | None = None,
 ) -> torch.Tensor:
     """Run the full reverse chain.
 
@@ -80,17 +82,24 @@ def p_sample_loop(
         return the last pred_x0 instead of the stochastic sample.
       step_noise: optional preset per-step noise [num_timesteps, *shape],
         indexed by internal timestep t (deterministic replay).
+      mesh: a data-parallel mesh; shape (and noise, step_noise) are this
+        rank's rows, and every draw is taken at the global batch and sliced
+        (parallel.draw_rows), so the chain is the single-process one.
 
     Returns: final sample [B, T, D] (or final pred_x0 when early stopping).
     """
     device = generator.device
+
+    def randn(shape):
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
     num_steps = sched.num_timesteps - early_stop_steps
     t_hi = sched.num_timesteps - 1
     t_lo = sched.num_timesteps - num_steps
     tmap = sched.timestep_map.tolist()
 
     if noise is None:
-        x = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        x = draw_rows(randn, shape, mesh)
     else:
         x = noise.to(device=device, dtype=dtype)
     pred_x0 = x
@@ -103,7 +112,7 @@ def p_sample_loop(
         if step_noise is not None:
             noise_t = step_noise[t].to(device=device, dtype=dtype)
         else:
-            noise_t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+            noise_t = draw_rows(randn, shape, mesh)
         if t != 0:
             x = mean + torch.exp(0.5 * log_var) * noise_t
         else:

@@ -13,6 +13,15 @@ Traps carried over from the JAX package:
 - TransformerEncoderLayer: post-LN (eps 1e-5), exact-erf gelu, written out
   by hand so each weight maps one to one
 - the positional table is computed in float32 like the reference
+
+Compute dtype (`dtype`, the JAX package's `--model_dtype`): the parameters
+stay float32; a layer that flax builds with `dtype=self.dtype` casts its
+input and its weights to that dtype and returns it. GroupNorm takes its
+statistics and its affine in float32 and returns the block dtype, the
+transformer's LayerNorms stay float32, Upsample1d adds its float32 bias to
+the product (so it returns float32) and the zero convs run in float32 on
+their input promoted to it, as flax's dtype promotion does. These are
+explicit casts, not autocast: where the values are float32 follows flax.
 """
 
 from __future__ import annotations
@@ -23,6 +32,76 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype=torch.float32) -> torch.Tensor:
+    """flax Dense(dtype=dtype): input and weight cast to dtype, the product
+    rounded to it, then the bias added in dtype (flax's `y = dot(x, w);
+    y += b`, two roundings in bfloat16; in float32 one fused call)."""
+    if dtype == torch.float32:
+        return F.linear(x.float(), weight, bias)
+    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """`dense` on an nn.Linear's weight and bias."""
+    return dense(x, lin.weight, lin.bias, dtype)
+
+
+def conv1d(conv: nn.Conv1d, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """flax Conv(dtype=dtype) on [B, C, T], with the bias added as in `linear`."""
+    if dtype == torch.float32:
+        return F.conv1d(x.float(), conv.weight, conv.bias, conv.stride, conv.padding)
+    y = F.conv1d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y + conv.bias.to(dtype)[:, None]
+
+
+def group_norm(norm: nn.GroupNorm, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """flax GroupNorm(dtype=dtype) on [B, C, T]: float32 statistics and
+    affine, the result cast to dtype."""
+    return F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias, norm.eps).to(dtype)
+
+
+# The activations below run in their input's dtype. In bfloat16 each
+# elementary step rounds to it, as the JAX package's activations (and
+# jax.nn's) do step by step; torch's fused kernel would round once. In
+# float32 they are torch's fused kernels.
+_SQRT_HALF_BF16 = float(torch.tensor(math.sqrt(0.5)).to(torch.bfloat16))
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mish, x * tanh(softplus(x)), with jax.nn.softplus
+    = max(x, 0) + log1p(exp(-|x|))."""
+    if x.dtype == torch.float32:
+        return F.mish(x)
+    return x * torch.tanh(torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs())))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=False): 0.5 * x * erfc(-x * sqrt(1/2)), the
+    constant in x's dtype."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    return 0.5 * x * torch.erfc(-x * _SQRT_HALF_BF16)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu, x * sigmoid(x), with the sigmoid as XLA expands it:
+    1 / (1 + exp(-x))."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis, as flax's attention runs it: the
+    exponentials, their sum and the quotient. The max is a constant shift,
+    so it takes no gradient."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(-1, keepdim=True).detach())
+    return e / e.sum(-1, keepdim=True)
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -62,8 +141,10 @@ class Conv1dBlock(nn.Module):
     The two Identity slots stand where the reference's Rearranges sit, so the
     state_dict keys are block.0 (conv) and block.2 (norm)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, n_groups: int = 8):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, n_groups: int = 8,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.block = nn.Sequential(
             nn.Conv1d(in_ch, out_ch, kernel_size, padding=kernel_size // 2),
             nn.Identity(),
@@ -73,18 +154,20 @@ class Conv1dBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block(x)
+        x = conv1d(self.block[0], x, self.dtype)
+        return mish(group_norm(self.block[2], x, self.dtype))
 
 
 class ResidualTemporalBlock(nn.Module):
     """Two Conv1dBlocks with a timestep embedding injected between them."""
 
     def __init__(self, in_ch: int, out_ch: int, time_dim: int | None = 32,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.blocks = nn.ModuleList([
-            Conv1dBlock(in_ch, out_ch, kernel_size),
-            Conv1dBlock(out_ch, out_ch, kernel_size),
+            Conv1dBlock(in_ch, out_ch, kernel_size, dtype=dtype),
+            Conv1dBlock(out_ch, out_ch, kernel_size, dtype=dtype),
         ])
         self.time_mlp = (
             nn.Sequential(nn.Mish(), nn.Linear(time_dim, out_ch)) if time_dim else None
@@ -94,35 +177,44 @@ class ResidualTemporalBlock(nn.Module):
     def forward(self, x: torch.Tensor, t_embed: torch.Tensor | None) -> torch.Tensor:
         out = self.blocks[0](x)
         if self.time_mlp is not None:
-            out = out + self.time_mlp(t_embed)[:, :, None]
+            out = out + linear(self.time_mlp[1], mish(t_embed), self.dtype)[:, :, None]
         out = self.blocks[1](out)
-        return out + self.residual_conv(x)
+        # an identity residual keeps x's own dtype, as in flax
+        res = x if isinstance(self.residual_conv, nn.Identity) else conv1d(self.residual_conv, x, self.dtype)
+        return out + res
 
 
 class Downsample1d(nn.Module):
     """Stride-2 conv k=3, pad 1: T even -> T/2."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv1d(dim, dim, 3, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        return conv1d(self.conv, x, self.dtype)
 
 
 class Upsample1d(nn.Module):
-    """Transposed conv k=4, stride 2, pad 1: T -> 2T."""
+    """Transposed conv k=4, stride 2, pad 1: T -> 2T. The product runs in
+    the block dtype and the float32 bias is added after it, so the output
+    is float32 whatever the dtype (flax's `y + bias`)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.ConvTranspose1d(dim, dim, 4, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        dt = self.dtype
+        y = F.conv_transpose1d(x.to(dt), self.conv.weight.to(dt), None, 2, 1)
+        return y + self.conv.bias[:, None]
 
 
 def zero_conv1x1(in_ch: int, out_ch: int) -> nn.Conv1d:
-    """1x1 conv with zero-initialized weights (ControlNet residual taps)."""
+    """1x1 conv with zero-initialized weights (ControlNet residual taps).
+    It has no compute dtype: callers run it with `conv1d` in float32."""
     conv = nn.Conv1d(in_ch, out_ch, 1)
     nn.init.zeros_(conv.weight)
     nn.init.zeros_(conv.bias)
@@ -133,9 +225,12 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention with torch MultiheadAttention's parameter
     names (in_proj_weight [3D, D], in_proj_bias [3D], out_proj)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
+        # flax divides q by sqrt(dh) rounded to the compute dtype
+        self.scale = float(torch.tensor(math.sqrt(d_model // num_heads)).to(dtype))
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -144,35 +239,42 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, probs_keep: torch.Tensor | None = None,
                 inv_keep: float = 1.0) -> torch.Tensor:
         """probs_keep: an optional [B, H, S, S] keep-mask, dropout on the
-        attention probabilities (flax's `dropout_rate`) scaled by inv_keep."""
+        attention probabilities (flax's `dropout_rate`) scaled by inv_keep.
+        Everything runs in the compute dtype, the softmax too (flax's
+        default, rounded as jax.nn.softmax rounds: `softmax`)."""
         b, s, d = x.shape
         h = self.num_heads
         dh = d // h
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        dt = self.dtype
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, dt)
         q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
-        scores = (q / math.sqrt(dh)) @ k.transpose(-1, -2)
-        probs = torch.softmax(scores, dim=-1)
+        scores = (q / self.scale) @ k.transpose(-1, -2)
+        probs = softmax(scores)
         if probs_keep is not None:
             probs = probs * (probs_keep.to(probs.dtype) * inv_keep)
         attn = probs @ v  # [b, h, s, dh]
-        return self.out_proj(attn.transpose(1, 2).reshape(b, s, d))
+        return linear(self.out_proj, attn.transpose(1, 2).reshape(b, s, d), dt)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer (eps 1e-5, exact-erf gelu). `forward` is the
     eval mode; `forward_train` applies dropout from given keep-masks."""
 
-    def __init__(self, d_model: int, num_heads: int, ff_size: int):
+    def __init__(self, d_model: int, num_heads: int, ff_size: int, dtype=torch.float32):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, num_heads)
+        self.dtype = dtype
+        self.self_attn = SelfAttention(d_model, num_heads, dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x float32 [B, S, D]: the attention and both products run in the
+        compute dtype, the residual sums and LayerNorms in float32."""
+        dt = self.dtype
         x = self.norm1(x + self.self_attn(x))
-        h = self.linear2(F.gelu(self.linear1(x), approximate="none"))
+        h = linear(self.linear2, gelu(linear(self.linear1, x, dt)), dt)
         return self.norm2(x + h)
 
     def forward_train(self, x: torch.Tensor, masks: tuple, dropout_p: float) -> torch.Tensor:
@@ -186,6 +288,7 @@ class TransformerEncoderLayer(nn.Module):
         def drop(t, m):
             return t * (m.to(t.dtype) * inv_keep)
 
+        dt = self.dtype
         x = self.norm1(x + drop(self.self_attn(x, mp, inv_keep), mo))
-        h = drop(F.gelu(self.linear1(x), approximate="none"), mh)
-        return self.norm2(x + drop(self.linear2(h), mf))
+        h = drop(gelu(linear(self.linear1, x, dt)), mh)
+        return self.norm2(x + drop(linear(self.linear2, h, dt), mf))

@@ -7,6 +7,12 @@ posenet.py:251-252, 313-314). Weights and thresholds
 (gaussian_diffusion_posenet.py:461-477): 'amass' -> foot skating 3e6 at
 t <= 50; 'prox' (PROX and EgoBody) -> 2-D keypoint reprojection 3e5 plus
 skating 1e5, both at t <= 100.
+
+Under a data-parallel mesh x holds this rank's rows and each loss is the
+global batch's: the skating loss through its global sums, the
+reprojection mean as this rank's sum over the global count (the other
+ranks' terms do not depend on these rows). Each rank then gets the
+gradient of the global loss with respect to its own rows.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 from rohm_tpu_torch.body.model import SmplxModel
 from rohm_tpu_torch.diffusion.sampler import GuidanceSpec
 from rohm_tpu_torch.models.losses import foot_skating_loss
+from rohm_tpu_torch.parallel.mesh import DataMesh
 from rohm_tpu_torch.reprs.decode import recover_from_repr
 from rohm_tpu_torch.reprs.schema import BODY_FEAT_DIM, TRAJ_FEAT_DIM_FULL, split_repr
 
@@ -38,7 +45,7 @@ def guidance_grad_mask(device, dtype=torch.float32) -> torch.Tensor:
 
 
 def skating_loss_fn(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
-                    body_model: SmplxModel) -> torch.Tensor:
+                    body_model: SmplxModel, mesh: DataMesh | None = None) -> torch.Tensor:
     """Foot-skating guidance loss on a normalized repr x [B, T, 294].
 
     Contact labels come from x itself, thresholded at 0.5 and detached; the
@@ -50,7 +57,7 @@ def skating_loss_fn(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
     contact = (dn[..., -4:] > 0.5).to(x.dtype).detach()
     j_abs = recover_from_repr(d, mode="joint_abs_traj")
     j_smpl = recover_from_repr(d, mode="smplx_params", body_model=body_model)
-    return foot_skating_loss(j_abs, contact) + foot_skating_loss(j_smpl, contact)
+    return foot_skating_loss(j_abs, contact, mesh) + foot_skating_loss(j_smpl, contact, mesh)
 
 
 def perspective_projection(points: torch.Tensor, focal_length: torch.Tensor,
@@ -81,6 +88,7 @@ def projection_2d_loss_fn(
     camera_center: torch.Tensor,  # [B, 2]
     keypoints_2d: torch.Tensor,  # [B, T, 22, 3] (u, v, confidence)
     joint_index: torch.Tensor,  # GUIDANCE_2D_JOINTS on x's device
+    mesh: DataMesh | None = None,
 ) -> torch.Tensor:
     """Confidence-weighted L1 between projected SMPL-X joints and 2-D keypoints.
 
@@ -103,14 +111,15 @@ def projection_2d_loss_fn(
     seq_len = joints.shape[-3]
     kp = keypoints_2d[:, :seq_len]
     l1 = (proj - kp[..., :2]).abs() * kp[..., 2:3]
-    return l1[..., joint_index, :].mean()
+    loss = l1[..., joint_index, :].mean()
+    return loss if mesh is None else loss / mesh.size
 
 
-def amass_guidance(mean, std, body_model) -> tuple[GuidanceSpec, ...]:
+def amass_guidance(mean, std, body_model, mesh: DataMesh | None = None) -> tuple[GuidanceSpec, ...]:
     """Guidance stack for AMASS evaluation (skating only)."""
     return (
         GuidanceSpec(
-            loss_fn=lambda x: skating_loss_fn(x, mean, std, body_model),
+            loss_fn=lambda x: skating_loss_fn(x, mean, std, body_model, mesh),
             weight=AMASS_SKATING_WEIGHT,
             t_threshold=AMASS_SKATING_T_THRESH,
             grad_mask=guidance_grad_mask(mean.device),
@@ -119,9 +128,10 @@ def amass_guidance(mean, std, body_model) -> tuple[GuidanceSpec, ...]:
 
 
 def prox_guidance(mean, std, body_model, transf_matrix, cam_r, cam_t, focal_length,
-                  camera_center, keypoints_2d) -> tuple[GuidanceSpec, ...]:
+                  camera_center, keypoints_2d, mesh: DataMesh | None = None) -> tuple[GuidanceSpec, ...]:
     """Guidance stack for PROX/EgoBody (2-D reprojection + skating); the
-    camera inverses are taken here, once per batch."""
+    camera inverses are taken here, once per batch. Under a mesh the
+    batch-leading inputs are this rank's rows."""
     mask = guidance_grad_mask(mean.device)
     cano_to_scene, cam_r_inv = camera_inverses(transf_matrix, cam_r)
     joint_index = torch.as_tensor(GUIDANCE_2D_JOINTS, device=mean.device)
@@ -129,14 +139,14 @@ def prox_guidance(mean, std, body_model, transf_matrix, cam_r, cam_t, focal_leng
         GuidanceSpec(
             loss_fn=lambda x: projection_2d_loss_fn(
                 x, mean, std, body_model, cano_to_scene, cam_r_inv, cam_t,
-                focal_length, camera_center, keypoints_2d, joint_index,
+                focal_length, camera_center, keypoints_2d, joint_index, mesh,
             ),
             weight=PROX_PROJ2D_WEIGHT,
             t_threshold=PROX_T_THRESH,
             grad_mask=mask,
         ),
         GuidanceSpec(
-            loss_fn=lambda x: skating_loss_fn(x, mean, std, body_model),
+            loss_fn=lambda x: skating_loss_fn(x, mean, std, body_model, mesh),
             weight=PROX_SKATING_WEIGHT,
             t_threshold=PROX_T_THRESH,
             grad_mask=mask,

@@ -3,7 +3,14 @@ the bridge, the foot skating term used by test-time guidance, and the
 TrajNet and PoseNet training losses (reference model/trajnet.py:278-400,
 model/posenet.py:99-193), in the normalized repr space for the repr terms
 and in metric space (after denormalization and decoding) for the
-global-joint terms."""
+global-joint terms.
+
+Under a data-parallel mesh (`mesh=`, each rank holding its rows of the
+batch) every reduction over the batch is taken over the global batch, as
+GSPMD takes it in the JAX package: the mean terms are averaged over ranks
+and the skating loss divides the global masked sum by the global mask
+count, both through `global_sum`, so every rank returns the global value
+and its gradient is this rank's share of the global gradient."""
 
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ import torch
 
 from rohm_tpu_torch.body.model import SmplxModel
 from rohm_tpu_torch.geometry.rotations import rot6d_to_rotmat, skew_angular_velocity
+from rohm_tpu_torch.parallel.mesh import DataMesh, global_sum
 from rohm_tpu_torch.reprs.decode import recover_from_repr
 from rohm_tpu_torch.reprs.schema import (
     FOOT_JOINT_INDEX,
@@ -36,6 +44,17 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a - b) ** 2
 
 
+def _global_means(loss: dict, mesh: DataMesh | None, skip: str = "loss_foot_skating") -> None:
+    """Replace each rank-local mean term of `loss` (equal row counts on every
+    rank) by the mean over ranks, in one collective; keys starting with
+    `skip` are global already."""
+    if mesh is None:
+        return
+    keys = [k for k in loss if not k.startswith(skip)]
+    means = global_sum(torch.stack([loss[k] for k in keys]), mesh) / mesh.size
+    loss.update(zip(keys, means.unbind()))
+
+
 def trajnet_losses(
     model_output: torch.Tensor,  # [B, T, 13|22] normalized
     motion_repr_clean: torch.Tensor,  # [B, T, 294] normalized
@@ -44,9 +63,11 @@ def trajnet_losses(
     body_model: SmplxModel,
     weights: dict,
     repr_abs_only: bool = True,
+    mesh: DataMesh | None = None,
 ) -> dict:
     """TrajNet loss dict; key 'loss' is the weighted total. Differentiable
-    in model_output (through the decoders and SMPL-X forward kinematics)."""
+    in model_output (through the decoders and SMPL-X forward kinematics).
+    mesh: the batch is this rank's rows; the terms are global means."""
     loss = {}
     full_rec = merge_traj_output(motion_repr_clean, model_output, repr_abs_only)
     l_all = _mse(motion_repr_clean, full_rec)
@@ -118,6 +139,7 @@ def trajnet_losses(
         loss["loss_root_pos_global_from_rel_traj"] = zero
         loss["loss_root_vel_global_from_rel_traj"] = zero
         loss["loss_root_smooth_from_rel_traj"] = zero
+    _global_means(loss, mesh)
 
     def total(term):
         return sum(loss[f"loss_{term}_from_{name}"] for name in ("abs_traj", "rel_traj", "smpl"))
@@ -137,12 +159,16 @@ def trajnet_losses(
     return loss
 
 
-def foot_skating_loss(joints: torch.Tensor, contact_gt: torch.Tensor) -> torch.Tensor:
+def foot_skating_loss(joints: torch.Tensor, contact_gt: torch.Tensor,
+                      mesh: DataMesh | None = None) -> torch.Tensor:
     """Masked mean foot speed where feet should be planted.
 
     joints [..., T, 22, 3]; contact_gt [..., T, 4] (order l_ankle/l_toe/
     r_ankle/r_toe). Mask = (speed > 0.1 m/s) AND gt contact; the mask carries
-    no gradient (reference posenet.py:154-179).
+    no gradient (reference posenet.py:154-179). Under a mesh the masked sum
+    and the mask count are both summed over ranks before the division: the
+    ranks' counts differ, so a mean of per-rank means would not be the
+    global mean.
     """
     foot = joints[..., list(FOOT_JOINT_INDEX), :]
     disp = (foot[..., 1:, :, :] - foot[..., :-1, :, :]) * FPS
@@ -152,8 +178,10 @@ def foot_skating_loss(joints: torch.Tensor, contact_gt: torch.Tensor) -> torch.T
     pos = sq > 0.0
     vel = torch.where(pos, torch.sqrt(torch.where(pos, sq, torch.ones_like(sq))), torch.zeros_like(sq))
     mask = ((vel > FOOT_SKATING_VEL_THRESH).to(vel.dtype) * contact_gt[..., :-1, :]).detach()
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return (vel * mask).sum() / denom
+    num, count = (vel * mask).sum(), mask.sum()
+    if mesh is not None:
+        num, count = global_sum(torch.stack([num, count]), mesh).unbind()
+    return num / torch.clamp(count, min=1.0)
 
 
 def posenet_losses(
@@ -165,12 +193,14 @@ def posenet_losses(
     weights: dict,
     traj_feat_dim: int = TRAJ_FEAT_DIM_FULL,
     skating_active: bool | torch.Tensor = True,
+    mesh: DataMesh | None = None,
 ) -> dict:
     """PoseNet loss dict; key 'loss' is the weighted total. Differentiable
     in model_output (through the decoders and SMPL-X forward kinematics).
 
     skating_active is the `start_skating_loss_epoch` gate (posenet.py:181-184),
-    a bool or a 0/1 tensor."""
+    a bool or a 0/1 tensor. mesh: the batch is this rank's rows; every
+    term is the global one."""
     loss = {}
     l_all = _mse(motion_repr_clean, model_output)
     loss["loss_repr_full_body"] = l_all[..., traj_feat_dim:-4].mean()
@@ -197,7 +227,8 @@ def posenet_losses(
     for name, j in j_rec.items():
         loss[f"loss_joint_smooth_from_{name}"] = (vel(vel(j)) ** 2).mean()
     for name, j in j_rec.items():
-        loss[f"loss_foot_skating_from_{name}"] = foot_skating_loss(j, contact_gt)
+        loss[f"loss_foot_skating_from_{name}"] = foot_skating_loss(j, contact_gt, mesh)
+    _global_means(loss, mesh)
 
     def total(term):
         return sum(loss[f"loss_{term}_from_{name}"] for name in j_rec)

@@ -8,6 +8,12 @@ The port of rohm_tpu/models/posenet.py (reference model/posenet.py:11-96):
 - a linear head emits the 272-d pose part; the given trajectory (first 22
   dims of the condition) is concatenated back, so the output has 294 dims.
 
+dtype (`--model_dtype`): the compute dtype of the timestep MLP, the two
+input projections and the encoder layers' products and attention; the
+positional table, the LayerNorms and the output head stay float32 (flax's
+`seq + pe` promotes the stack's input to float32, and its head runs on
+`seq[:, 1:].astype(float32)`). Parameters are float32 in every dtype.
+
 Module names follow the reference state_dict. The PE table is a
 non-persistent buffer, so it is not part of the state_dict.
 Layout: [B, T, 294]; any T. `forward` is the eval mode (no dropout, no
@@ -21,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from rohm_tpu_torch.models.blocks import TransformerEncoderLayer, transformer_pe_table
+from rohm_tpu_torch.models.blocks import TransformerEncoderLayer, linear, silu, transformer_pe_table
 from rohm_tpu_torch.reprs.schema import TRAJ_FEAT_DIM_FULL
 
 
@@ -63,8 +69,10 @@ class PoseNet(nn.Module):
         num_heads: int = 4,
         max_len: int = 5000,
         dropout: float = 0.1,
+        dtype=torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         self.traj_feat_dim = traj_feat_dim
         self.dropout = dropout
         self.latent_dim = latent_dim
@@ -77,27 +85,31 @@ class PoseNet(nn.Module):
         self.input_process = _Linear("poseEmbedding", body_feat_dim, latent_dim)
         self.input_process_cond = _Linear("poseEmbedding", body_feat_dim, latent_dim)
         self.seqTransEncoder = _Encoder(
-            TransformerEncoderLayer(latent_dim, num_heads, ff_size) for _ in range(num_layers)
+            TransformerEncoderLayer(latent_dim, num_heads, ff_size, dtype) for _ in range(num_layers)
         )
         self.output_process = _Linear("poseFinal", latent_dim, pose_feat_dim)
 
-    def timestep_token(self, t: torch.Tensor) -> torch.Tensor:
-        """t [B] int -> [B, latent] (PE lookup -> SiLU MLP)."""
-        return self.embed_timestep.time_embed(self.pe[t])
+    def timestep_token(self, t: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """t [B] int -> [B, latent] (PE lookup -> SiLU MLP) in `dtype`."""
+        te = self.embed_timestep.time_embed
+        return linear(te[2], silu(linear(te[0], self.pe[t], dtype)), dtype)
 
-    def embed_tokens(self, x_t: torch.Tensor, cond: torch.Tensor, t) -> torch.Tensor:
-        """The encoder's input [B, T+1, latent]: the timestep token, then the
-        summed x_t and cond embeddings, plus the positional table."""
+    def embed_tokens(self, x_t: torch.Tensor, cond: torch.Tensor, t, dtype=None) -> torch.Tensor:
+        """The encoder's float32 input [B, T+1, latent]: the timestep token,
+        then the summed x_t and cond embeddings (computed in `dtype`, the
+        module's by default), plus the positional table."""
+        dtype = dtype or self.dtype
         bsz, seq_len, _ = x_t.shape
         t = torch.as_tensor(t, device=x_t.device).expand(bsz)
-        emb = self.timestep_token(t)
-        h = self.input_process(x_t) + self.input_process_cond(cond)
+        emb = self.timestep_token(t, dtype)
+        h = (linear(self.input_process.poseEmbedding, x_t, dtype)
+             + linear(self.input_process_cond.poseEmbedding, cond, dtype))
         return torch.cat([emb[:, None, :], h], dim=1) + self.pe[None, : seq_len + 1, :]
 
     def output_head(self, seq: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """Drop the timestep token, project to the pose dims and put the
         condition's trajectory dims in front -> [B, T, 294]."""
-        out = self.output_process(seq[:, 1:])
+        out = self.output_process(seq[:, 1:].float())
         return torch.cat([cond[..., : self.traj_feat_dim], out], dim=-1)
 
     @torch.no_grad()
@@ -116,8 +128,10 @@ class PoseNet(nn.Module):
         4-tuple of int8 keep-masks per layer). layer_fn(layer, seq,
         layer_masks, dropout) runs one encoder layer; the default is the
         layer's own forward_train (ops.posenet_apply_train passes the
-        fused training layer)."""
-        seq = self.embed_tokens(x_t, cond, t)
+        fused training layer). With a layer_fn the embeddings run in
+        float32 whatever the module's dtype: the JAX package's fused
+        training forward takes the raw params and ignores model.dtype."""
+        seq = self.embed_tokens(x_t, cond, t, torch.float32 if layer_fn is not None else None)
         keep, layer_masks = masks
         if self.dropout > 0:
             seq = torch.where(keep, seq / (1.0 - self.dropout), 0.0)

@@ -17,6 +17,13 @@ caller hands the real per-frame visibility masks of the data.
 PoseNet runs through the hand-written Hopper kernels when `fused_posenet`
 is True/"bf16" (bf16 layers), "int8" (W8A8 layers), "int8qa" (W8A8 layers
 with quantized attention) or "f32" (f32 layers on the raw weights).
+
+Data parallelism (`mesh`, rohm_tpu/pipeline.py:147): run_batch takes the
+global batch on every rank, runs this rank's rows through both iterations
+(the PoseNet chain on this rank's card, through its mode's kernels), draws
+every noise tensor at the global shape and keeps its rows, takes the
+guidance losses over the global batch, and returns the global outputs on
+every rank. The "f32" mode refuses a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from rohm_tpu_torch.models.guidance import amass_guidance, prox_guidance
 from rohm_tpu_torch.models.losses import merge_traj_output
 from rohm_tpu_torch.models.posenet import PoseNet
 from rohm_tpu_torch.models.trajnet import TrajNet
+from rohm_tpu_torch.parallel.mesh import DataMesh, gather_rows, shard_rows
 from rohm_tpu_torch.reprs.encode import get_repr
 from rohm_tpu_torch.reprs.schema import TRAJ_FEAT_DIM_FULL, split_repr
 from rohm_tpu_torch.train.masking import UPPER_BODY_JOINTS, joint_mask_to_vec, lower_body_mask
@@ -41,6 +49,10 @@ from rohm_tpu_torch.train.masking import UPPER_BODY_JOINTS, joint_mask_to_vec, l
 PRESET_NOISE_KEYS = ("traj_init", "traj_step", "pose_init", "pose_step")
 # the per-batch inputs of the 'prox' guidance
 GUIDANCE_DATA_KEYS = ("transf_matrix", "cam_r", "cam_t", "focal_length", "camera_center", "keypoints_2d")
+# the batch axis of each preset_noise entry ([iter, (step,) B, ...]) and of
+# the guidance inputs that have one (the camera pose cam_r, cam_t has none)
+PRESET_NOISE_BATCH_AXIS = {"traj_init": 1, "traj_step": 2, "pose_init": 1, "pose_step": 2}
+GUIDANCE_BATCH_KEYS = ("transf_matrix", "focal_length", "camera_center", "keypoints_2d")
 
 
 def traj_to_pose_bridge(
@@ -139,6 +151,8 @@ class RohmPipeline:
     # bf16 layers (accuracy mode), "int8" = W8A8 layers (throughput mode),
     # "int8qa" = W8A8 layers with int8 attention, "f32" = f32 layers
     fused_posenet: bool | str = False
+    # data parallelism: this process is one rank of the mesh (parallel/)
+    mesh: DataMesh | None = None
     _prepared_posenet: dict | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -147,6 +161,9 @@ class RohmPipeline:
                 f"fused_posenet={self.fused_posenet!r}: expected False, True, 'bf16', "
                 "'int8', 'int8qa' or 'f32'"
             )
+        if self.mesh is not None and self.fused_posenet == "f32":
+            # as in the JAX package, whose f32 kernel path has no per-shard wrapper
+            raise ValueError("fused_posenet='f32' does not support a mesh; use 'bf16'/'int8'")
         if self.grad_type not in (None, "amass", "prox"):
             raise ValueError(f"grad_type={self.grad_type!r}: expected None, 'amass' or 'prox'")
         # cuDNN runs f32 convolutions in TF32 by default, which keeps ~3
@@ -176,13 +193,13 @@ class RohmPipeline:
         if self.guidance_override is not None:
             return self.guidance_override
         if self.grad_type == "amass":
-            return amass_guidance(self.mean, self.std, self.body_model)
+            return amass_guidance(self.mean, self.std, self.body_model, self.mesh)
         if self.grad_type == "prox":
             missing = [k for k in GUIDANCE_DATA_KEYS if k not in guidance_data]
             if missing:
                 raise ValueError(f"grad_type='prox' needs guidance_data with {missing}")
             return prox_guidance(self.mean, self.std, self.body_model,
-                                 *(guidance_data[k] for k in GUIDANCE_DATA_KEYS))
+                                 *(guidance_data[k] for k in GUIDANCE_DATA_KEYS), mesh=self.mesh)
         return ()
 
     def _pose_model_fn(self, cond: torch.Tensor):
@@ -254,7 +271,8 @@ class RohmPipeline:
                     return self.trajcontrol(x, c, tt, control_cond=cc)
 
             val_output_traj = p_sample_loop(
-                traj_fn, self.sched_traj, (b, t_traj, self.traj_feat_dim), generator, **traj_kw
+                traj_fn, self.sched_traj, (b, t_traj, self.traj_feat_dim), generator,
+                mesh=self.mesh, **traj_kw,
             )
             traj_rec_full = traj_to_pose_bridge(
                 val_output_traj, traj_clean, mean, std, self.body_model, self.repr_abs_only
@@ -275,7 +293,7 @@ class RohmPipeline:
 
             val_output_pose = p_sample_loop(
                 self._pose_model_fn(cond), self.sched_pose, (b, t_pose, cond.shape[-1]),
-                generator, guidance=guidance, early_stop_steps=early, **pose_kw,
+                generator, guidance=guidance, early_stop_steps=early, mesh=self.mesh, **pose_kw,
             )
         return val_output_pose, val_output_traj
 
@@ -287,7 +305,8 @@ class RohmPipeline:
         guidance_data carries the 'prox' guidance's per-batch inputs
         (GUIDANCE_DATA_KEYS: transf_matrix [B,4,4], cam_r [3,3], cam_t [3],
         focal_length [B,2], camera_center [B,2], keypoints_2d [B,T,22,3]);
-        they move to the pipeline's device once per batch."""
+        they move to the pipeline's device once per batch. Under a mesh
+        every argument is the global batch and so are the outputs."""
         dev = self.device
 
         def as_t(a):
@@ -307,7 +326,11 @@ class RohmPipeline:
         pm = as_t(pose_mask)
         if pm.dim() == 3:  # one mask for every iteration
             pm = pm.expand((self.sample_iter,) + tuple(pm.shape))
-        return self._run(
-            as_t(traj_cond), as_t(traj_clean), as_t(pose_noisy), pm, as_t(traj_mask),
-            generator, gd, pn,
-        )
+        mesh = self.mesh
+        if mesh is not None:  # this rank's rows; the mask's batch axis is 1
+            pn = {k: shard_rows(v, mesh, PRESET_NOISE_BATCH_AXIS[k]) for k, v in pn.items()}
+            gd = {k: shard_rows(v, mesh) if k in GUIDANCE_BATCH_KEYS else v for k, v in gd.items()}
+            pm = shard_rows(pm, mesh, 1)
+        rows = [shard_rows(as_t(a), mesh) for a in (traj_cond, traj_clean, pose_noisy)]
+        pose, traj = self._run(*rows, pm, shard_rows(as_t(traj_mask), mesh), generator, gd, pn)
+        return gather_rows(pose, mesh), gather_rows(traj, mesh)

@@ -12,6 +12,14 @@ dropout masks come from one torch.Generator on the training device, seeded
 like the numpy generator. Both epoch loops keep the JAX loop's extra step
 when num_steps is a multiple of the batches per epoch
 (rohm_tpu/train/loop.py:167-187).
+
+Data parallelism (`mesh`, rohm_tpu/train/loop.py:113-145): every rank
+builds the same global batch from the same loaders, curricula and numpy
+generator and keeps its rows; the steps draw at the global batch and sum
+the gradients (train/steps.py), so every rank holds the same parameters.
+The eval during training samples each rank's rows and gathers them before
+the metrics. Only rank 0 logs, writes TensorBoard and saves checkpoints,
+with a barrier after each save.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from rohm_tpu_torch.models.losses import posenet_losses, trajnet_losses
+from rohm_tpu_torch.parallel.mesh import DataMesh, barrier, gather_rows, shard_batch, shard_rows
 from rohm_tpu_torch.train.checkpoint import checkpoint_step, load_checkpoint, save_checkpoint
 from rohm_tpu_torch.train.masking import posenet_eval_cond_mask, posenet_train_cond_mask, traj_infill_mask
 from rohm_tpu_torch.train.state import TrainState, create_train_state
@@ -49,12 +58,17 @@ class _CheckpointMixin:
 
     last_losses: dict = None  # most recent train-step loss dict (tests/monitoring)
 
-    def save(self) -> str:
-        path = save_checkpoint(
-            self.logdir, self.step, self.state.model,
-            optimizer=self.state.optimizer if self.save_optimizer else None,
-        )
-        self.logger.info("[*] model saved")
+    def save(self) -> str | None:
+        """Rank 0 writes model{step:09d}.npz and returns its path (None on
+        the other ranks); every rank waits for the write."""
+        path = None
+        if self.is_main:
+            path = save_checkpoint(
+                self.logdir, self.step, self.state.model,
+                optimizer=self.state.optimizer if self.save_optimizer else None,
+            )
+            self.logger.info("[*] model saved")
+        barrier(self.mesh)
         return path
 
     def restore(self, ckpt_path: str):
@@ -74,10 +88,24 @@ class _TrainLoop(_CheckpointMixin):
     (rohm_tpu/train/loop.py:160-202, 290-329). A loop supplies
     `_train_batch(batch, epoch) -> loss dict` (one optimizer step on a
     loader batch) and `_eval_sample(batch, epoch) -> output` (the reverse
-    chain on a test batch)."""
+    chain on a test batch, this rank's rows under a mesh)."""
+
+    mesh: DataMesh | None = None
+
+    @property
+    def is_main(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _rows(self, a: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a global batch array, on the device."""
+        return self._to_device(shard_rows(a, self.mesh))
+
+    def _log(self, tag, losses, epoch):
+        if self.is_main:
+            _log_losses(self.writer, self.logger, tag, losses, self.step, epoch)
 
     def run_loop(self):
         # batches() drops a short tail, so a batch_size larger than the
@@ -87,6 +115,8 @@ class _TrainLoop(_CheckpointMixin):
             f"({len(self.train_dataset)} clips): the epoch loader would be "
             "empty and no training would happen"
         )
+        if self.mesh is not None and self.batch_size % self.mesh.size:
+            raise ValueError(f"batch_size {self.batch_size} must divide the {self.mesh.size}-rank mesh")
         steps_per_epoch = max(len(self.train_dataset) // self.batch_size, 1)
         num_epochs = self.num_steps // steps_per_epoch + 1
         for epoch in range(num_epochs):
@@ -94,7 +124,7 @@ class _TrainLoop(_CheckpointMixin):
                 losses = self._train_batch(batch, epoch)
                 self.last_losses = losses
                 if self.step % self.log_interval == 0 and self.step > 0:
-                    _log_losses(self.writer, self.logger, "train", losses, self.step, epoch)
+                    self._log("train", losses, epoch)
                     self._eval(epoch)
                 if self.step % self.save_interval == 0 and self.step > 0:
                     self.save()
@@ -106,14 +136,13 @@ class _TrainLoop(_CheckpointMixin):
     def _eval(self, epoch):
         agg, n = None, 0
         for batch in self.test_dataset.batches(self.batch_size, shuffle=False):
-            out = self._eval_sample(batch, epoch)
+            out = gather_rows(self._eval_sample(batch, epoch), self.mesh)
             losses = self.eval_loss_fn(out, self._to_device(batch["motion_repr_clean"]))
             losses = {k: float(v) for k, v in losses.items()}
             agg = losses if agg is None else {k: agg[k] + losses[k] for k in agg}
             n += 1
         if agg:
-            _log_losses(self.writer, self.logger, "eval", {k: v / n for k, v in agg.items()},
-                        self.step, epoch)
+            self._log("eval", {k: v / n for k, v in agg.items()}, epoch)
 
 
 class TrainLoopTrajNet(_TrainLoop):
@@ -146,8 +175,10 @@ class TrainLoopTrajNet(_TrainLoop):
         seed: int = 0,
         run_logger=None,
         save_optimizer: bool = False,
+        mesh: DataMesh | None = None,
     ):
         self.model = model
+        self.mesh = mesh
         self.logger = run_logger or logger
         self.save_optimizer = save_optimizer
         self.train_dataset = train_dataset
@@ -172,9 +203,10 @@ class TrainLoopTrajNet(_TrainLoop):
         mean = torch.as_tensor(train_dataset.mean, device=self.device)
         std = torch.as_tensor(train_dataset.std, device=self.device)
         self.train_step = make_trajnet_train_step(
-            model, sched_train, mean, std, body_model, loss_weights, repr_abs_only, self.traj_feat_dim
+            model, sched_train, mean, std, body_model, loss_weights, repr_abs_only, self.traj_feat_dim,
+            mesh,
         )
-        self.sampler = make_trajnet_sampler(model, sched_eval, self.traj_feat_dim)
+        self.sampler = make_trajnet_sampler(model, sched_eval, self.traj_feat_dim, mesh)
         self.eval_loss_fn = lambda out, clean: trajnet_losses(
             out, clean, mean, std, body_model, loss_weights, repr_abs_only
         )
@@ -195,12 +227,13 @@ class TrainLoopTrajNet(_TrainLoop):
         return out
 
     def _train_batch(self, batch: dict, epoch: int) -> dict:
-        self.state, losses = self.train_step(self.state, self.step_batch(batch, epoch), self.generator)
+        step_batch = shard_batch(self.step_batch(batch, epoch), self.mesh)
+        self.state, losses = self.train_step(self.state, step_batch, self.generator)
         return losses
 
     def _eval_sample(self, batch: dict, epoch: int) -> torch.Tensor:
-        cc = self._to_device(batch["control_cond"]) if self.trajcontrol else None
-        return self.sampler(self._to_device(batch["cond"]), self.generator, cc)
+        cc = self._rows(batch["control_cond"]) if self.trajcontrol else None
+        return self.sampler(self._rows(batch["cond"]), self.generator, cc)
 
 
 class TrainLoopPoseNet(_TrainLoop):
@@ -233,8 +266,10 @@ class TrainLoopPoseNet(_TrainLoop):
         run_logger=None,
         save_optimizer: bool = False,
         fused_train: str = "",
+        mesh: DataMesh | None = None,
     ):
         self.model = model
+        self.mesh = mesh
         self.logger = run_logger or logger
         self.save_optimizer = save_optimizer
         self.train_dataset = train_dataset
@@ -259,9 +294,9 @@ class TrainLoopPoseNet(_TrainLoop):
         mean = torch.as_tensor(train_dataset.mean, device=self.device)
         std = torch.as_tensor(train_dataset.std, device=self.device)
         self.train_step = make_posenet_train_step(
-            model, sched_train, mean, std, body_model, loss_weights, fused_train
+            model, sched_train, mean, std, body_model, loss_weights, fused_train, mesh
         )
-        self.sampler = make_posenet_sampler(model, sched_eval)
+        self.sampler = make_posenet_sampler(model, sched_eval, mesh=mesh)
         self.eval_loss_fn = lambda out, clean: posenet_losses(
             out, clean, mean, std, body_model, loss_weights
         )
@@ -288,11 +323,11 @@ class TrainLoopPoseNet(_TrainLoop):
             self._skating[active] = torch.tensor(float(active), device=self.device)
         skating = self._skating[active]
         step_batch = {
-            "motion_repr_clean": self._to_device(batch["motion_repr_clean"]),
-            "cond": self._to_device(self._make_cond(batch, epoch, train=True)),
+            "motion_repr_clean": self._rows(batch["motion_repr_clean"]),
+            "cond": self._rows(self._make_cond(batch, epoch, train=True)),
         }
         self.state, losses = self.train_step(self.state, step_batch, self.generator, skating)
         return losses
 
     def _eval_sample(self, batch: dict, epoch: int) -> torch.Tensor:
-        return self.sampler(self._to_device(self._make_cond(batch, epoch, train=False)), self.generator)
+        return self.sampler(self._rows(self._make_cond(batch, epoch, train=False)), self.generator)

@@ -195,7 +195,7 @@ def test_device_flag_never_moves_to_the_cpu_by_itself():
         resolve_device(str(missing))
 
 
-@pytest.mark.parametrize("flag", ["--via_server=True", "--data_parallel=True"])
+@pytest.mark.parametrize("flag", ["--via_server=True"])
 def test_unported_test_flags_raise(flag):
     from rohm_tpu_torch.cli import test_amass_full as tcli
 

@@ -220,7 +220,7 @@ def test_eval_cli_matches_jax(runs, dataset, tmp_path, capsys):
     np.testing.assert_allclose(stitched[1]["joints_rec"], stitched[0]["joints_rec"], atol=1e-4)
 
 
-@pytest.mark.parametrize("flag", ["--via_server=True", "--data_parallel=True"])
+@pytest.mark.parametrize("flag", ["--via_server=True"])
 def test_unported_test_flags_raise(flag):
     from rohm_tpu_torch.cli import test_prox_egobody as tcli
 

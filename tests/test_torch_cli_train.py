@@ -140,13 +140,6 @@ def test_the_test_cli_runs_the_trained_checkpoint(trained, tmp_path):
     assert os.path.exists(pkl)
 
 
-@pytest.mark.parametrize("flag", ["--data_parallel=True", "--model_dtype=bfloat16"])
-def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _run(tmp_path, flag)
-    assert not (tmp_path / "runs").exists()  # refused before any run directory
-
-
 def test_no_card_without_device_cpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --device=0 would train on it")

@@ -234,13 +234,6 @@ def test_backbone_and_model_together_raise(trained, tmp_path):
              f"--pretrained_model_path={latest_checkpoint(control.logdir)}", save_dir=str(tmp_path / "runs"))
 
 
-@pytest.mark.parametrize("flag", ["--data_parallel=True", "--model_dtype=bfloat16"])
-def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _run(tmp_path, VANILLA, flag)
-    assert not (tmp_path / "runs").exists()  # refused before any run directory
-
-
 def test_no_card_without_device_cpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --device=0 would train on it")
