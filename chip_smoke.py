@@ -104,6 +104,18 @@ Phases (each failure ends the run with a non-zero exit code):
      single-process step's; then train_posenet and train_trajnet with
      --model_dtype=bfloat16 (plain path, 4 steps each on phase 6's small
      tree), their ms per step beside phase 6's and 6b's float32 ones.
+  7e. serve: the resident server, as a process of its own on the card
+     (`ensure_server` on a socket in the run's scratch directory): phase
+     7's int8 `test_amass_full` argv served twice, cold and then warm (the
+     warm run must print the memo's warm hit), one --data_parallel=True
+     request, each pickle bit for bit phase 7's in-process int8 run; one
+     `eval_amass_full` request (phase 7's metrics); a bad request answered
+     with a traceback, the daemon alive; `stop`, and the daemon's process
+     gone. The daemon's per-request log lines (seconds, kernel launches as
+     the batch implies, peak device memory) are printed; served launches
+     come from that log, not from the kernels' JSON. Then the client's wall
+     time cold, warm, for phase 7's in-process run and for one `python -m
+     rohm_tpu_torch.cli.test_amass_full` process with the same argv.
   8. bench: the int8 measurement path at full width. The whole-stack
      kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
      random PoseNet(): bit-identical to the 8-layer K3 chain (whose
@@ -119,7 +131,9 @@ Phases (each failure ends the run with a non-zero exit code):
      `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
      Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-8, 7b, 7c and 7d included (every rank's); card_ms and library_card_ms: the time on the
+paths' runs of phases 5-8, 7b, 7c and 7d included (every rank's); phase
+7e's served runs launch in the daemon's process, and their launches are in
+its log lines, printed by phase 7e, not here; card_ms and library_card_ms: the time on the
 card alone with a cold L2); the last line is {"ok": true, "device":
 {...}}.
 """
@@ -130,6 +144,7 @@ import argparse
 import functools
 import json
 import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -1928,7 +1943,8 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ck
         metrics = eval_amass_full.main([f"--saved_data_path={pkl}"])
         if not np.isfinite(metrics["mpjpe_global_mm"]):
             raise AssertionError("non-finite MPJPE")
-        out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "pickle": pkl, "counts": counts}
+        out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "pickle": pkl, "counts": counts,
+                     "seconds": seconds}
     return {"launches": launches, "runs": out}
 
 
@@ -2537,6 +2553,160 @@ def data_parallel_phase(seed: int, work: Path, body_path: Path, cli: dict, train
 
 
 # ---------------------------------------------------------------------------
+# phase 7e: the resident server
+# ---------------------------------------------------------------------------
+
+SERVE_LINE = re.compile(r"\[serve\] (\w+) finished in ([\d.]+)s ok=(\w+) launches=(\{.*\}) peak_bytes=(\w+)")
+SERVE_START_S = 600  # the daemon's start-up (torch, the CUDA context, the kernel library) ends within this
+
+
+def same_pickle(path: str, ref_path: str) -> bool:
+    with open(path, "rb") as f, open(ref_path, "rb") as g:
+        got, ref = pickle.load(f), pickle.load(g)
+    return sorted(got) == sorted(ref) and all(
+        np.array_equal(got[k], ref[k]) if isinstance(ref[k], np.ndarray) else got[k] == ref[k] for k in ref)
+
+
+def _served(run: str, cmd: str, argv: list, sock: str) -> tuple:
+    """One request to the daemon: (its result, what it printed, client wall s)."""
+    import contextlib
+    import io
+
+    from rohm_tpu_torch.serve import client as sclient
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = sclient.run_cli(cmd, argv, socket_path=sock, auto_start=False)
+    seconds = time.perf_counter() - t0
+    log(f"[serve] {run}: {cmd} served in {seconds:.2f} s (client wall clock)")
+    return result, buf.getvalue(), seconds
+
+
+def _stop_daemon(sock: str, pid: int) -> bool:
+    """Stop the daemon and wait for its process to end (reaped: it is this
+    process's child); kill it if it outlives 60 s. True iff `stop` ended it."""
+    import os
+    import signal
+
+    from rohm_tpu_torch.serve import client as sclient
+
+    stopped = sclient.stop_server(sock)
+    for _ in range(600):
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0] == pid:
+                return stopped
+        except ChildProcessError:  # already reaped
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                return stopped
+        time.sleep(0.1)
+    os.kill(pid, signal.SIGKILL)
+    os.waitpid(pid, 0)
+    return False
+
+
+def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
+    """The resident server (rohm_tpu_torch/serve) at full width: a daemon on
+    the card started by `ensure_server` as a process of its own; phase 7's
+    int8 `test_amass_full` argv served twice (cold, then warm: the models,
+    the pipeline and its prepared int8 weights resident), one
+    --data_parallel=True request (a NCCL group of one, made and destroyed
+    in the daemon) and one `eval_amass_full`, each pickle held bit for bit
+    to phase 7's in-process int8 run, the metrics to its; a bad request
+    answered with a traceback, the daemon alive after it; then `stop`, and
+    the daemon's process gone. The daemon's per-request lines (seconds,
+    kernel launches, peak device memory) come from its log: a served run's
+    launches happen in the daemon, not in this process, so they are not in
+    the kernels' JSON. Last, one `python -m rohm_tpu_torch.cli.test_amass_full`
+    process with the same argv: the start-up that the daemon saves."""
+    import sys
+
+    from rohm_tpu_torch.serve import client as sclient
+
+    ckpts = dict.fromkeys(("posenet", "trajnet", "trajnet_control"), "")
+    argv = cli_argv(work, body_path, "int8", ckpts, seed)
+    ref = cli["runs"]["int8"]
+    sock, log_path = str((work / "srv.sock").resolve()), work / "server.log"
+    t0 = time.perf_counter()
+    sclient.ensure_server(sock, start_timeout=SERVE_START_S, idle_timeout=600.0, log_path=str(log_path),
+                          device="cuda")
+    start_s = time.perf_counter() - t0
+    pid = int(Path(sock + ".owner").read_text())
+    log(f"[serve] daemon pid {pid} up in {start_s:.2f} s: "
+        + "; ".join(line for line in log_path.read_text().splitlines() if "device=" in line))
+    out = {"start_s": start_s}
+    try:
+        for run, extra in (("cold", []), ("warm", []), ("data_parallel", ["--data_parallel=True"])):
+            pkl, printed, seconds = _served(run, "test_amass_full", argv + extra
+                                            + [f"--save_root={work / ('results_serve_' + run)}"], sock)
+            hit = "[test_amass_full] warm hit: reusing resident models + pipeline" in printed
+            log(f"[serve] {run}: " + "; ".join(line for line in printed.splitlines() if "timing (s)" in line))
+            same = same_pickle(pkl, ref["pickle"])
+            log(f"[serve] {run}: pickle {'bit-identical to' if same else 'DIFFERENT from'} phase 7's in-process "
+                f"int8 run; warm hit {hit}")
+            if hit != (run == "warm"):
+                raise AssertionError(f"the {run} served run {'missed' if run == 'warm' else 'hit'} the warm memo")
+            if not same:
+                raise AssertionError(f"the {run} served run is not phase 7's in-process int8 run")
+            out[run] = {"seconds": seconds, "pickle": pkl}
+        metrics, _, seconds = _served("eval", "eval_amass_full", [f"--saved_data_path={out['cold']['pickle']}"], sock)
+        if metrics.keys() != ref["metrics"].keys() or not all(
+                np.array_equal(v, ref["metrics"][k], equal_nan=True) for k, v in metrics.items()):
+            raise AssertionError(f"served eval_amass_full {metrics} differs from phase 7's {ref['metrics']}")
+        out["eval_s"] = seconds
+        try:
+            _served("bad", "eval_amass_full", [f"--saved_data_path={work / 'missing.pkl'}"], sock)
+            raise AssertionError("a bad request did not fail")
+        except RuntimeError as e:
+            if "Traceback" not in str(e) or not sclient.server_alive(sock):
+                raise AssertionError("a bad request did not come back as a traceback with the daemon alive") from e
+        log("[serve] bad request: traceback returned, daemon alive")
+    finally:
+        stopped = _stop_daemon(sock, pid)
+    if not stopped or sclient.daemon_process_exists(sock):
+        raise AssertionError("the daemon did not end on stop")
+    log(f"[serve] stop: daemon pid {pid} gone")
+
+    # the daemon's lines: one per request, in order
+    lines = [SERVE_LINE.search(line) for line in log_path.read_text().splitlines()]
+    lines = [m.groups() for m in lines if m]
+    want = {f"{fn.__name__}.{counter}": n for name, (fn, counter, _, _) in KERNELS.items()
+            if (n := ref["counts"][name])}
+    smi = gpu_name_and_limit()
+    for (cmd, secs, ok, launches, peak), run in zip(lines, ("cold", "warm", "data_parallel", "eval", "bad")):
+        launches = json.loads(launches)
+        peak_gib = int(peak) / 2**30 if peak != "None" else float("nan")
+        log(f"[serve] daemon: {run} {cmd} {float(secs):.3f} s ok={ok}, peak device memory {peak_gib:.2f} GiB, "
+            f"launches {launches} ({smi})")
+        if run in ("cold", "warm", "data_parallel") and launches != want:
+            raise AssertionError(f"the daemon's {run} run did not launch the int8 kernels as the chain implies: "
+                                 f"{launches} != {want}")
+    if [g[2] for g in lines] != ["True"] * 4 + ["False"]:
+        raise AssertionError(f"the daemon's request lines: {lines}")
+
+    # the same argv as a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rohm_tpu_torch.cli.test_amass_full", *argv,
+                           f"--save_root={work / 'results_subprocess'}"],
+                          capture_output=True, text=True, timeout=900)
+    out["subprocess_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m rohm_tpu_torch.cli.test_amass_full failed:\n{proc.stderr[-4000:]}")
+    sub_pkl = work / "results_subprocess" / Path(ref["pickle"]).name
+    same = same_pickle(str(sub_pkl), ref["pickle"])
+    log(f"[serve] client wall clock for phase 7's int8 argv (one batch of 32 clips): served cold "
+        f"{out['cold']['seconds']:.2f} s, warm {out['warm']['seconds']:.2f} s, --data_parallel=True "
+        f"{out['data_parallel']['seconds']:.2f} s; phase 7's in-process main() {ref['seconds']:.2f} s; a "
+        f"python -m subprocess {out['subprocess_s']:.2f} s (pickle {'bit-identical' if same else 'DIFFERENT'}); "
+        f"daemon start-up {start_s:.2f} s ({smi})")
+    if not same:
+        raise AssertionError("the subprocess run is not phase 7's in-process int8 run")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the int8 measurement path (K5, the bench chain, K8, K9)
 # ---------------------------------------------------------------------------
 
@@ -2788,6 +2958,7 @@ def main(argv=None) -> None:
     video = video_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     single = single_net_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     dp = data_parallel_phase(args.seed, work, body_path, cli, train, trajtrain)
+    serve_phase(args.seed, work, body_path, cli)
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")

@@ -5,9 +5,11 @@ train_trajnet.py:82-194, test_amass_full.py:77-188).
 Checkpoints: a `.npz` of flattened flax params ("/"-separated keys, the
 format rohm_tpu/cli/common.py::load_pretrained reads) is converted by
 rohm_tpu_torch/utils/convert_flax.py and loaded strictly; that is how the
-JAX package's weights come across. Any other file is a torch state_dict
-under the reference's names (its released weights), loaded directly.
-Orbax checkpoint directories are not read by the port.
+JAX package's weights come across. A `model{step:09d}` orbax directory
+(what the JAX trainers write) is read with tensorstore into the same flat
+params (train/checkpoint.py::read_orbax). Any other file is a torch
+state_dict under the reference's names (its released weights), loaded
+directly.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from rohm_tpu_torch.parallel.mesh import (
     spawn,
 )
 from rohm_tpu_torch.reprs.stats import save_stats
+from rohm_tpu_torch.train.checkpoint import read_orbax
 from rohm_tpu_torch.utils.convert_flax import posenet_state_dict, trajnet_state_dict
 from rohm_tpu_torch.utils.runlog import make_logdir, save_params_json, setup_logger
 
@@ -98,6 +101,29 @@ def _run_rank(mesh: DataMesh, body, args):
     pickle: a train loop comes back as its run directory."""
     out = body(args, mesh)
     return getattr(out, "logdir", out)
+
+
+def maybe_via_server(cmd: str, args, argv):
+    """--via_server relay: forward this CLI run (minus the flag) to the
+    resident server (rohm_tpu_torch/serve). Returns (handled, result). Call
+    it before anything touches CUDA: a relayed run makes no CUDA context in
+    the client.
+
+    Inside the daemon the environment guard short-circuits: a YAML with
+    `via_server: true` reparsed there must run locally, not relay again
+    (the daemon's socket is busy with THIS request, so the ping would time
+    out and ensure_server would start a new daemon at each level)."""
+    from rohm_tpu_torch.serve import IN_SERVER_ENV
+
+    if os.environ.get(IN_SERVER_ENV) or not getattr(args, "via_server", False):
+        return False, None
+    import sys
+
+    from rohm_tpu_torch.serve import run_cli
+    from rohm_tpu_torch.utils.config import strip_flag
+
+    fwd = strip_flag(list(argv if argv is not None else sys.argv[1:]), "--via_server")
+    return True, run_cli(cmd, fwd)
 
 
 def run_data_parallel(body, args):
@@ -324,21 +350,18 @@ def load_pretrained(model: torch.nn.Module, path: str) -> None:
     random init would produce garbage metrics with rc=0); keys the model
     does not use are ignored. The route follows what `path` is: a `*.npz`
     file holds flattened flax params (the port's and the JAX package's
-    training checkpoints); any other file is a torch state_dict (the
-    reference's released weights, named without an extension in the
-    shipped YAMLs); a directory (an orbax checkpoint) is refused."""
+    training checkpoints); a directory is an orbax checkpoint of the JAX
+    trainers, read into the same flat params (needs tensorstore); any other
+    file is a torch state_dict (the reference's released weights, named
+    without an extension in the shipped YAMLs)."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"checkpoint {path!r} is a directory: the port reads flattened flax params "
-            "saved as .npz ('/'-separated keys, e.g. np.savez(path, **flax.traverse_util."
-            "flatten_dict(params, sep='/'))) or a torch state_dict file; orbax checkpoint "
-            "directories are not read"
-        )
-    if not path.endswith(".npz"):
+        flat = read_orbax(path)
+    elif not path.endswith(".npz"):
         _load_torch_state_dict(model, path)
         return
-    with np.load(path) as z:
-        flat = dict(z)
+    else:
+        with np.load(path) as z:
+            flat = dict(z)
     try:
         if isinstance(model, PoseNet):
             sd = posenet_state_dict(flat, num_layers=model.num_layers)

@@ -5,7 +5,11 @@ printf formats (reference eval_amass_full.py:18-147). Run:
 
     python -m rohm_tpu_torch.cli.eval_amass_full --saved_data_path=<pkl>
 
---visualize and --render are not ported yet and raise.
+`--visualize` animates clean and reconstructed skeletons with open3d;
+`--render` writes offscreen pyrender frames of the decoded SMPL-X bodies
+(`rohm_tpu_torch.viz`; each raises ImportError where its library is
+absent). `--via_server=True` relays the run to the resident server
+(rohm_tpu_torch/serve).
 """
 
 from __future__ import annotations
@@ -62,9 +66,11 @@ def evaluate(saved_data: dict, mask_scheme: str, traj_mask_ratio: float = 0.0) -
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag in ("via_server", "visualize", "render"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}=True is not yet ported to PyTorch")
+    from rohm_tpu_torch.cli.common import maybe_via_server
+
+    handled, result = maybe_via_server("eval_amass_full", args, argv)
+    if handled:
+        return result
     with open(args.saved_data_path, "rb") as f:
         saved_data = pickle.load(f)
     print(args.saved_data_path)
@@ -81,6 +87,14 @@ def main(argv=None):
     print("accel_error (m/s^2): {:0.1f}".format(m["accel_error_ms2"]))
     print("ground_pene_freq score (%): {:0.2f}".format(m["ground_pene_freq_pct"]))
     print("ground_pene_dist score (mm): {:0.2f}".format(m["ground_pene_dist_mm"]))
+
+    if args.visualize or args.render:
+        from rohm_tpu_torch.cli.common import resolve_body_model
+        from rohm_tpu_torch.viz import visualize_amass_results
+
+        # the decode for --render runs on the CPU: the renderer reads host arrays
+        body = resolve_body_model(args.body_model_path, "cpu") if args.render else None
+        visualize_amass_results(saved_data, render=args.render, body_model=body)
     return m
 
 

@@ -11,7 +11,11 @@ Run:
     python -m rohm_tpu_torch.cli.eval_prox_egobody --dataset=prox \\
         --saved_data_dir=<dir of the pickles> [--recording_list=a,b] [--stitch_save_dir=<dir>]
 
---visualize and --render are not ported yet and raise.
+`--visualize` animates the input and reconstructed skeletons in scene
+coords with open3d; `--render` overlays the decoded bodies on the
+recording's RGB frames with pyrender (`rohm_tpu_torch.viz`; each raises
+ImportError where its library is absent). `--via_server=True` relays the
+run to the resident server (rohm_tpu_torch/serve).
 """
 
 from __future__ import annotations
@@ -147,17 +151,64 @@ def stitch_recording(saved_data: dict, stitch_save_dir: str) -> str:
     return out_path
 
 
+def visualize_recording(saved_data: dict, args) -> None:
+    """Open3d skeleton animation of input vs reconstruction in scene coords,
+    one clip every vis_interval (reference eval_prox_egobody.py:312-370)."""
+    from rohm_tpu_torch.viz.results import animate_skeletons
+    from rohm_tpu_torch.viz.skeleton import COLOR_GT, COLOR_VIS
+
+    rec_scene = _to_scene(
+        saved_data["rec_ric_data_rec_list_from_smpl"],
+        saved_data["trans_scene2cano_list"],
+    )
+    inp = saved_data["joints_input_scene_coord_list"]
+    contact = saved_data["motion_repr_rec_list"][..., -4:]
+    for idx in range(0, len(rec_scene), max(args.vis_interval, 1)):
+        t_len = rec_scene.shape[1]
+        animate_skeletons(
+            [inp[idx][:t_len], rec_scene[idx]],
+            [COLOR_GT, COLOR_VIS],
+            contact=contact[idx],
+        )
+
+
+def render_recording(saved_data: dict, args, body_model) -> None:
+    """Overlay reconstructions on the recording's RGB frames (reference
+    eval_prox_egobody.py:372-451); intrinsics come from the result pickle."""
+    from rohm_tpu_torch.viz.results import render_prox_overlay
+
+    color_cam = saved_data.get("color_cam") or {
+        "f": [1000.0, 1000.0], "c": [960.0, 540.0]
+    }
+    recording_dir = os.path.join(
+        args.dataset_root, "recordings", saved_data["recording_name"], "Color"
+    )
+    render_prox_overlay(
+        saved_data, body_model, recording_dir, color_cam,
+        os.path.join(args.render_save_path, saved_data["recording_name"]),
+        render_interval=args.render_interval,
+    )
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    for flag in ("via_server", "visualize", "render"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}=True is not yet ported to PyTorch")
+    from rohm_tpu_torch.cli.common import maybe_via_server
+
+    handled, result = maybe_via_server("eval_prox_egobody", args, argv)
+    if handled:
+        return result
     if args.recording_list:
         recordings = [r for r in args.recording_list.split(",") if r]
     elif args.recording_name != "all":
         recordings = [args.recording_name]
     else:
         recordings = PROX_TEST_RECORDINGS if args.dataset == "prox" else EGOBODY_TEST_RECORDINGS
+
+    body_model = None
+    if args.render:
+        from rohm_tpu_torch.cli.common import resolve_body_model, resolve_device
+
+        body_model = resolve_body_model(args.body_model_path, resolve_device(args.device))
 
     per_rec = []
     for name in recordings:
@@ -170,6 +221,10 @@ def main(argv=None) -> dict:
         per_rec.append(evaluate_recording(saved, args.dataset))
         if args.stitch_save_dir:
             stitch_recording(saved, args.stitch_save_dir)
+        if args.visualize:
+            visualize_recording(saved, args)
+        if args.render:
+            render_recording(saved, args, body_model)
 
     assert per_rec, "no result pickles found"
     # clip-count-weighted pooling == the reference's concatenate-then-mean

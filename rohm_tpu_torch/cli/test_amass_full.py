@@ -18,6 +18,12 @@ torchrun each rank joins the launcher's group): each rank runs its rows
 through the pipeline, the tail batch pads to a multiple of the ranks, and
 rank 0 writes the same pickle as a single-process run. With one card (or
 --device=cpu) it runs as a mesh of one rank.
+
+`--via_server=True` relays the run to the resident server
+(rohm_tpu_torch/serve), which keeps the models, the pipeline with its
+kernels' prepared weights and the pickle decoders between runs of one
+configuration (`_WARM`); outside --data_parallel a direct call in one
+process keeps them the same way.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from rohm_tpu_torch.cli.common import (
     keep_in_flight,
     load_eval_noise,
     load_or_init,
+    maybe_via_server,
     rank_zero_first,
     resolve_body_model,
     resolve_device,
@@ -96,6 +103,32 @@ def build_parser() -> ConfigParser:
     return p
 
 
+# The resident warm path: models + pipeline + pickle decoders survive
+# between runs in one process, keyed by every config field that affects
+# them (checkpoint and stats mtimes included, so retraining invalidates).
+_WARM: dict = {}
+
+
+def _warm_key(args, stats_dir: str, body) -> tuple:
+    def _mtime(p):
+        return os.path.getmtime(p) if p and os.path.exists(p) else None
+
+    cfg = {
+        k: v for k, v in sorted(vars(args).items())
+        if k not in ("save_root", "max_batches", "via_server")
+    }
+    return (
+        tuple(cfg.items()), stats_dir,
+        _mtime(args.model_path_trajnet), _mtime(args.model_path_trajnet_control),
+        _mtime(args.model_path_posenet), getattr(body, "fingerprint", None),
+        # stats travel with the checkpoint but can be regenerated beside an
+        # unchanged model file; a warm pipeline with stale mean/std would
+        # silently disagree with the freshly built dataset's stats
+        _mtime(os.path.join(stats_dir, "AMASS_mean.pkl")),
+        _mtime(os.path.join(stats_dir, "AMASS_std.pkl")),
+    )
+
+
 def make_pickle_decoders(body, t_out: int):
     """Batch decoders for the result pickle (reference :386-441), plain torch
     on the device of their inputs."""
@@ -135,12 +168,14 @@ def result_filename(args) -> str:
     return name
 
 
-def run(argv=None) -> tuple[str, dict]:
+def run(argv=None) -> tuple[str, dict | None]:
     """The whole test run; returns the result pickle's path and the
-    phase-timing dict (seconds) that it also prints."""
+    phase-timing dict (seconds) that it also prints (None for a run relayed
+    to the server, which prints it there)."""
     args = build_parser().parse_args(argv)
-    if args.via_server:
-        raise NotImplementedError("--via_server=True is not yet ported to PyTorch")
+    handled, result = maybe_via_server("test_amass_full", args, argv)
+    if handled:
+        return result, None
     if args.data_parallel:
         return run_data_parallel(run_rank, args)
     return run_rank(args, None)
@@ -199,32 +234,43 @@ def run_rank(args, mesh) -> tuple[str, dict]:
     t0 = _phase("dataset_build", t0)
 
     torch.manual_seed(args.seed)  # random init where no checkpoint is given
-    models = {}
-    for name, path, make in (
-        ("trajnet", args.model_path_trajnet, lambda: build_trajnet(args, traj_feat_dim, False)),
-        ("trajcontrol", args.model_path_trajnet_control, lambda: build_trajnet(args, traj_feat_dim, True)),
-        ("posenet", args.model_path_posenet, lambda: build_posenet(args)),
-    ):
-        model = load_or_init(make(), path, allow_missing=args.allow_missing_ckpt, name=name)
-        models[name] = model.to(device).eval()
-    mean_d = torch.as_tensor(mean, device=device)
-    std_d = torch.as_tensor(std, device=device)
-    pipeline = RohmPipeline(
-        trajnet=models["trajnet"], trajcontrol=models["trajcontrol"], posenet=models["posenet"],
-        sched_traj=make_schedule(args.noise_schedule, args.diffusion_steps_trajnet,
-                                 args.timestep_respacing_eval, device=device),
-        sched_pose=make_schedule(args.noise_schedule, args.diffusion_steps_posenet,
-                                 args.timestep_respacing_eval, device=device),
-        body_model=body, mean=mean_d, std=std_d,
-        repr_abs_only=args.repr_abs_only, traj_feat_dim=traj_feat_dim,
-        sample_iter=args.sample_iter, early_stop=args.early_stop,
-        grad_type="amass" if args.cond_fn_with_grad else None,
-        mask_scheme=args.mask_scheme, input_noise=args.input_noise,
-        iter2_cond_noisy_pose=args.iter2_cond_noisy_pose,
-        iter2_cond_noisy_traj=args.iter2_cond_noisy_traj,
-        fused_posenet=args.fused_posenet, mesh=mesh,
-    )
-    decode_rec, decode_noisy = make_pickle_decoders(body, args.clip_len - 2)
+    # a mesh is made and closed per run: a pipeline bound to it is not kept
+    warm_key = _warm_key(args, stats_dir, body) if mesh is None else None
+    warm = _WARM.get(warm_key) if warm_key is not None else None
+    if warm is None:
+        models = {}
+        for name, path, make in (
+            ("trajnet", args.model_path_trajnet, lambda: build_trajnet(args, traj_feat_dim, False)),
+            ("trajcontrol", args.model_path_trajnet_control, lambda: build_trajnet(args, traj_feat_dim, True)),
+            ("posenet", args.model_path_posenet, lambda: build_posenet(args)),
+        ):
+            model = load_or_init(make(), path, allow_missing=args.allow_missing_ckpt, name=name)
+            models[name] = model.to(device).eval()
+        pipeline = RohmPipeline(
+            trajnet=models["trajnet"], trajcontrol=models["trajcontrol"], posenet=models["posenet"],
+            sched_traj=make_schedule(args.noise_schedule, args.diffusion_steps_trajnet,
+                                     args.timestep_respacing_eval, device=device),
+            sched_pose=make_schedule(args.noise_schedule, args.diffusion_steps_posenet,
+                                     args.timestep_respacing_eval, device=device),
+            body_model=body, mean=torch.as_tensor(mean, device=device), std=torch.as_tensor(std, device=device),
+            repr_abs_only=args.repr_abs_only, traj_feat_dim=traj_feat_dim,
+            sample_iter=args.sample_iter, early_stop=args.early_stop,
+            grad_type="amass" if args.cond_fn_with_grad else None,
+            mask_scheme=args.mask_scheme, input_noise=args.input_noise,
+            infill_traj=args.infill_traj,
+            iter2_cond_noisy_pose=args.iter2_cond_noisy_pose,
+            iter2_cond_noisy_traj=args.iter2_cond_noisy_traj,
+            fused_posenet=args.fused_posenet, mesh=mesh,
+        )
+        decoders = make_pickle_decoders(body, args.clip_len - 2)
+        if warm_key is not None:
+            _WARM.clear()  # keep at most one configuration's device memory
+            _WARM[warm_key] = (pipeline, decoders)
+    else:
+        print("[test_amass_full] warm hit: reusing resident models + pipeline")
+        pipeline, decoders = warm
+    decode_rec, decode_noisy = decoders
+    mean_d, std_d = pipeline.mean, pipeline.std
     t0 = _phase("model_init", t0)
 
     out = {

@@ -13,6 +13,9 @@ device raises. `--fused_posenet=True` runs every denoising step through the
 f32 kernel chain that replaces K1 (`make_posenet_sampler(fused=True)`);
 False runs the PoseNet module. `--cond_fn_with_grad` adds the skating
 guidance through SMPL-X, `--early_stop` stops the chain 20 steps early.
+`--visualize` animates the first clip of each batch with open3d
+(`rohm_tpu_torch.viz`); `--via_server=True` relays the run to the resident
+server (rohm_tpu_torch/serve).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from rohm_tpu_torch.cli.common import (
     build_posenet,
     load_eval_noise,
     load_or_init,
+    maybe_via_server,
     resolve_body_model,
     resolve_device,
 )
@@ -89,9 +93,9 @@ def result_filename(args) -> str:
 def main(argv=None) -> float:
     """The whole test run; prints and returns the global MPJPE (m)."""
     args = build_parser().parse_args(argv)
-    for flag in ("via_server", "visualize"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}=True is not yet ported to PyTorch")
+    handled, result = maybe_via_server("test_posenet", args, argv)
+    if handled:
+        return result
     device = resolve_device(args.device)
     # full f32 products and convolutions, as the pipeline runs them (cuDNN
     # takes f32 convolutions in TF32 by default)
@@ -159,6 +163,14 @@ def main(argv=None) -> float:
                 decoded["noisy"] = joints(noisy)
         for k, v in decoded.items():
             out[k].append(v.cpu().numpy())
+        if args.visualize:
+            from rohm_tpu_torch.viz import animate_skeletons
+            from rohm_tpu_torch.viz.skeleton import COLOR_GT, COLOR_VIS
+
+            animate_skeletons(
+                [out["clean"][-1][0], out["rec"][-1][0]], [COLOR_GT, COLOR_VIS],
+                contact=(out["repr_rec"][-1][0, :, -4:] > 0.5).astype(float),
+            )
 
     clean, rec = np.concatenate(out["clean"]), np.concatenate(out["rec"])
     mpjpe = mpjpe_global(clean, rec)

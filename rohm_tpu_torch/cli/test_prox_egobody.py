@@ -17,8 +17,8 @@ torch state_dicts (the reference's released weights). `--device` is a CUDA
 index (default 0) or `cpu`; `--fused_posenet` False/True/bf16/int8/int8qa/
 f32 picks the PoseNet path. `--data_parallel=True` splits every batch over
 one process per card as test_amass_full does (the 'prox' guidance takes its
-losses over the global batch); rank 0 writes the pickle. `--via_server` is
-not ported yet and raises.
+losses over the global batch); rank 0 writes the pickle. `--via_server=True`
+relays the run to the resident server (rohm_tpu_torch/serve).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from rohm_tpu_torch.cli.common import (
     build_trajnet,
     keep_in_flight,
     load_or_init,
+    maybe_via_server,
     rank_zero_first,
     resolve_body_model,
     resolve_device,
@@ -97,12 +98,14 @@ def save_dir_name(args) -> str:
     )
 
 
-def run(argv=None) -> tuple[str, dict]:
+def run(argv=None) -> tuple[str, dict | None]:
     """The whole test run; returns the result pickle's path and the
-    phase-timing dict (seconds, host clock) that it also prints."""
+    phase-timing dict (seconds, host clock) that it also prints (None for a
+    run relayed to the server, which prints it there)."""
     args = build_parser().parse_args(argv)
-    if args.via_server:
-        raise NotImplementedError("--via_server=True is not yet ported to PyTorch")
+    handled, result = maybe_via_server("test_prox_egobody", args, argv)
+    if handled:
+        return result, None
     if args.data_parallel:
         return run_data_parallel(run_rank, args)
     return run_rank(args, None)

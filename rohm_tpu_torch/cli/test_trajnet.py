@@ -13,6 +13,9 @@ device raises. `--trajcontrol` builds the TrajControl net and passes it the
 batch's control condition; `--infill_traj` zeroes a random window of the
 trajectory condition. TrajNet has no kernel of `ops/`: the chain is plain
 PyTorch.
+`--visualize` animates the first clip of each batch with open3d
+(`rohm_tpu_torch.viz`); `--via_server=True` relays the run to the resident
+server (rohm_tpu_torch/serve).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from rohm_tpu_torch.cli.common import (
     build_trajnet,
     load_eval_noise,
     load_or_init,
+    maybe_via_server,
     resolve_body_model,
     resolve_device,
 )
@@ -90,9 +94,9 @@ def main(argv=None) -> dict:
     """The whole test run; prints the errors and returns their means by name
     (ERROR_KEYS; radians, meters, m/s^3)."""
     args = build_parser().parse_args(argv)
-    for flag in ("via_server", "visualize"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}=True is not yet ported to PyTorch")
+    handled, result = maybe_via_server("test_trajnet", args, argv)
+    if handled:
+        return result
     device = resolve_device(args.device)
     # full f32 products and convolutions, as the pipeline runs them (cuDNN
     # takes f32 convolutions in TF32 by default)
@@ -175,6 +179,16 @@ def main(argv=None) -> dict:
             errs[f"jitter_{tag}"].append(_jitter(roots[tag]))
         errs["jitter_clean"].append(_jitter(roots["clean"]))
         errs["jitter_noisy"].append(_jitter(roots["noisy"]))
+
+        if args.visualize:
+            from rohm_tpu_torch.viz import animate_skeletons
+            from rohm_tpu_torch.viz.skeleton import COLOR_GT, COLOR_OCC, COLOR_VIS
+
+            # [red GT] [yellow noisy] [blue rec] (reference test_trajnet.py:265-328)
+            animate_skeletons(
+                [joints[tag][0].cpu().numpy() for tag in ("clean", "noisy", "smpl")],
+                [COLOR_GT, COLOR_OCC, COLOR_VIS],
+            )
 
     results = {k: float(np.concatenate(v).mean()) for k, v in errs.items() if v}
     print("root_rot_err_rec (deg): {:0.3f}".format(np.rad2deg(results["root_rot"])))

@@ -30,6 +30,31 @@ from rohm_tpu_torch.ops.transformer_layer_int8 import (
     prepare_posenet_int8,
 )
 
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counters, as {"<wrapper>.<counter>":
+    count}: the attributes named *launches* that each wrapper of
+    kernel_common and the transformer_layer modules adds one to where it
+    launches its kernel."""
+    from rohm_tpu_torch.ops import (
+        kernel_common,
+        transformer_layer,
+        transformer_layer_bf16,
+        transformer_layer_int8,
+        transformer_layer_train,
+    )
+
+    counts = {}
+    for mod in (kernel_common, transformer_layer, transformer_layer_bf16, transformer_layer_int8,
+                transformer_layer_train):
+        for name, fn in vars(mod).items():
+            if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
+                counts.update({f"{name}.{attr}": n for attr, n in vars(fn).items()
+                               if "launches" in attr and isinstance(n, int)})
+    return counts
+
+
 __all__ = [
     "embed_cond",
     "embed_cond_f32",
@@ -37,6 +62,7 @@ __all__ = [
     "fused_encoder_layer_bf16",
     "fused_encoder_layer_int8",
     "fused_encoder_stack_int8",
+    "launch_counts",
     "posenet_apply_fused",
     "posenet_apply_prepared",
     "prepare_posenet_fused",

@@ -123,6 +123,14 @@ def amass_eval_pose_mask(
     return vis.astype(np.float32)
 
 
+def _full_f32() -> None:
+    """cuDNN runs f32 convolutions in TF32 by default, which keeps ~3
+    digits; over a 100-step TrajNet chain that difference matters, so every
+    f32 product and convolution of the pipeline runs in full f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 @dataclass
 class RohmPipeline:
     """The three models + schedules + stats, run batch by batch."""
@@ -166,11 +174,7 @@ class RohmPipeline:
             raise ValueError("fused_posenet='f32' does not support a mesh; use 'bf16'/'int8'")
         if self.grad_type not in (None, "amass", "prox"):
             raise ValueError(f"grad_type={self.grad_type!r}: expected None, 'amass' or 'prox'")
-        # cuDNN runs f32 convolutions in TF32 by default, which keeps ~3
-        # digits; over a 100-step TrajNet chain that difference matters, so
-        # every f32 product and convolution runs in full f32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        _full_f32()
 
     @property
     def device(self) -> torch.device:
@@ -307,6 +311,7 @@ class RohmPipeline:
         focal_length [B,2], camera_center [B,2], keypoints_2d [B,T,22,3]);
         they move to the pipeline's device once per batch. Under a mesh
         every argument is the global batch and so are the outputs."""
+        _full_f32()  # again per batch: a resident pipeline outlives the switches its process set
         dev = self.device
 
         def as_t(a):

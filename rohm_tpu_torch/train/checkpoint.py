@@ -15,10 +15,15 @@ under "opt_state/count": those of the parameters the optimizer holds, which
 in a TrajControl run are the `controlnet.` branch's alone (the frozen
 backbone has none; train/state.py). The model's type picks the layout:
 TrajNet (plain or TrajControl, from its `trajcontrol`) or PoseNet.
+
+The JAX package's orbax directories are read too (`read_orbax`, with
+tensorstore alone: no jax, no orbax) into that same flat layout, so both
+`load_checkpoint` and `cli/common.py::load_pretrained` take either.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 
@@ -34,10 +39,89 @@ from rohm_tpu_torch.utils.convert_flax import (
 )
 
 CKPT_RE = re.compile(r"model(\d{9})\.npz")
+ORBAX_RE = re.compile(r"model(\d{9})")  # the JAX trainers' orbax directories
+# optax's AdamW state (ScaleByAdamState) holds these three; where it sits in
+# the optimizer's tuple (0, or (0, 0) under a TrajControl run's mask chain)
+# does not matter to the port
+ADAM_FIELDS = ("count", "mu", "nu")
 
 
 def ckpt_name(step: int) -> str:
     return f"model{step:09d}.npz"
+
+
+def _orbax_leaves(path: str) -> list[tuple[tuple, str]]:
+    """(tree path, store key) of every array an orbax checkpoint holds, from
+    its `_METADATA`: the path from each leaf's `key_metadata` (a key may hold
+    dots, so the store key is never split), leaves orbax skips (empty
+    optimizer states) left out."""
+    meta_path = os.path.join(path, "_METADATA")
+    if not os.path.isfile(meta_path):
+        raise ValueError(
+            f"checkpoint {path!r} is a directory without orbax's _METADATA: not an orbax "
+            "checkpoint. The port reads orbax directories, flattened flax params saved as "
+            ".npz, or a torch state_dict file")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    leaves = []
+    for entry in meta["tree_metadata"].values():
+        value = entry.get("value_metadata", {})
+        if value.get("skip_deserialize") or value.get("value_type") == "None":
+            continue
+        keys = tuple(str(k["key"]) for k in entry["key_metadata"])
+        leaves.append((keys, ".".join(keys)))
+    return leaves
+
+
+def _flat_key(keys: tuple) -> str:
+    """An orbax tree path -> the key the `.npz` route holds the same array
+    under: "params/..." for the params, "opt_state/count" and
+    "opt_state/mu/params/..." for the AdamW state. A tree saved without the
+    outer "params" level of flax's variables gets it added."""
+    head, rest = keys[0], list(keys[1:])
+    if head == "params":
+        return "/".join(rest if rest[:1] == ["params"] else ["params", *rest])
+    if head != "opt_state":
+        raise ValueError(f"orbax leaf {keys}: expected params or opt_state at the top")
+    i = next((i for i, k in enumerate(rest) if k in ADAM_FIELDS), None)
+    if i is None:
+        raise ValueError(f"orbax leaf {keys}: an optimizer state other than AdamW's")
+    field, tree = rest[i], rest[i + 1:]
+    if field == "count":
+        return "opt_state/count"
+    return "/".join(["opt_state", field, *(tree if tree[:1] == ["params"] else ["params", *tree])])
+
+
+def read_orbax(path: str) -> dict:
+    """An orbax checkpoint directory of the JAX trainers (`model{step:09d}`,
+    rohm_tpu/train/checkpoint.py) -> the flat dict the `.npz` route reads:
+    "params/..." and, where the trainer saved its optimizer, "opt_state/
+    count", "opt_state/mu/params/..." and "opt_state/nu/params/...".
+    Read with tensorstore alone (its OCDBT store holds a zarr array per
+    leaf; zarr3 where the leaf has zarr.json); without tensorstore this
+    raises ImportError."""
+    path = os.path.abspath(path)
+    leaves = _orbax_leaves(path)
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"reading the orbax checkpoint {path!r} needs the tensorstore package, which is not "
+            "installed; save the params as .npz instead (np.savez(path, **flax.traverse_util."
+            "flatten_dict(params, sep='/')), the .npz route)") from e
+    base = {"driver": "ocdbt", "base": f"file://{path}"}
+    stored = {k.decode() for k in ts.KvStore.open(base).result().list().result()}
+    flat = {}
+    for keys, store_key in leaves:
+        zarr = "zarr3" if f"{store_key}/zarr.json" in stored else "zarr"
+        if zarr == "zarr" and f"{store_key}/.zarray" not in stored:
+            raise KeyError(f"orbax checkpoint {path!r} lists {keys} but holds no array {store_key!r}")
+        arr = ts.open({"driver": zarr, "kvstore": {**base, "path": store_key + "/"}}).result()
+        key = _flat_key(keys)
+        if key in flat:
+            raise ValueError(f"orbax checkpoint {path!r}: two leaves map to {key!r}")
+        flat[key] = np.asarray(arr.read().result())
+    return flat
 
 
 def _moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
@@ -91,18 +175,21 @@ def save_checkpoint(logdir: str, step: int, model: torch.nn.Module,
 def load_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None) -> bool:
     """Load params strictly into `model`, and the AdamW state into
-    `optimizer` when the file has it. Returns whether it had. An orbax
-    directory (the JAX package's checkpoints) raises: the port reads its
-    `.npz`, or a JAX checkpoint flattened to one."""
-    if os.path.isdir(path) or not path.endswith(".npz"):
+    `optimizer` when the checkpoint has it. Returns whether it had. `path`
+    is a `.npz` or a JAX trainer's orbax directory (`read_orbax`), whose
+    AdamW moments cover every parameter: a TrajControl optimizer takes those
+    of the parameters it holds, the `controlnet.` branch's."""
+    if os.path.isdir(path):
+        flat = read_orbax(path)
+    elif path.endswith(".npz"):
+        with np.load(path) as z:
+            flat = dict(z)
+    else:
         raise ValueError(
-            f"checkpoint {path!r} is not a .npz: the port resumes from its own "
-            "model{step:09d}.npz checkpoints (flattened flax params); an orbax "
-            "directory of the JAX package is not read - save its params with "
-            "np.savez(path, **flax.traverse_util.flatten_dict(params, sep='/')) first"
+            f"checkpoint {path!r} is neither a .npz nor an orbax directory: the port resumes "
+            "from its own model{step:09d}.npz checkpoints (flattened flax params) or from "
+            "the JAX trainers' model{step:09d} orbax directories"
         )
-    with np.load(path) as z:
-        flat = dict(z)
     model.load_state_dict(_state_dict(model, flat, dict(model.named_parameters())), strict=True)
     if optimizer is None or "opt_state/count" not in flat:
         return False
@@ -128,6 +215,7 @@ def latest_checkpoint(logdir: str) -> str | None:
 
 
 def checkpoint_step(path: str) -> int | None:
-    """The step in a checkpoint's file name, or None."""
-    m = CKPT_RE.fullmatch(os.path.basename(path))
+    """The step in a checkpoint's name (a .npz or an orbax directory), or None."""
+    name = os.path.basename(path.rstrip("/"))
+    m = CKPT_RE.fullmatch(name) or ORBAX_RE.fullmatch(name)
     return int(m.group(1)) if m else None

@@ -72,8 +72,9 @@ class _CheckpointMixin:
         return path
 
     def restore(self, ckpt_path: str):
-        """Resume params (+ optimizer state when the file has it) from a
-        model{step:09d}.npz; the step resumes from the file's name."""
+        """Resume params (+ optimizer state when the checkpoint has it) from a
+        model{step:09d}.npz or a JAX trainer's model{step:09d} orbax
+        directory; the step resumes from the checkpoint's name."""
         if load_checkpoint(ckpt_path, self.state.model, self.state.optimizer):
             self.logger.info("restored params + optimizer state from %s", ckpt_path)
         else:
@@ -121,6 +122,11 @@ class _TrainLoop(_CheckpointMixin):
         num_epochs = self.num_steps // steps_per_epoch + 1
         for epoch in range(num_epochs):
             for batch in self.train_dataset.batches(self.batch_size, seed=epoch):
+                # both loops stop at num_steps exactly: the JAX loops' break
+                # leaves only the epoch, so where num_steps is a multiple of
+                # the batches per epoch they run (and may save) one step more
+                if self.step >= self.num_steps:
+                    return
                 losses = self._train_batch(batch, epoch)
                 self.last_losses = losses
                 if self.step % self.log_interval == 0 and self.step > 0:
@@ -129,8 +135,6 @@ class _TrainLoop(_CheckpointMixin):
                 if self.step % self.save_interval == 0 and self.step > 0:
                     self.save()
                 self.step += 1
-                if self.step >= self.num_steps:
-                    break
 
     @torch.no_grad()
     def _eval(self, epoch):

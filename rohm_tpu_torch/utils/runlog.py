@@ -1,7 +1,10 @@
 """Run directories, file loggers, config dumps (reference utils/other_utils.py:101-117).
 
-A copy of rohm_tpu/utils/runlog.py without its JAX helpers; the logger is
-named under "rohm_tpu_torch"."""
+A copy of rohm_tpu/utils/runlog.py; the logger is named under
+"rohm_tpu_torch", and `fixseed` returns a torch.Generator where the JAX one
+returns a PRNG key. `enable_compilation_cache` has no counterpart: it sets
+up XLA's persistent compile cache, and eager PyTorch compiles nothing per
+run (the kernel library is built once into rohm_tpu_torch/_build/)."""
 
 from __future__ import annotations
 
@@ -41,3 +44,18 @@ def save_params_json(logdir: str, args) -> None:
     """Dump the resolved config as params.json (reference other_utils.py:113-117)."""
     with open(os.path.join(logdir, "params.json"), "w") as f:
         json.dump({k: v for k, v in sorted(vars(args).items())}, f, indent=2, default=str)
+
+
+def fixseed(seed: int):
+    """Seed python's, numpy's and torch's global RNGs and return a
+    torch.Generator seeded with `seed` (reference utils/fixseed.py:6-10;
+    the JAX package returns jax.random.PRNGKey(seed))."""
+    import random
+
+    import numpy as np
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)

@@ -220,17 +220,51 @@ def test_eval_cli_matches_jax(runs, dataset, tmp_path, capsys):
     np.testing.assert_allclose(stitched[1]["joints_rec"], stitched[0]["joints_rec"], atol=1e-4)
 
 
+def _relay(monkeypatch, tcli):
+    """Fake the server's client; a relaying CLI must not resolve a device."""
+    import rohm_tpu_torch.serve as serve
+
+    relayed = []
+    monkeypatch.setattr(serve, "run_cli", lambda cmd, fwd: relayed.append((cmd, fwd)) or "served")
+    if hasattr(tcli, "resolve_device"):
+        monkeypatch.setattr(tcli, "resolve_device", lambda spec: pytest.fail("resolved a device"))
+    return relayed
+
+
 @pytest.mark.parametrize("flag", ["--via_server=True"])
-def test_unported_test_flags_raise(flag):
+def test_unported_test_flags_raise(flag, monkeypatch):
+    """--via_server is ported: the run goes to the server's client with the
+    flag stripped, before any device is resolved."""
     from rohm_tpu_torch.cli import test_prox_egobody as tcli
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcli.main([flag, "--device=cpu"])
+    relayed = _relay(monkeypatch, tcli)
+    assert tcli.run([flag, "--device=cpu"]) == ("served", None)
+    assert relayed == [("test_prox_egobody", ["--device=cpu"])]
 
 
 @pytest.mark.parametrize("flag", ["--visualize=True", "--render=True", "--via_server=True"])
-def test_unported_eval_flags_raise(flag):
+def test_unported_eval_flags_raise(flag, runs, monkeypatch):
+    """All three are ported. --visualize reaches open3d and --render
+    pyrender (here on a body model with faces, which the synthetic one
+    lacks), which neither this host nor the card's machine has: each raises
+    the JAX package's error. --via_server relays."""
+    import dataclasses
+
+    from rohm_tpu_torch.cli import common
     from rohm_tpu_torch.cli import eval_prox_egobody as teval
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        teval.main([flag])
+    tpath = runs["prox"][1]
+    argv = ["--dataset=prox", f"--saved_data_dir={tpath.parent}", f"--recording_list={RECORDINGS['prox']}",
+            "--device=cpu", f"--render_save_path={tpath.parent / 'render'}"]
+    if flag == "--via_server=True":
+        relayed = _relay(monkeypatch, teval)
+        assert teval.main([flag, *argv]) == "served"
+        assert relayed == [("eval_prox_egobody", argv)]
+        return
+    resolve = common.resolve_body_model
+    monkeypatch.setattr(common, "resolve_body_model", lambda path, device: dataclasses.replace(
+        resolve(path, device), faces=np.zeros((1, 3), np.int64)))
+    error = (ImportError, "pyrender \\+ trimesh are required") if flag == "--render=True" else (
+        ModuleNotFoundError, "open3d")
+    with pytest.raises(error[0], match=error[1]):
+        teval.main([flag, *argv])

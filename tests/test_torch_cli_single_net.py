@@ -241,18 +241,38 @@ def test_trajnet_prints_the_same_lines(trajnet_run):
 
 
 # ---------------------------------------------------------------------------
-# flags the port refuses
+# --visualize and --via_server
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("cli", ["test_posenet", "test_trajnet"])
 @pytest.mark.parametrize("flag", ["--visualize=True", "--via_server=True"])
-def test_unported_flags_raise(cli, flag):
+def test_unported_flags_raise(cli, flag, setup, monkeypatch):
+    """Both flags are ported. --visualize reaches open3d at the first batch,
+    which neither this host nor the card's machine has: the JAX CLI's
+    ModuleNotFoundError. --via_server hands argv without the flag to the
+    server's client and returns what it returns, before the CLI resolves
+    its device (no CUDA context in a relaying client)."""
     import importlib
 
+    import rohm_tpu_torch.serve as serve
+
     tcli = importlib.import_module(f"rohm_tpu_torch.cli.{cli}")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcli.main([flag, "--device=cpu"])
+    tmp, ckpt, _ = setup
+    argv = [flag, "--device=cpu", f"--dataset_root={tmp / 'amass'}", f"--clip_len={CLIP_LEN}",
+            "--batch_size=4", "--diffusion_steps=3", "--seed=0", "--max_batches=1"]
+    argv += ([f"--model_path={ckpt['posenet']}", "--latent_dim=64"] if cli == "test_posenet"
+             else [f"--model_path={ckpt['trajnet']}", "--mid_dim=64"])
+    if flag == "--visualize=True":
+        monkeypatch.chdir(tmp)
+        with pytest.raises(ModuleNotFoundError, match="open3d"):
+            tcli.main(argv)
+        return
+    relayed = []
+    monkeypatch.setattr(serve, "run_cli", lambda cmd, fwd: relayed.append((cmd, fwd)) or "served")
+    monkeypatch.setattr(tcli, "resolve_device", lambda spec: pytest.fail("resolved a device"))
+    assert tcli.main(argv) == "served"
+    assert relayed == [(cli, argv[1:])]
 
 
 @pytest.mark.parametrize("cli", ["test_posenet", "test_trajnet"])

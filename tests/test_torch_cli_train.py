@@ -54,10 +54,12 @@ def test_train_cli_run_directory(mode, tmp_path):
     logdir = tmp_path / "runs" / runs[0]
     files = os.listdir(logdir)
     assert {"params.json", "AMASS_mean.pkl", "AMASS_std.pkl"} <= set(files)
-    # periodic saves at steps 2 and 4, the epoch loop's extra step, the final save
+    # periodic saves at steps 2 and 4; the loop stops at --num_steps=4 (2
+    # batches per epoch, where the JAX loop takes one step more) and the
+    # final save rewrites model000000004.npz
     assert sorted(f for f in files if f.startswith("model")) == [
-        "model000000002.npz", "model000000004.npz", "model000000005.npz"]
-    assert latest_checkpoint(str(logdir)).endswith("model000000005.npz")
+        "model000000002.npz", "model000000004.npz"]
+    assert latest_checkpoint(str(logdir)).endswith("model000000004.npz")
     params = json.loads((logdir / "params.json").read_text())
     assert params["fused_train"] == mode and params["batch_size"] == 2  # the flag
     assert params["mask_scheme"] == "lower+upper+full" and params["weight_loss_foot_skating"] == 0.1  # the YAML
@@ -67,7 +69,7 @@ def test_train_cli_run_directory(mode, tmp_path):
     init = build_posenet(SimpleNamespace(latent_dim=32), seed=0)
     moved = [not torch.equal(a, b) for a, b in zip(init.parameters(), loop.state.model.parameters())]
     assert all(moved)
-    assert loop.step == 5 and loop.state.step == 5
+    assert loop.step == 4 and loop.state.step == 4
 
 
 def test_resume_keeps_training(trained, tmp_path):
