@@ -116,6 +116,18 @@ Phases (each failure ends the run with a non-zero exit code):
      come from that log, not from the kernels' JSON. Then the client's wall
      time cold, warm, for phase 7's in-process run and for one `python -m
      rohm_tpu_torch.cli.test_amass_full` process with the same argv.
+  7f. trained: the JAX-trained fixture of tests/torch_trained/ (TrajNet,
+     TrajControl mid_dim 64, PoseNet 64d x 8 layers, dh 16, contacts
+     saturated; read with numpy and the port's load_pretrained) through
+     `test_amass_full.run` with the flagship amass_occ_0.1_noise_3.yaml
+     (--infill_traj, mask full, guided, 2 x (100 + 1000) steps) on its
+     tree, one batch of 8 clips of 81 frames in each --fused_posenet mode
+     (False, the CLI's default: no kernel launched; f32, bf16, int8,
+     int8qa), then `eval_amass_full.main`: the launch counts each mode
+     implies, each kernel mode's metrics within rel 2e-2 (MPJPEs) or 8e-2
+     (the rest) of False's; then the plain pipeline on the fixture's batch
+     with its replayed noise, its metrics within rel 1e-2 of the JAX
+     package's (meta.json). Each mode's metrics and batch time are printed.
   8. bench: the int8 measurement path at full width. The whole-stack
      kernel (K5) on x [32, 144, 512] and an 8-layer `mega` prep of a
      random PoseNet(): bit-identical to the 8-layer K3 chain (whose
@@ -131,7 +143,7 @@ Phases (each failure ends the run with a non-zero exit code):
      `rohm_tpu_torch.scripts.bench_int8_gemm_rows` and `bench_int8_layer`.
      Launch counts as each run implies.
 The second-to-last stdout line is the kernels' JSON (launches: the main
-paths' runs of phases 5-8, 7b, 7c and 7d included (every rank's); phase
+paths' runs of phases 5-8, 7b, 7c, 7d and 7f included (every rank's); phase
 7e's served runs launch in the daemon's process, and their launches are in
 its log lines, printed by phase 7e, not here; card_ms and library_card_ms: the time on the
 card alone with a cold L2); the last line is {"ok": true, "device":
@@ -2707,6 +2719,97 @@ def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7f: the trained fixture, every --fused_posenet mode
+# ---------------------------------------------------------------------------
+
+TRAINED_MODES = (False, "f32", "bf16", "int8", "int8qa")
+
+
+def trained_phase(work: Path) -> dict:
+    """The JAX-trained fixture of tests/torch_trained/ (TrajNet and
+    TrajControl mid_dim 64, PoseNet 64d x 8 layers, dh 16, contacts
+    saturated) on the card: `test_amass_full.run` with the flagship config
+    (amass_occ_0.1_noise_3.yaml: --infill_traj=True, mask full, guided) on
+    the fixture's tree, one batch of its 8 clips of 81 frames, in each
+    --fused_posenet mode (False, the CLI's default, launches no kernel),
+    then `eval_amass_full.main` on each pickle; each kernel mode's metrics
+    within the budgets of plain's. Then the plain pipeline on the fixture's
+    flagship batch with its replayed noise (`run_batch(preset_noise=)`): the
+    metrics within rel 1e-2 (or abs 1e-6) of the JAX package's in
+    meta.json."""
+    import importlib.util
+
+    from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
+
+    # by its path: a site-packages `tests` package would shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        "trained_fixture", Path(__file__).resolve().parent / "tests" / "torch_trained" / "fixture.py")
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    card = gpu_name_and_limit()
+    tree = work / "trained_amass"
+    fx.write_tree(tree)
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = {}
+    for mode in TRAINED_MODES:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pkl, timing = test_amass_full.run(
+            fx.cli_argv("flagship", tree, work / f"trained_{mode}") + ["--device=0", f"--fused_posenet={mode}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        expected = expected_launches({mode: 1}) if mode else dict.fromkeys(KERNELS, 0)
+        log(f"[trained] --fused_posenet={mode}: launches {counts}; expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"the trained {mode} CLI run did not launch the kernels its mode implies")
+        for name in launches:
+            launches[name] += counts[name]
+        metrics = eval_amass_full.main(fx.eval_argv("flagship", pkl))
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite metrics in the trained {mode} run: {metrics}")
+        batch_s = timing["batch_dispatch"] + timing["device_wait_and_collect"]
+        runs[mode] = {"metrics": metrics, "batch_s": batch_s, "seconds": seconds}
+        log(f"[trained] --fused_posenet={mode}: one batch of {fx.N_CLIPS} clips x {fx.CLIP_LEN - 1} frames "
+            f"{batch_s:.2f} s (batch_dispatch + device_wait_and_collect), run() {seconds:.2f} s, on {card}; "
+            f"metrics {json.dumps(metrics)}")
+    plain = runs[False]["metrics"]
+    for mode in TRAINED_MODES[1:]:
+        gaps = fx.metric_gaps(runs[mode]["metrics"], plain, fx.mode_budget)
+        rel = {k: abs(runs[mode]["metrics"][k] - v) / max(abs(v), 1e-9) for k, v in plain.items()}
+        log(f"[trained] {mode} against plain, relative: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        if gaps:
+            raise AssertionError(f"trained {mode} metrics off the plain mode's budgets: {gaps}")
+
+    # the plain path on the fixture's batch with its replayed noise, against
+    # the JAX package's metrics (the legs config's are held on the CPU,
+    # tests/test_torch_trained_parity_legs.py)
+    name = "flagship"
+    pipe = fx.port_pipeline(name, False, "cuda")
+    b = fx.batch(name)
+    noise = fx.preset_noise(fx.N_CLIPS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose, _ = pipe.run_batch(*(b[k] for k in fx.BATCH_INPUTS), torch.Generator(device="cuda").manual_seed(0),
+                             preset_noise=noise)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(read_launches().values()):
+        raise AssertionError("the plain pipeline launched a kernel")
+    metrics = fx.port_metrics(pipe, pose, b, name)
+    jax_metrics = fx.meta()["jax_metrics"][name]
+    log(f"[trained] {name} plain run_batch(preset_noise=) {seconds:.2f} s; metrics against the JAX package's "
+        "(port / JAX): " + ", ".join(f"{k} {metrics[k]:.6g} / {v:.6g}" for k, v in jax_metrics.items()))
+    gaps = fx.metric_gaps(metrics, jax_metrics, fx.JAX_REL, fx.JAX_ABS)
+    if gaps:
+        raise AssertionError(f"trained {name} plain metrics off the JAX package's: {gaps}")
+    runs["jax"] = {"metrics": metrics, "seconds": seconds}
+    return {"launches": launches, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the int8 measurement path (K5, the bench chain, K8, K9)
 # ---------------------------------------------------------------------------
 
@@ -2959,6 +3062,7 @@ def main(argv=None) -> None:
     single = single_net_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     dp = data_parallel_phase(args.seed, work, body_path, cli, train, trajtrain)
     serve_phase(args.seed, work, body_path, cli)
+    trained = trained_phase(work)
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)
     log(f"[done] chip_smoke.py phases took {time.perf_counter() - t_start:.1f} s")
@@ -2972,7 +3076,8 @@ def main(argv=None) -> None:
         st = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, single, dp, bench)),
+            "launches": sum(ph["launches"][name] for ph in (sl, train, trajtrain, cli, video, single, dp, trained,
+                                                             bench)),
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": "operations" if st["ops_ms"] > st["bytes_ms"] else "bytes",
             "library_ms": st["library_ms"], "card_ms": st["card_ms"], "library_card_ms": st["library_card_ms"],

@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: no file of `rohm_tpu_torch/`, and not
-`chip_smoke.py`, imports jax, flax, optax, orbax or the JAX package
-`rohm_tpu` (an AST scan, so a lazy import inside a function counts too),
-nor cv2 or pandas, which the machine with the card does not have."""
+"""The PyTorch port stands alone: no file of `rohm_tpu_torch/`, not
+`chip_smoke.py` and not the trained fixture's reader that it runs
+(`tests/torch_trained/fixture.py`), imports jax, flax, optax, orbax or the
+JAX package `rohm_tpu` (an AST scan, so a lazy import inside a function
+counts too), nor cv2 or pandas, which the machine with the card does not
+have."""
 
 import ast
 from pathlib import Path
@@ -9,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "rohm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "rohm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                          ROOT / "tests" / "torch_trained" / "fixture.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rohm_tpu", "cv2", "pandas")
 
 
