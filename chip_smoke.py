@@ -44,7 +44,7 @@ Phases (each failure ends the run with a non-zero exit code):
      100/1000-step schedules, skating guidance, 2 iterations, lower-body
      mask) on batches of 32 clips x 144 frames built with the port's own FK
      and encoder, through RohmPipeline.run_batch with fused_posenet "int8"
-     and "bf16". Weights are random from --seed. Checks shapes, finiteness,
+     and "bf16", one batch each. Weights are random from --seed. Checks shapes, finiteness,
      the kernels' launch counts, and the fused PoseNet of every mode (bf16,
      int8, int8qa, f32) against the plain f32 PoseNet on one step; then
      each piece of a batch timed alone and the device's busy share.
@@ -60,10 +60,14 @@ Phases (each failure ends the run with a non-zero exit code):
   7. cli: `rohm_tpu_torch.cli.test_amass_full.main` at full width with the
      shipped amass_occ_leg_noise_3.yaml, on a synthetic AMASS test tree
      (3 x 11 sequences of 149 frames) and the real-size synthetic SMPL-X
-     file, one batch of 32 clips with fused_posenet "f32", loading the
-     checkpoint phase 6 trained, and one each with "int8qa" and "int8", then
-     `eval_amass_full.main` on each pickle. Checks the launch counts, the
-     pickle's keys, shapes and finiteness.
+     file, one batch of 32 clips with fused_posenet "f32" and one with
+     False (the CLI's default: the plain PoseNet, no kernel), both loading
+     the checkpoints phases 6 and 6b trained, and one each with "int8qa"
+     and "int8", then `eval_amass_full.main` on each pickle. Checks the
+     launch counts (none for False), the pickle's keys, shapes and
+     finiteness, False's metrics within phase 7f's budgets of f32's and
+     its result arrays within PLAIN_ARRAY_ATOL of f32's; prints each
+     mode's batch time.
   7b. video: `rohm_tpu_torch.cli.test_prox_egobody.main` at full width with
      the shipped prox_rgb.yaml and egobody_rgb.yaml on synthetic PROX (2862
      frames: 20 windows, one batch of 20) and EgoBody (717 frames: 5
@@ -109,12 +113,17 @@ Phases (each failure ends the run with a non-zero exit code):
      7's int8 `test_amass_full` argv served twice, cold and then warm (the
      warm run must print the memo's warm hit), one --data_parallel=True
      request, each pickle bit for bit phase 7's in-process int8 run; one
-     `eval_amass_full` request (phase 7's metrics); a bad request answered
-     with a traceback, the daemon alive; `stop`, and the daemon's process
-     gone. The daemon's per-request log lines (seconds, kernel launches as
-     the batch implies, peak device memory) are printed; served launches
-     come from that log, not from the kernels' JSON. Then the client's wall
-     time cold, warm, for phase 7's in-process run and for one `python -m
+     `eval_amass_full` request (phase 7's metrics); then phase 7b's PROX
+     `test_prox_egobody` (bf16) and `eval_prox_egobody` on its pickle,
+     phase 7c's `test_posenet` and vanilla `test_trajnet`, each result bit
+     for bit its in-process run's, each client time beside the
+     in-process one; a bad
+     request answered with a traceback, the daemon alive; `stop`, and the
+     daemon's process gone. The daemon's per-request log lines (seconds,
+     kernel launches as each path implies, peak device memory) are
+     printed; served launches come from that log, not from the kernels'
+     JSON. Then the client's wall time cold, warm, for phase 7's
+     in-process run and for one `python -m
      rohm_tpu_torch.cli.test_amass_full` process with the same argv.
   7f. trained: the JAX-trained fixture of tests/torch_trained/ (TrajNet,
      TrajControl mid_dim 64, PoseNet 64d x 8 layers, dh 16, contacts
@@ -185,7 +194,7 @@ from rohm_tpu_torch.scripts import bench_int8_layer as k9
 
 B, S, D, H, F, LAYERS = 32, 144, 512, 4, 1024, 8
 CLIP_LEN = 145  # frames per clip -> 144 repr frames (TrajNet) -> 143 (PoseNet)
-N_INT8, N_BF16 = 2, 1  # batches through run_batch per mode
+N_INT8, N_BF16 = 1, 1  # batches through run_batch per mode
 KERNELS = {  # name -> (wrapper, its launch counter, source, the TPU kernel it replaces a part of)
     # attention_bf16 and residual_layernorm serve the int8 layer too
     # (rohm_tpu/ops/transformer_layer_int8.py:106 calls the same helpers)
@@ -1873,6 +1882,10 @@ def trajnet_train_phase(seed: int, work: Path, body_path: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 CLI_SEQS, CLI_SEQ_LEN = 11, 149  # per test dataset: 33 test clips of 145 frames
+# the plain (False) CLI batch's result arrays against the f32 batch's, max
+# |diff| by key prefix: joints in m, the repr; about 200x the gaps of the
+# H100 runs (PERF.md §6), far below what a wrong plain path would give
+PLAIN_ARRAY_ATOL = {"rec_ric_data": 1e-4, "motion_repr": 1e-3}
 
 
 def write_smplx_npz(path: Path, seed: int) -> None:
@@ -1902,11 +1915,14 @@ def cli_argv(work: Path, body_path: Path, mode: str, ckpts: dict, seed: int) -> 
 def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ckpts: dict) -> dict:
     """`test_amass_full.main` at full width on a synthetic AMASS test tree
     (3 datasets x 11 sequences of 149 frames: 33 clips) with a real-size
-    synthetic SMPL-X file, one batch of 32 clips in each of "f32" (PoseNet
-    loaded from `posenet_ckpt`, the training phase's checkpoint, and its
-    run directory's stats; TrajNet and TrajControl from `traj_ckpts`, phase
-    6b's), "int8qa" and "int8" (random weights), then `eval_amass_full.main`
-    on each pickle."""
+    synthetic SMPL-X file, one batch of 32 clips in each of "f32" and False
+    (the CLI's default: the plain PoseNet, no kernel launched) on trained
+    weights (PoseNet loaded from `posenet_ckpt`, the training phase's
+    checkpoint, and its run directory's stats; TrajNet and TrajControl from
+    `traj_ckpts`, phase 6b's), "int8qa" and "int8" (random weights), then
+    `eval_amass_full.main` on each pickle; False's metrics within phase
+    7f's budgets of f32's (fixture.mode_budget), its arrays within
+    PLAIN_ARRAY_ATOL of f32's."""
     from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
     from rohm_tpu_torch.cli.common import AMASS_TEST_DATASETS
     from rohm_tpu_torch.data import write_synthetic_amass
@@ -1919,17 +1935,18 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ck
     launches = dict.fromkeys(KERNELS, 0)
     out = {}
     trained = {"posenet": posenet_ckpt, "trajnet": traj_ckpts["vanilla"], "trajnet_control": traj_ckpts["trajcontrol"]}
-    for mode, ckpts in (("f32", trained), ("int8qa", dict.fromkeys(trained, "")),
+    for mode, ckpts in (("f32", trained), (False, trained), ("int8qa", dict.fromkeys(trained, "")),
                         ("int8", dict.fromkeys(trained, ""))):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pkl, timing = test_amass_full.run(cli_argv(work, body_path, mode, ckpts, seed)
-                                          + [f"--save_root={work / ('results_' + mode)}"])
+                                          + [f"--save_root={work / f'results_{mode}'}"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_launches()
-        expected = expected_launches({mode: 1})
+        # False, the CLI's default: the plain PoseNet, none of our kernels
+        expected = expected_launches({mode: 1}) if mode else dict.fromkeys(KERNELS, 0)
         log(f"[cli] fused_posenet={mode}: launches {counts}; expected {expected}")
         if counts != expected:
             raise AssertionError(f"the {mode} CLI run did not go through its kernels as the chain implies")
@@ -1957,6 +1974,22 @@ def cli_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_ck
             raise AssertionError("non-finite MPJPE")
         out[mode] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "pickle": pkl, "counts": counts,
                      "seconds": seconds}
+    fx = trained_fixture()
+    rel = {k: abs(out[False]["metrics"][k] - v) / max(abs(v), 1e-9) for k, v in out["f32"]["metrics"].items()}
+    arrays = result_gaps(load_result(out[False]["pickle"]), load_result(out["f32"]["pickle"]))
+    log("[cli] fused_posenet=False against f32, metrics relative: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + "; pickle max |diff|: " + ", ".join(f"{k} {v:.3e}" for k, v in arrays.items()))
+    gaps = fx.metric_gaps(out[False]["metrics"], out["f32"]["metrics"], fx.mode_budget)
+    if gaps:
+        raise AssertionError(f"the plain (False) CLI batch's metrics are off the f32 batch's budgets: {gaps}")
+    off = {k: g for k, g in arrays.items()
+           if g > next(v for prefix, v in PLAIN_ARRAY_ATOL.items() if k.startswith(prefix))}
+    if off:
+        raise AssertionError(f"the plain (False) CLI batch's arrays are off the f32 batch's "
+                             f"({PLAIN_ARRAY_ATOL}): {off}")
+    log(f"[cli] one batch of 32 clips x {CLIP_LEN - 1} frames, PoseNet {D}d x {LAYERS} (batch_dispatch + "
+        f"device_wait_and_collect): " + ", ".join(f"{m} {r['batch_s']:.2f} s" for m, r in out.items())
+        + f"; on {gpu_name_and_limit()}")
     return {"launches": launches, "runs": out}
 
 
@@ -1977,6 +2010,13 @@ VIDEO_POSE_FORWARDS = 1000 - 20  # early stop: 980 of the 1000 PoseNet steps
 
 def video_windows(frames: int) -> int:
     return (frames - CLIP_LEN) // VIDEO_STRIDE + 1
+
+
+def video_eval_argv(dataset: str, pkl: str, stitch_dir: Path) -> list:
+    """eval_prox_egobody's flags for the pickle of one recording."""
+    rec = VIDEO_RUNS[dataset][3]
+    return [f"--dataset={dataset}", f"--saved_data_dir={Path(pkl).parent}", f"--recording_list={rec}",
+            f"--stitch_save_dir={stitch_dir}"]
 
 
 def guided_step_timing(work: Path, body_path: Path, stats_dir: str, seed: int) -> dict:
@@ -2086,12 +2126,13 @@ def video_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pkl, timing = test_prox_egobody.run([
+        argv = [
             f"--config=cfg_files/test_cfg/{yaml}", f"--dataset_root={root / 'base'}",
             f"--init_root={root / 'init'}", f"--recording_name={rec}", f"--body_model_path={body_path}",
             f"--fused_posenet={mode}", *[f"--model_path_{net}={path}" for net, path in ckpts.items()],
-            f"--save_root={work / ('video_results_' + dataset)}", f"--seed={seed}", "--device=0",
-        ])
+            f"--seed={seed}", "--device=0",
+        ]
+        pkl, timing = test_prox_egobody.run(argv + [f"--save_root={work / ('video_results_' + dataset)}"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_launches()
@@ -2124,17 +2165,17 @@ def video_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, traj_
             raise AssertionError(f"bad {dataset} pickle: keys {sorted(saved)}, shapes {shapes}")
         if not all(np.isfinite(saved[k]).all() for k in want):
             raise AssertionError(f"non-finite values in the {dataset} pickle")
-        metrics = eval_prox_egobody.main([
-            f"--dataset={dataset}", f"--saved_data_dir={Path(pkl).parent}", f"--recording_list={rec}",
-            f"--stitch_save_dir={work / ('video_stitched_' + dataset)}",
-        ])
+        t0 = time.perf_counter()
+        metrics = eval_prox_egobody.main(video_eval_argv(dataset, pkl, work / f"video_stitched_{dataset}"))
+        eval_s = time.perf_counter() - t0
         stitched = np.load(work / f"video_stitched_{dataset}" / f"{rec}.npz")
         if not (all(np.isfinite(v) for v in metrics.values())
                 and stitched["joints_rec"].shape == (VIDEO_STRIDE * (n - 1) + t_out, 22, 3)
                 and np.isfinite(stitched["joints_rec"]).all()):
             raise AssertionError(f"non-finite {dataset} metrics or a bad stitched sequence: {metrics}")
         log(f"[video] {dataset} metrics {metrics}")
-        out[dataset] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "windows": n}
+        out[dataset] = {"batch_s": batch_s, "timing": timing, "metrics": metrics, "windows": n, "argv": argv,
+                        "pickle": pkl, "seconds": seconds, "counts": counts, "eval_s": eval_s}
     out["guided"] = guided_step_timing(work, body_path, str(Path(posenet_ckpt).parent), seed)
     return {"launches": launches, "runs": out}
 
@@ -2279,7 +2320,8 @@ def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, 
             f"{', '.join(f'{k} {v:.4g}' for k, v in res.items())}")
         if len(chains) != 1 or any(counts.values()) or len(res) != 15 or not all(np.isfinite(list(res.values()))):
             raise AssertionError(f"test_trajnet {run}: bad results {res} or a kernel launched: {counts}")
-        out[f"trajnet_{run}"] = {"chain_s": chains[0], "main_s": seconds, "results": res}
+        out[f"trajnet_{run}"] = {"chain_s": chains[0], "main_s": seconds, "results": res,
+                                 "argv": [*common, f"--model_path={traj_ckpts[run]}", *flags]}
 
     # the run's K1 chain at the rows it gives it (32 x 145 tokens)
     posenet = build_posenet(SimpleNamespace(latent_dim=D), seed=seed + 1).cuda()
@@ -2296,9 +2338,9 @@ def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, 
 
     reset_launches()
     save_root = work / "results_single"
-    mpjpe, seconds, chains = run_timed_cli(test_posenet, "make_posenet_sampler", [
-        *common, f"--model_path={posenet_ckpt}", "--fused_posenet=True", "--cond_fn_with_grad=True",
-        "--early_stop=True", "--save_results=True", f"--save_root={save_root}", "--max_batches=1"])
+    argv = [*common, f"--model_path={posenet_ckpt}", "--fused_posenet=True", "--cond_fn_with_grad=True",
+            "--early_stop=True", "--save_results=True", "--max_batches=1"]
+    mpjpe, seconds, chains = run_timed_cli(test_posenet, "make_posenet_sampler", argv + [f"--save_root={save_root}"])
     counts = read_launches()
     expected = forward_launches("f32", SINGLE_POSE_FORWARDS)
     log(f"[single] test_posenet fused f32, guided, early stop: launches {counts}; expected {expected}")
@@ -2320,7 +2362,8 @@ def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, 
     log(f"[single] test_posenet: one batch of {B} clips x {S} frames, chain {chains[0]:.2f} s "
         f"({SINGLE_POSE_FORWARDS} fused f32 steps, 31 guided), main() {seconds:.2f} s, "
         f"mpjpe_global {mpjpe * 1000:.1f} mm, pickle {pkl.name}")
-    out["posenet"] = {"chain_s": chains[0], "main_s": seconds, "mpjpe_m": mpjpe}
+    out["posenet"] = {"chain_s": chains[0], "main_s": seconds, "mpjpe_m": mpjpe, "argv": argv, "pickle": str(pkl),
+                      "counts": counts}
     out["vertices"] = vertices_check(seed, body_path)
     return {"launches": launches, "runs": out}
 
@@ -2499,10 +2542,7 @@ def data_parallel_phase(seed: int, work: Path, body_path: Path, cli: dict, train
     counts = read_launches()
     add(counts)
     ref_pkl, ref_counts = cli["runs"]["int8"]["pickle"], cli["runs"]["int8"]["counts"]
-    with open(pkl, "rb") as f, open(ref_pkl, "rb") as g:
-        got, ref = pickle.load(f), pickle.load(g)
-    same = sorted(got) == sorted(ref) and all(
-        np.array_equal(got[k], ref[k]) if isinstance(ref[k], np.ndarray) else got[k] == ref[k] for k in ref)
+    same = same_result(pkl, ref_pkl)
     log(f"[dp] test_amass_full --data_parallel=True --fused_posenet=int8 (a mesh of 1 rank, NCCL): pickle "
         f"{'bit-identical to' if same else 'DIFFERENT from'} phase 7's single-process int8 run; launches {counts}")
     if not same or counts != ref_counts or Path(pkl).name != Path(ref_pkl).name or dist.is_initialized():
@@ -2572,13 +2612,6 @@ SERVE_LINE = re.compile(r"\[serve\] (\w+) finished in ([\d.]+)s ok=(\w+) launche
 SERVE_START_S = 600  # the daemon's start-up (torch, the CUDA context, the kernel library) ends within this
 
 
-def same_pickle(path: str, ref_path: str) -> bool:
-    with open(path, "rb") as f, open(ref_path, "rb") as g:
-        got, ref = pickle.load(f), pickle.load(g)
-    return sorted(got) == sorted(ref) and all(
-        np.array_equal(got[k], ref[k]) if isinstance(ref[k], np.ndarray) else got[k] == ref[k] for k in ref)
-
-
 def _served(run: str, cmd: str, argv: list, sock: str) -> tuple:
     """One request to the daemon: (its result, what it printed, client wall s)."""
     import contextlib
@@ -2593,6 +2626,94 @@ def _served(run: str, cmd: str, argv: list, sock: str) -> tuple:
     seconds = time.perf_counter() - t0
     log(f"[serve] {run}: {cmd} served in {seconds:.2f} s (client wall clock)")
     return result, buf.getvalue(), seconds
+
+
+def load_result(result) -> dict:
+    """A result dict: a pickle's path loaded, a dict itself."""
+    if isinstance(result, dict):
+        return result
+    with open(result, "rb") as f:
+        return pickle.load(f)
+
+
+def result_gaps(got: dict, ref: dict) -> dict:
+    """Two results of one argv (pickles or returned metrics), entry by entry:
+    the max |got - ref| of each float entry (0.0 when bit-identical, nan
+    against nan included; inf where a nan stands against a number). Every
+    other entry, and the key set, must be equal: it raises otherwise."""
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"results with different keys: {sorted(got)} != {sorted(ref)}")
+    gaps = {}
+    for k, r in ref.items():
+        g = got[k]
+        if isinstance(r, float) or (isinstance(r, np.ndarray) and r.dtype.kind == "f"):
+            g, r = np.asarray(g, np.float64), np.asarray(r, np.float64)
+            if g.shape != r.shape:
+                raise AssertionError(f"{k}: shape {g.shape} != {r.shape}")
+            diff = np.where(np.isnan(g) & np.isnan(r), 0.0, np.abs(g - r))
+            gaps[k] = float(np.nan_to_num(diff, nan=np.inf).max(initial=0.0))
+        elif not (np.array_equal(g, r) if isinstance(r, np.ndarray) else g == r):
+            raise AssertionError(f"{k}: {g!r} != {r!r}")
+    return gaps
+
+
+def same_result(got, ref) -> bool:
+    """Two results (pickle paths or dicts) bit for bit (result_gaps)."""
+    return not any(result_gaps(load_result(got), load_result(ref)).values())
+
+
+def hold_served(what: str, got: dict, ref: dict) -> None:
+    """A served result bit for bit against the in-process one of the same argv."""
+    gaps = {k: g for k, g in result_gaps(got, ref).items() if g}
+    if gaps:
+        raise AssertionError(f"the served {what} differs from its in-process run, max |diff| per entry: {gaps}")
+
+
+def served_launches(counts: dict) -> dict:
+    """An in-process run's launch counts as the daemon's log names them."""
+    return {f"{fn.__name__}.{counter}": n for name, (fn, counter, _, _) in KERNELS.items() if (n := counts[name])}
+
+
+def serve_other_clis(work: Path, sock: str, video: dict, single: dict) -> list:
+    """The four other served CLIs, while the daemon is up, each held to its
+    in-process run of the same argv bit for bit (hold_served): phase 7b's PROX
+    `test_prox_egobody` (bf16) and `eval_prox_egobody` on the served
+    pickle, phase 7c's `test_posenet` (K1's chain, guided, early stop) and
+    vanilla `test_trajnet`. Returns (run, command, the launches the
+    daemon's log must show for it) in request order."""
+    smi = gpu_name_and_limit()
+    prox, posenet, trajnet = video["prox"], single["runs"]["posenet"], single["runs"]["trajnet_vanilla"]
+
+    pkl, _, prox_s = _served("prox", "test_prox_egobody", prox["argv"]
+                             + [f"--save_root={work / 'video_results_serve'}"], sock)
+    hold_served("test_prox_egobody", load_result(pkl), load_result(prox["pickle"]))
+    log(f"[serve] prox: pickle bit-identical to phase 7b's in-process bf16 run; client {prox_s:.2f} s, in-process "
+        f"main() {prox['seconds']:.2f} s ({smi})")
+
+    metrics, _, eval_s = _served("prox_eval", "eval_prox_egobody",
+                                 video_eval_argv("prox", pkl, work / "video_stitched_serve"), sock)
+    hold_served("eval_prox_egobody", metrics, prox["metrics"])
+    log(f"[serve] prox_eval: metrics bit-identical to phase 7b's; client {eval_s:.2f} s, in-process "
+        f"{prox['eval_s']:.2f} s ({smi})")
+
+    def posenet_result(save_root: Path, mpjpe: float) -> dict:
+        return {**load_result(str(save_root / Path(posenet["pickle"]).name)), "mpjpe": mpjpe}
+
+    mpjpe, _, posenet_s = _served("posenet", "test_posenet", posenet["argv"]
+                                  + [f"--save_root={work / 'results_single_serve'}"], sock)
+    hold_served("test_posenet", posenet_result(work / "results_single_serve", mpjpe),
+                posenet_result(Path(posenet["pickle"]).parent, posenet["mpjpe_m"]))
+    log(f"[serve] posenet: pickle and MPJPE bit-identical to phase 7c's in-process run; client {posenet_s:.2f} s, "
+        f"in-process main() {posenet['main_s']:.2f} s ({smi})")
+
+    res, _, trajnet_s = _served("trajnet", "test_trajnet", trajnet["argv"], sock)
+    hold_served("test_trajnet", res, trajnet["results"])
+    log(f"[serve] trajnet: the 15 results bit-identical to phase 7c's in-process vanilla run; client "
+        f"{trajnet_s:.2f} s, in-process main() {trajnet['main_s']:.2f} s ({smi})")
+    return [("prox", "test_prox_egobody", served_launches(prox["counts"])),
+            ("prox_eval", "eval_prox_egobody", {}),
+            ("posenet", "test_posenet", served_launches(posenet["counts"])),
+            ("trajnet", "test_trajnet", {})]
 
 
 def _stop_daemon(sock: str, pid: int) -> bool:
@@ -2619,17 +2740,19 @@ def _stop_daemon(sock: str, pid: int) -> bool:
     return False
 
 
-def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
+def serve_phase(seed: int, work: Path, body_path: Path, cli: dict, video: dict, single: dict) -> dict:
     """The resident server (rohm_tpu_torch/serve) at full width: a daemon on
     the card started by `ensure_server` as a process of its own; phase 7's
     int8 `test_amass_full` argv served twice (cold, then warm: the models,
     the pipeline and its prepared int8 weights resident), one
     --data_parallel=True request (a NCCL group of one, made and destroyed
     in the daemon) and one `eval_amass_full`, each pickle held bit for bit
-    to phase 7's in-process int8 run, the metrics to its; a bad request
-    answered with a traceback, the daemon alive after it; then `stop`, and
-    the daemon's process gone. The daemon's per-request lines (seconds,
-    kernel launches, peak device memory) come from its log: a served run's
+    to phase 7's in-process int8 run, the metrics to its; the four other
+    served CLIs, each held to its in-process run of phase 7b or 7c
+    (serve_other_clis); a bad request answered with a traceback, the
+    daemon alive after it; then `stop`, and the daemon's process gone. The
+    daemon's per-request lines (seconds, kernel launches, peak device
+    memory) come from its log: a served run's
     launches happen in the daemon, not in this process, so they are not in
     the kernels' JSON. Last, one `python -m rohm_tpu_torch.cli.test_amass_full`
     process with the same argv: the start-up that the daemon saves."""
@@ -2655,7 +2778,7 @@ def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
                                             + [f"--save_root={work / ('results_serve_' + run)}"], sock)
             hit = "[test_amass_full] warm hit: reusing resident models + pipeline" in printed
             log(f"[serve] {run}: " + "; ".join(line for line in printed.splitlines() if "timing (s)" in line))
-            same = same_pickle(pkl, ref["pickle"])
+            same = same_result(pkl, ref["pickle"])
             log(f"[serve] {run}: pickle {'bit-identical to' if same else 'DIFFERENT from'} phase 7's in-process "
                 f"int8 run; warm hit {hit}")
             if hit != (run == "warm"):
@@ -2664,10 +2787,10 @@ def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
                 raise AssertionError(f"the {run} served run is not phase 7's in-process int8 run")
             out[run] = {"seconds": seconds, "pickle": pkl}
         metrics, _, seconds = _served("eval", "eval_amass_full", [f"--saved_data_path={out['cold']['pickle']}"], sock)
-        if metrics.keys() != ref["metrics"].keys() or not all(
-                np.array_equal(v, ref["metrics"][k], equal_nan=True) for k, v in metrics.items()):
+        if not same_result(metrics, ref["metrics"]):
             raise AssertionError(f"served eval_amass_full {metrics} differs from phase 7's {ref['metrics']}")
         out["eval_s"] = seconds
+        others = serve_other_clis(work, sock, video, single)
         try:
             _served("bad", "eval_amass_full", [f"--saved_data_path={work / 'missing.pkl'}"], sock)
             raise AssertionError("a bad request did not fail")
@@ -2684,18 +2807,20 @@ def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
     # the daemon's lines: one per request, in order
     lines = [SERVE_LINE.search(line) for line in log_path.read_text().splitlines()]
     lines = [m.groups() for m in lines if m]
-    want = {f"{fn.__name__}.{counter}": n for name, (fn, counter, _, _) in KERNELS.items()
-            if (n := ref["counts"][name])}
+    want = served_launches(ref["counts"])
+    requests = [("cold", "test_amass_full", want), ("warm", "test_amass_full", want),
+                ("data_parallel", "test_amass_full", want), ("eval", "eval_amass_full", {}), *others,
+                ("bad", "eval_amass_full", {})]
     smi = gpu_name_and_limit()
-    for (cmd, secs, ok, launches, peak), run in zip(lines, ("cold", "warm", "data_parallel", "eval", "bad")):
+    for (cmd, secs, ok, launches, peak), (run, want_cmd, want_launches) in zip(lines, requests):
         launches = json.loads(launches)
         peak_gib = int(peak) / 2**30 if peak != "None" else float("nan")
         log(f"[serve] daemon: {run} {cmd} {float(secs):.3f} s ok={ok}, peak device memory {peak_gib:.2f} GiB, "
             f"launches {launches} ({smi})")
-        if run in ("cold", "warm", "data_parallel") and launches != want:
-            raise AssertionError(f"the daemon's {run} run did not launch the int8 kernels as the chain implies: "
-                                 f"{launches} != {want}")
-    if [g[2] for g in lines] != ["True"] * 4 + ["False"]:
+        if cmd != want_cmd or launches != want_launches:
+            raise AssertionError(f"the daemon's {run} request ({cmd}) did not launch the kernels its path implies: "
+                                 f"{launches} != {want_launches}")
+    if [g[2] for g in lines] != ["True"] * (len(requests) - 1) + ["False"]:
         raise AssertionError(f"the daemon's request lines: {lines}")
 
     # the same argv as a process of its own
@@ -2707,7 +2832,7 @@ def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"python -m rohm_tpu_torch.cli.test_amass_full failed:\n{proc.stderr[-4000:]}")
     sub_pkl = work / "results_subprocess" / Path(ref["pickle"]).name
-    same = same_pickle(str(sub_pkl), ref["pickle"])
+    same = same_result(str(sub_pkl), ref["pickle"])
     log(f"[serve] client wall clock for phase 7's int8 argv (one batch of 32 clips): served cold "
         f"{out['cold']['seconds']:.2f} s, warm {out['warm']['seconds']:.2f} s, --data_parallel=True "
         f"{out['data_parallel']['seconds']:.2f} s; phase 7's in-process main() {ref['seconds']:.2f} s; a "
@@ -2725,6 +2850,19 @@ def serve_phase(seed: int, work: Path, body_path: Path, cli: dict) -> dict:
 TRAINED_MODES = (False, "f32", "bf16", "int8", "int8qa")
 
 
+@functools.cache
+def trained_fixture():
+    """tests/torch_trained/fixture.py, loaded by its path: a site-packages
+    `tests` package would shadow the repo's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "trained_fixture", Path(__file__).resolve().parent / "tests" / "torch_trained" / "fixture.py")
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    return fx
+
+
 def trained_phase(work: Path) -> dict:
     """The JAX-trained fixture of tests/torch_trained/ (TrajNet and
     TrajControl mid_dim 64, PoseNet 64d x 8 layers, dh 16, contacts
@@ -2737,15 +2875,9 @@ def trained_phase(work: Path) -> dict:
     flagship batch with its replayed noise (`run_batch(preset_noise=)`): the
     metrics within rel 1e-2 (or abs 1e-6) of the JAX package's in
     meta.json."""
-    import importlib.util
-
     from rohm_tpu_torch.cli import eval_amass_full, test_amass_full
 
-    # by its path: a site-packages `tests` package would shadow the repo's
-    spec = importlib.util.spec_from_file_location(
-        "trained_fixture", Path(__file__).resolve().parent / "tests" / "torch_trained" / "fixture.py")
-    fx = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fx)
+    fx = trained_fixture()
     card = gpu_name_and_limit()
     tree = work / "trained_amass"
     fx.write_tree(tree)
@@ -3061,7 +3193,7 @@ def main(argv=None) -> None:
     video = video_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     single = single_net_phase(args.seed, work, body_path, train["checkpoint"], trajtrain["checkpoints"])
     dp = data_parallel_phase(args.seed, work, body_path, cli, train, trajtrain)
-    serve_phase(args.seed, work, body_path, cli)
+    serve_phase(args.seed, work, body_path, cli, video["runs"], single)
     trained = trained_phase(work)
     shutil.rmtree(work)
     bench = bench_phase(args.seed, stats)

@@ -27,6 +27,8 @@ import numpy as np
 
 from rohm_tpu_torch.data.video import EGOBODY_FLOOR_HEIGHT, PROX_FLOOR_HEIGHT
 from rohm_tpu_torch.evals.metrics import (
+    accel_error,
+    accel_magnitude,
     egobody_mpjpe_set,
     ground_penetration_fixed_floor,
     skating_ratio_fixed_floor,
@@ -121,10 +123,8 @@ def evaluate_recording(saved_data: dict, dataset: str) -> dict:
         # global sum(l*mask)/sum(mask) over all recordings (:486-490)
         out["vis_sum"] = float(mask.sum())
         out["occ_sum"] = float((1 - mask).sum())
-        acc = lambda j: (j[:, 2:] - 2 * j[:, 1:-1] + j[:, :-2]) * 900.0
-        out["acc_error"] = float(np.linalg.norm(acc(rec_scene) - acc(gt_scene), axis=-1).mean())
-    acc_rec = (rec_scene[:, 2:] - 2 * rec_scene[:, 1:-1] + rec_scene[:, :-2]) * 900.0
-    out["acc_mag"] = float(np.linalg.norm(acc_rec, axis=-1).mean())
+        out["acc_error"] = accel_error(gt_scene, rec_scene)
+    out["acc_mag"] = accel_magnitude(rec_scene)
     out["skating"] = skating_ratio_fixed_floor(rec_scene, ground, up)
     out["pene_freq"], out["pene_dist"] = ground_penetration_fixed_floor(rec_scene, ground, up)
     return out

@@ -19,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from rohm_tpu_torch.diffusion.gaussian import p_mean_from_x0
+from rohm_tpu_torch.diffusion.gaussian import p_sample_step
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from rohm_tpu_torch.parallel.mesh import DataMesh, draw_rows
 
@@ -105,18 +105,12 @@ def p_sample_loop(
     pred_x0 = x
     for t in range(t_hi, t_lo - 1, -1):
         pred_x0 = model_fn(x, tmap[t])
-        mean, var, log_var = p_mean_from_x0(sched, pred_x0, x, t)
-        shift = _guidance_shift(guidance, pred_x0, t, var) if guidance else None
-        if shift is not None:
-            mean = mean + shift
+        shift = _guidance_shift(guidance, pred_x0, t, sched.posterior_variance[t]) if guidance else None
         if step_noise is not None:
             noise_t = step_noise[t].to(device=device, dtype=dtype)
         else:
             noise_t = draw_rows(randn, shape, mesh)
-        if t != 0:
-            x = mean + torch.exp(0.5 * log_var) * noise_t
-        else:
-            x = mean
+        x = p_sample_step(sched, pred_x0, x, t, noise=noise_t, mean_shift=0.0 if shift is None else shift)
     if early_stop_steps > 0:
         return pred_x0
     return x

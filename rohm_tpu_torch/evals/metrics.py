@@ -1,10 +1,10 @@
 """Benchmark metrics, formula-exact vs the reference eval scripts.
 
-A copy of the functions of rohm_tpu/evals/metrics.py that eval_amass_full
-and eval_prox_egobody use (reference eval_amass_full.py:72-147: MPJPE,
-contact accuracy, skating, acceleration, ground penetration;
-eval_prox_egobody.py:184-264: the fixed-floor skating and penetration and
-EgoBody's MPJPE set). Pure numpy on [n_seq, T, 22, 3] joint arrays in
+A copy of rohm_tpu/evals/metrics.py (reference eval_amass_full.py:72-147:
+MPJPE, contact accuracy, skating, acceleration, ground penetration;
+eval_prox_egobody.py:184-272: the fixed-floor skating and penetration,
+the acceleration magnitude and EgoBody's MPJPE set; test_trajnet.py:332-366:
+the root diagnostics). Pure numpy on [n_seq, T, 22, 3] joint arrays in
 meters, 30 fps.
 """
 
@@ -90,6 +90,12 @@ def accel_error(clean: np.ndarray, rec: np.ndarray) -> float:
     return float(np.linalg.norm(acc(rec) - acc(clean), axis=-1).mean())
 
 
+def accel_magnitude(rec: np.ndarray) -> float:
+    """Mean ||a|| (PROX, no GT; eval_prox_egobody.py:212-217)."""
+    acc = (rec[:, 2:] - 2 * rec[:, 1:-1] + rec[:, :-2]) * FPS**2
+    return float(np.linalg.norm(acc, axis=-1).mean())
+
+
 def ground_penetration(
     rec: np.ndarray, floor_joints: np.ndarray | None = None, up_axis: int = 2,
     thresh: float = 0.05,
@@ -142,3 +148,30 @@ def egobody_mpjpe_set(
         "mpjpe_vis": float((err * mask_joint_vis).sum() / max(vis_sum, 1)),
         "mpjpe_occ": float((err * (1 - mask_joint_vis)).sum() / max(occ_sum, 1)),
     }
+
+
+def trajnet_root_errors(
+    root_clean: np.ndarray, root_rec: np.ndarray,
+    rot_angle_clean: np.ndarray | None = None, rot_angle_rec: np.ndarray | None = None,
+) -> dict:
+    """TrajNet-only diagnostics (test_trajnet.py:332-366): per-axis root
+    position error (m), heading error (deg), jitter (3rd derivative, m/s^3)."""
+    out = {}
+    diff = np.abs(root_clean - root_rec)
+    out["root_x_err"] = float(diff[..., 0].mean())
+    out["root_y_err"] = float(diff[..., 1].mean())
+    out["root_z_err"] = float(diff[..., 2].mean())
+    jitter = lambda p: float(
+        np.linalg.norm(
+            (p[:, 3:] - 3 * p[:, 2:-1] + 3 * p[:, 1:-2] - p[:, :-3]) * FPS**3, axis=-1
+        ).mean()
+    )
+    out["root_jitter_rec"] = jitter(root_rec)
+    out["root_jitter_gt"] = jitter(root_clean)
+    if rot_angle_clean is not None:
+        # repr stores the half-angle (arctan2 trick); x2 for the full heading.
+        # No 360-deg wrap-around: the reference reports the raw absolute
+        # difference (test_trajnet.py:233,339), so +179 vs -179 deg counts as 358
+        d = np.rad2deg(np.abs(rot_angle_clean - rot_angle_rec)) * 2
+        out["root_rot_err_deg"] = float(d.mean())
+    return out

@@ -12,11 +12,12 @@ card is staged through host memory for every collective.
 
 Start-up, in this order: an explicit `init_method` with `rank` and
 `world_size`; the variables a launcher such as torchrun sets (RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), each rank on
-cuda:LOCAL_RANK; otherwise a group of one process. `spawn` starts one
-process per rank itself. Every group gets a timeout for each collective,
-so a lost rank fails the run instead of hanging it; a job as a whole may
-run as long as it needs.
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); otherwise a group of
+one process. A rank computes on cuda:LOCAL_RANK unless it is given a
+device; with no such card it raises, and runs on the CPU only when asked
+(device="cpu"). `spawn` starts one process per rank itself. Every group
+gets a timeout for each collective, so a lost rank fails the run instead
+of hanging it; a job as a whole may run as long as it needs.
 """
 
 from __future__ import annotations
@@ -61,6 +62,16 @@ class DataMesh:
             dist.destroy_process_group()
 
 
+def _cuda_devices(indices: list, caller: str, cpu_hint: str) -> list:
+    """cuda:i for each index; raises when a card is missing: the mesh never
+    moves to the CPU by itself."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if max(indices) >= count:
+        raise RuntimeError(f"{caller}: no CUDA device {max(indices)} on this host ({count} visible); "
+                           f"pass {cpu_hint} to run on the CPU")
+    return [torch.device("cuda", i) for i in indices]
+
+
 def launched() -> bool:
     """True under a launcher that set the torchrun variables."""
     return all(v in os.environ for v in LAUNCHER_VARS)
@@ -76,15 +87,16 @@ def data_parallel_mesh(device=None, backend: str | None = None, init_method: str
                        rank: int | None = None, world_size: int | None = None,
                        timeout_s: float = DEFAULT_TIMEOUT_S) -> DataMesh:
     """The mesh over every process of the job (start-up order in the module
-    docstring). device: this rank's device (default cuda:LOCAL_RANK when
-    CUDA is present, else the CPU); backend: "nccl" on a card, "gloo" on
-    the CPU unless given; timeout_s: the wait of each collective. Raises
-    if this process is already in a group."""
+    docstring). device: this rank's device (default cuda:LOCAL_RANK; with
+    no such card this raises: pass device="cpu" to run on the CPU);
+    backend: "nccl" on a card, "gloo" on the CPU unless given; timeout_s:
+    the wait of each collective. Raises if this process is already in a
+    group."""
     if dist.is_initialized():
         raise RuntimeError("this process is already in a torch.distributed group")
     if device is None:
-        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        device = _cuda_devices([int(os.environ.get("LOCAL_RANK", 0))], "data_parallel_mesh",
+                               'device="cpu"')[0]
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -238,14 +250,15 @@ def spawn(fn: Callable, world_size: int, args: tuple = (), devices=None, backend
     method), one rank each, and return their results in rank order. fn and
     args must pickle (fn at module level), and so must each result: return
     numpy arrays or plain Python values. devices: one per rank (default
-    cuda:rank with CUDA, else the CPU); init_method: a rendezvous URL
+    cuda:rank; with fewer cards than ranks this raises: pass
+    ["cpu"] * world_size to run on the CPU); init_method: a rendezvous URL
     (default a free localhost port); timeout_s: each collective's wait
     (default DEFAULT_TIMEOUT_S). The job itself has no time limit unless a
     deadline_s is given. A rank that raises or exits without a result, or
     a deadline that passes, ends every rank and raises."""
     if devices is None:
-        devices = ([torch.device("cuda", r) for r in range(world_size)] if torch.cuda.is_available()
-                   else [torch.device("cpu")] * world_size)
+        devices = _cuda_devices(list(range(world_size)), "spawn",
+                                'devices=["cpu"] * world_size (device="cpu" for every rank)')
     timeout_s = DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s
     init_method = init_method or f"tcp://127.0.0.1:{free_port()}"
     ctx = multiprocessing.get_context("spawn")

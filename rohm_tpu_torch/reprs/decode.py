@@ -1,4 +1,4 @@
-"""Motion-repr decoder: 294-d frames -> joints.
+"""Motion-repr decoder: 294-d frames -> joints / SMPL-X params.
 
 The port of rohm_tpu/reprs/decode.py (reference
 data_loaders/motion_representation.py:285-398), in its three modes:
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from rohm_tpu_torch.body.model import SmplxModel, forward_joints, forward_vertices
-from rohm_tpu_torch.geometry.rotations import qinv, qrot, rot6d_to_rotmat
+from rohm_tpu_torch.geometry.rotations import qinv, qrot, rot6d_to_rotmat, rotmat_to_aa
 from rohm_tpu_torch.reprs.schema import split_repr
 
 
@@ -41,6 +41,22 @@ def recover_root_rot_pos(data: torch.Tensor, mode: str = "abs") -> tuple[torch.T
     vel = torch.stack([_shift(data[..., 1]), _shift(data[..., 2]), zeros], dim=-1)
     pos = torch.cumsum(qrot(qinv(quat), vel), dim=-2)
     return quat, torch.cat([pos[..., :2], data[..., 3:4]], dim=-1)
+
+
+def repr_to_smplx_params(repr_dict: dict) -> dict:
+    """Convert the smplx-based repr blocks (a split_repr dict, denormalized)
+    to SMPL-X parameters in the axis-angle convention: global_orient
+    [..., 3], body_pose [..., 63], transl, betas."""
+    global_orient = rotmat_to_aa(rot6d_to_rotmat(repr_dict["smplx_rot_6d"]))
+    pose6d = repr_dict["smplx_body_pose_6d"]
+    pose_mats = rot6d_to_rotmat(pose6d.reshape(pose6d.shape[:-1] + (21, 6)))
+    body_pose = rotmat_to_aa(pose_mats).reshape(pose6d.shape[:-1] + (63,))
+    return {
+        "global_orient": global_orient,
+        "body_pose": body_pose,
+        "transl": repr_dict["smplx_trans"],
+        "betas": repr_dict["smplx_betas"],
+    }
 
 
 def recover_from_repr(

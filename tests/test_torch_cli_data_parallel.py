@@ -8,6 +8,7 @@ tolerance; and only rank 0 writes. Without the launcher variables the CLI
 runs a mesh of one rank, bit for bit the single-process run.
 """
 
+import functools
 import os
 import pickle
 import subprocess
@@ -26,6 +27,7 @@ import torch_dp_workers as workers
 from test_torch_train_trajnet import is_gauge
 from torch_dp_record import record_gradients
 
+from rohm_tpu_torch.cli import common as cli_common
 from rohm_tpu_torch.cli import test_amass_full, test_prox_egobody, train_posenet, train_trajnet
 from rohm_tpu_torch.cli.common import run_data_parallel
 from rohm_tpu_torch.parallel import mesh as mesh_mod
@@ -76,9 +78,12 @@ COLLECTIVE_TIMEOUT_S = 10  # forced on the spawned ranks below
 @pytest.fixture
 def two_cards(monkeypatch):
     """run_data_parallel's own start-up as on a host with two cards: the
-    parent sees two devices and spawns two ranks (on the CPU here, gloo),
-    whose collectives wait at most COLLECTIVE_TIMEOUT_S."""
+    parent sees two devices and spawns two ranks, whose collectives wait at
+    most COLLECTIVE_TIMEOUT_S. The ranks run on the CPU here (gloo): the
+    spawn it calls is given the CPU for each rank, since spawn's default
+    devices are the cards."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(cli_common, "spawn", functools.partial(mesh_mod.spawn, devices=[torch.device("cpu")] * 2))
     monkeypatch.setattr(mesh_mod, "DEFAULT_TIMEOUT_S", COLLECTIVE_TIMEOUT_S)
     for var in mesh_mod.LAUNCHER_VARS:
         monkeypatch.delenv(var, raising=False)

@@ -49,9 +49,9 @@ LR = 1e-4
 
 
 def ranks(tmp_path, fn, world: int, *args) -> list:
-    """fn(mesh, *args) on `world` spawned gloo ranks; each rank's result."""
-    return spawn(fn, world, args, init_method=f"file://{tmp_path}/rdzv{next(_rdzv)}", timeout_s=120,
-                 deadline_s=300)
+    """fn(mesh, *args) on `world` spawned gloo ranks on the CPU; each rank's result."""
+    return spawn(fn, world, args, devices=[torch.device("cpu")] * world,
+                 init_method=f"file://{tmp_path}/rdzv{next(_rdzv)}", timeout_s=120, deadline_s=300)
 
 
 def assert_same_adam_step(after: dict, ref_after: dict, ref_grads: dict, grad_tol: float, who: str,

@@ -9,6 +9,12 @@ metrics within rel 1e-2 or abs 1e-6 (tests/test_e2e_parity_trained.py's
 bound), and the final pose repr's max |port - JAX| at most twice the JAX
 pipeline's own max response to a 1e-5 perturbation of its TrajNet step
 noise (see test_torch_trained_parity.py, the flagship config's twin).
+`ground_pene_dist_mm`, the mean depth below the floor over every
+toe-frame of the 4 clips (0.13 mm, carried by a few toe-frames), moves
+under that lever by more than rel 1e-2 in the JAX package itself: it
+passes within max(rel 1e-2 |JAX|, abs 1e-6, twice the largest response
+of the JAX value to the lever draws of LEVER_SEEDS), as in the flagship
+file.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_trained_parity import (  # noqa: F401 (few_threads: a fixture)
-    LEVER_RATIO, assert_batch_is_the_fixtures, check_metric, few_threads, lever_noise, recording,
+    LEVER_RATIO, assert_batch_is_the_fixtures, check_metric, few_threads, lever_draws, recording,
 )
 from tests.torch_trained import fixture as fx
 
@@ -29,8 +35,6 @@ CONFIG = "legs"
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, few_threads):
-    import jax
-
     from tests.torch_trained import build_fixture as bf
 
     from rohm_tpu.cli import eval_amass_full as jeval
@@ -59,11 +63,9 @@ def runs(tmp_path_factory, few_threads):
         with open(out[side]["pickle"], "rb") as f:
             out[side]["saved"] = pickle.load(f)
     j = out["jax"]
-    out["lever_pose"] = np.asarray(j["pipeline"].run_batch(
-        *j["inputs"], jax.random.PRNGKey(0), preset_noise=lever_noise(noise))[0])
     pipe = j["pipeline"]
-    out["lever_metrics"] = bf.score(out["lever_pose"], j["inputs"][1], pipe.mean, pipe.std, fx.config(CONFIG),
-                                    pipe.body_model)
+    out.update(lever_draws(pipe, j["inputs"], noise, lambda pose: bf.score(
+        pose, j["inputs"][1], pipe.mean, pipe.std, fx.config(CONFIG), pipe.body_model)))
     out["port_metrics"], out["jax_metrics"] = out["port"]["metrics"], out["jax"]["metrics"]
     return out
 
