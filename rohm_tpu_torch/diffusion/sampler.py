@@ -10,6 +10,11 @@ the highest threshold run no guidance code at all.
 Each `GuidanceSpec` adds `weight * posterior_variance[t] * (-grad loss(pred_x0))`
 to the posterior mean, the gradient taken with torch.autograd.grad on a
 detached copy of pred_x0.
+
+Each step of p_sample_loop is a `step` span (utils/profiling.py), and the
+guidance at a step where a term applies a `guidance` span inside it. After
+each step's posterior step, every callable in `step_observers` is called
+with (sched, t, x_t, x_{t-1}, pred_x0 if the step was guided else None).
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ import torch
 from rohm_tpu_torch.diffusion.gaussian import p_sample_step
 from rohm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from rohm_tpu_torch.parallel.mesh import DataMesh, draw_rows
+from rohm_tpu_torch.utils.profiling import span
+
+# called after every step of p_sample_loop (see the module docstring)
+step_observers: list[Callable] = []
 
 
 @dataclass(frozen=True)
@@ -39,20 +48,23 @@ class GuidanceSpec:
 
 
 def _guidance_shift(guidance, pred_x0: torch.Tensor, t: int, var: torch.Tensor):
+    # thresholds compare the INTERNAL (spaced) step index, as the
+    # reference does; timestep_map remaps t for the model call only
+    if all(t > spec.t_threshold for spec in guidance):
+        return None
     shift = None
-    for spec in guidance:
-        # thresholds compare the INTERNAL (spaced) step index, as the
-        # reference does; timestep_map remaps t for the model call only
-        if t > spec.t_threshold:
-            continue
-        x0 = pred_x0.detach().requires_grad_()
-        with torch.enable_grad():
-            (grad,) = torch.autograd.grad(spec.loss_fn(x0), x0)
-        g = -grad
-        if spec.grad_mask is not None:
-            g = g * spec.grad_mask
-        term = spec.weight * var * g
-        shift = term if shift is None else shift + term
+    with span("guidance"):
+        for spec in guidance:
+            if t > spec.t_threshold:
+                continue
+            x0 = pred_x0.detach().requires_grad_()
+            with torch.enable_grad():
+                (grad,) = torch.autograd.grad(spec.loss_fn(x0), x0)
+            g = -grad
+            if spec.grad_mask is not None:
+                g = g * spec.grad_mask
+            term = spec.weight * var * g
+            shift = term if shift is None else shift + term
     return shift
 
 
@@ -104,13 +116,18 @@ def p_sample_loop(
         x = noise.to(device=device, dtype=dtype)
     pred_x0 = x
     for t in range(t_hi, t_lo - 1, -1):
-        pred_x0 = model_fn(x, tmap[t])
-        shift = _guidance_shift(guidance, pred_x0, t, sched.posterior_variance[t]) if guidance else None
-        if step_noise is not None:
-            noise_t = step_noise[t].to(device=device, dtype=dtype)
-        else:
-            noise_t = draw_rows(randn, shape, mesh)
-        x = p_sample_step(sched, pred_x0, x, t, noise=noise_t, mean_shift=0.0 if shift is None else shift)
+        with span("step", "t", t):
+            pred_x0 = model_fn(x, tmap[t])
+            shift = _guidance_shift(guidance, pred_x0, t, sched.posterior_variance[t]) if guidance else None
+            if step_noise is not None:
+                noise_t = step_noise[t].to(device=device, dtype=dtype)
+            else:
+                noise_t = draw_rows(randn, shape, mesh)
+            x_prev = p_sample_step(sched, pred_x0, x, t, noise=noise_t, mean_shift=0.0 if shift is None else shift)
+        if step_observers:
+            for observe in step_observers:
+                observe(sched, t, x, x_prev, None if shift is None else pred_x0)
+        x = x_prev
     if early_stop_steps > 0:
         return pred_x0
     return x

@@ -24,6 +24,11 @@ global batch on every rank, runs this rank's rows through both iterations
 every noise tensor at the global shape and keeps its rows, takes the
 guidance losses over the global batch, and returns the global outputs on
 every rank. The "f32" mode refuses a mesh, as in the JAX package.
+
+Spans (utils/profiling.py, recorded only under a torch.profiler profile):
+`batch` (the root) over run_batch, `chain.traj` and `chain.pose` (attribute
+`iteration`) over each chain, `bridge` over each traj_to_pose_bridge call;
+the sampler adds `step` and `guidance` inside the chains.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from rohm_tpu_torch.parallel.mesh import DataMesh, gather_rows, shard_rows
 from rohm_tpu_torch.reprs.encode import get_repr
 from rohm_tpu_torch.reprs.schema import TRAJ_FEAT_DIM_FULL, split_repr
 from rohm_tpu_torch.train.masking import UPPER_BODY_JOINTS, joint_mask_to_vec, lower_body_mask
+from rohm_tpu_torch.utils.profiling import span
 
 PRESET_NOISE_KEYS = ("traj_init", "traj_step", "pose_init", "pose_step")
 # the per-batch inputs of the 'prox' guidance
@@ -274,13 +280,15 @@ class RohmPipeline:
                 def traj_fn(x, tt, c=cur_traj_cond, cc=control_cond):
                     return self.trajcontrol(x, c, tt, control_cond=cc)
 
-            val_output_traj = p_sample_loop(
-                traj_fn, self.sched_traj, (b, t_traj, self.traj_feat_dim), generator,
-                mesh=self.mesh, **traj_kw,
-            )
-            traj_rec_full = traj_to_pose_bridge(
-                val_output_traj, traj_clean, mean, std, self.body_model, self.repr_abs_only
-            )  # [B, 143, 22]
+            with span("chain.traj", "iteration", iter_idx):
+                val_output_traj = p_sample_loop(
+                    traj_fn, self.sched_traj, (b, t_traj, self.traj_feat_dim), generator,
+                    mesh=self.mesh, **traj_kw,
+                )
+            with span("bridge"):
+                traj_rec_full = traj_to_pose_bridge(
+                    val_output_traj, traj_clean, mean, std, self.body_model, self.repr_abs_only
+                )  # [B, 143, 22]
 
             # PoseNet condition assembly (test_amass_full.py:318-333)
             if self.input_noise and not (self.iter2_cond_noisy_pose or iter_idx == 0):
@@ -295,10 +303,11 @@ class RohmPipeline:
                 # full-body window inside each iteration
                 cond = cond * pose_mask[iter_idx]
 
-            val_output_pose = p_sample_loop(
-                self._pose_model_fn(cond), self.sched_pose, (b, t_pose, cond.shape[-1]),
-                generator, guidance=guidance, early_stop_steps=early, mesh=self.mesh, **pose_kw,
-            )
+            with span("chain.pose", "iteration", iter_idx):
+                val_output_pose = p_sample_loop(
+                    self._pose_model_fn(cond), self.sched_pose, (b, t_pose, cond.shape[-1]),
+                    generator, guidance=guidance, early_stop_steps=early, mesh=self.mesh, **pose_kw,
+                )
         return val_output_pose, val_output_traj
 
     def run_batch(self, traj_cond, traj_clean, pose_noisy, pose_mask, traj_mask,
@@ -310,32 +319,34 @@ class RohmPipeline:
         (GUIDANCE_DATA_KEYS: transf_matrix [B,4,4], cam_r [3,3], cam_t [3],
         focal_length [B,2], camera_center [B,2], keypoints_2d [B,T,22,3]);
         they move to the pipeline's device once per batch. Under a mesh
-        every argument is the global batch and so are the outputs."""
-        _full_f32()  # again per batch: a resident pipeline outlives the switches its process set
-        dev = self.device
+        every argument is the global batch and so are the outputs. The
+        whole call is the root span `batch`."""
+        with span("batch", root=True):
+            _full_f32()  # again per batch: a resident pipeline outlives the switches its process set
+            dev = self.device
 
-        def as_t(a):
-            return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
-                                   dtype=torch.float32, device=dev)
+            def as_t(a):
+                return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                                       dtype=torch.float32, device=dev)
 
-        pn = dict(preset_noise or {})
-        unknown = set(pn) - set(PRESET_NOISE_KEYS)
-        if unknown:
-            raise ValueError(
-                f"unknown preset_noise key(s) {sorted(unknown)}; "
-                f"valid keys: {sorted(PRESET_NOISE_KEYS)} (any subset — absent keys "
-                "fall back to generator sampling)"
-            )
-        pn = {k: as_t(v) for k, v in pn.items()}
-        gd = {k: as_t(v) for k, v in (guidance_data or {}).items()}
-        pm = as_t(pose_mask)
-        if pm.dim() == 3:  # one mask for every iteration
-            pm = pm.expand((self.sample_iter,) + tuple(pm.shape))
-        mesh = self.mesh
-        if mesh is not None:  # this rank's rows; the mask's batch axis is 1
-            pn = {k: shard_rows(v, mesh, PRESET_NOISE_BATCH_AXIS[k]) for k, v in pn.items()}
-            gd = {k: shard_rows(v, mesh) if k in GUIDANCE_BATCH_KEYS else v for k, v in gd.items()}
-            pm = shard_rows(pm, mesh, 1)
-        rows = [shard_rows(as_t(a), mesh) for a in (traj_cond, traj_clean, pose_noisy)]
-        pose, traj = self._run(*rows, pm, shard_rows(as_t(traj_mask), mesh), generator, gd, pn)
-        return gather_rows(pose, mesh), gather_rows(traj, mesh)
+            pn = dict(preset_noise or {})
+            unknown = set(pn) - set(PRESET_NOISE_KEYS)
+            if unknown:
+                raise ValueError(
+                    f"unknown preset_noise key(s) {sorted(unknown)}; "
+                    f"valid keys: {sorted(PRESET_NOISE_KEYS)} (any subset — absent keys "
+                    "fall back to generator sampling)"
+                )
+            pn = {k: as_t(v) for k, v in pn.items()}
+            gd = {k: as_t(v) for k, v in (guidance_data or {}).items()}
+            pm = as_t(pose_mask)
+            if pm.dim() == 3:  # one mask for every iteration
+                pm = pm.expand((self.sample_iter,) + tuple(pm.shape))
+            mesh = self.mesh
+            if mesh is not None:  # this rank's rows; the mask's batch axis is 1
+                pn = {k: shard_rows(v, mesh, PRESET_NOISE_BATCH_AXIS[k]) for k, v in pn.items()}
+                gd = {k: shard_rows(v, mesh) if k in GUIDANCE_BATCH_KEYS else v for k, v in gd.items()}
+                pm = shard_rows(pm, mesh, 1)
+            rows = [shard_rows(as_t(a), mesh) for a in (traj_cond, traj_clean, pose_noisy)]
+            pose, traj = self._run(*rows, pm, shard_rows(as_t(traj_mask), mesh), generator, gd, pn)
+            return gather_rows(pose, mesh), gather_rows(traj, mesh)
