@@ -276,13 +276,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the launch counters of helper kernels that replace no part of a TPU kernel:
+# gemm_f32's weight split, once per f32 weight of a model loaded
+HELPERS = {"split_tf32": (l32.split_tf32, "launches")}
+
+
 def reset_launches() -> None:
     for fn, counter, _, _ in KERNELS.values():
+        setattr(fn, counter, 0)
+    for fn, counter in HELPERS.values():
         setattr(fn, counter, 0)
 
 
 def read_launches() -> dict:
     return {name: getattr(fn, counter) for name, (fn, counter, _, _) in KERNELS.items()}
+
+
+def read_helper_launches() -> dict:
+    """The helpers' launches since reset_launches, as the daemon's log names them."""
+    return {f"{fn.__name__}.{counter}": n for fn, counter in HELPERS.values() if (n := getattr(fn, counter))}
 
 
 # ---------------------------------------------------------------------------
@@ -679,6 +691,29 @@ def kernel_phase(seed: int) -> dict:
               lambda: l32.gemm_f32_plain(a, w, bias, mode, scale, D), stats, "gemm_f32",
               2 * a.shape[0] * a.shape[1] * w.shape[0], nbytes(a, w, bias, got), "f32",
               lib(lambda: torch.matmul(a, w.t()), "torch.matmul"))
+    # the same four products at the f32 benchmark cell's 64 x 145 rows (the
+    # benchmark's PoseNet steps), timed apart from the 32 x 144 layer above
+    r2 = 64 * 145
+    for name, a, w, bias, mode in (
+        ("gemm_f32 qkv [9280,512]x[1536,512]^T", randn(r2, D), sa.in_proj_weight, sa.in_proj_bias, "qkv"),
+        ("gemm_f32 out [9280,512]x[512,512]^T", randn(r2, D), sa.out_proj.weight, sa.out_proj.bias, "bias"),
+        ("gemm_f32 ff1+gelu [9280,512]x[1024,512]^T", randn(r2, D), layer.linear1.weight, layer.linear1.bias,
+         "gelu"),
+        ("gemm_f32 ff2 [9280,1024]x[512,1024]^T", randn(r2, F), layer.linear2.weight, layer.linear2.bias, "bias"),
+    ):
+        w, bias = w.detach(), bias.detach()
+        got, ref = l32.gemm_f32(a, w, bias, mode, scale, D), l32.gemm_f32_plain(a, w, bias, mode, scale, D)
+        gate = 1e-5 * ref.abs().max().item() + 1e-6
+        _check(name, got, ref, gate, "f32 accumulation order, 1e-5 of max|ref|", stats, "gemm_f32")
+        log(f"[kernels] {name}: worst error {(got - ref).abs().max().item() / gate:.4f} of its gate")
+        _time(name, lambda: l32.gemm_f32(a, w, bias, mode, scale, D),
+              lambda: l32.gemm_f32_plain(a, w, bias, mode, scale, D), stats, "gemm_f32 at 64 x 145",
+              2 * a.shape[0] * a.shape[1] * w.shape[0], nbytes(a, w, bias, got), "f32",
+              lib(lambda: torch.matmul(a, w.t()), "torch.matmul"))
+    st = stats["gemm_f32 at 64 x 145"]
+    log(f"[kernels] gemm_f32's four products at 64 x 145 rows: on the card {st['card_ms']:.4f} ms, bound "
+        f"{st['bound_ms']:.4f} ms ({100 * st['bound_ms'] / st['card_ms']:.1f} % of it); 32 x 144: "
+        f"{stats['gemm_f32']['card_ms']:.4f} / {stats['gemm_f32']['bound_ms']:.4f} ms")
 
     qkv32 = l32.gemm_f32(x32, sa.in_proj_weight.detach(), sa.in_proj_bias.detach(), "qkv", scale, D)
     got, ref = l32.attention_f32(qkv32, S, H), l32.attention_f32_plain(qkv32, S, H)
@@ -2341,11 +2376,14 @@ def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, 
     argv = [*common, f"--model_path={posenet_ckpt}", "--fused_posenet=True", "--cond_fn_with_grad=True",
             "--early_stop=True", "--save_results=True", "--max_batches=1"]
     mpjpe, seconds, chains = run_timed_cli(test_posenet, "make_posenet_sampler", argv + [f"--save_root={save_root}"])
-    counts = read_launches()
+    counts, helpers = read_launches(), read_helper_launches()
     expected = forward_launches("f32", SINGLE_POSE_FORWARDS)
-    log(f"[single] test_posenet fused f32, guided, early stop: launches {counts}; expected {expected}")
+    log(f"[single] test_posenet fused f32, guided, early stop: launches {counts}; expected {expected}; "
+        f"weight splits {helpers}")
     if counts != expected:
         raise AssertionError("test_posenet did not go through K1's kernels as the chain implies")
+    if helpers != {"split_tf32.launches": 4 * LAYERS}:  # each of the model's f32 layer weights, once
+        raise AssertionError(f"test_posenet split its weights {helpers} times, not once each ({4 * LAYERS})")
     for name in launches:
         launches[name] += counts[name]
     pkl = save_root / f"test_posenet_mask_lower_grad_True_seed_{seed}.pkl"
@@ -2363,7 +2401,7 @@ def single_net_phase(seed: int, work: Path, body_path: Path, posenet_ckpt: str, 
         f"({SINGLE_POSE_FORWARDS} fused f32 steps, 31 guided), main() {seconds:.2f} s, "
         f"mpjpe_global {mpjpe * 1000:.1f} mm, pickle {pkl.name}")
     out["posenet"] = {"chain_s": chains[0], "main_s": seconds, "mpjpe_m": mpjpe, "argv": argv, "pickle": str(pkl),
-                      "counts": counts}
+                      "counts": counts, "helper_counts": helpers}
     out["vertices"] = vertices_check(seed, body_path)
     return {"launches": launches, "runs": out}
 
@@ -2712,7 +2750,7 @@ def serve_other_clis(work: Path, sock: str, video: dict, single: dict) -> list:
         f"{trajnet_s:.2f} s, in-process main() {trajnet['main_s']:.2f} s ({smi})")
     return [("prox", "test_prox_egobody", served_launches(prox["counts"])),
             ("prox_eval", "eval_prox_egobody", {}),
-            ("posenet", "test_posenet", served_launches(posenet["counts"])),
+            ("posenet", "test_posenet", {**served_launches(posenet["counts"]), **posenet["helper_counts"]}),
             ("trajnet", "test_trajnet", {})]
 
 

@@ -38,6 +38,7 @@ SIGNATURES = {
     "rt_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_gemm_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_gemm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "rt_split_tf32": [_P, _P, ctypes.c_longlong, _P],
     "rt_attention_bf16": [_P, _P, _I, _I, _I, _I, _I, _P],
     "rt_attention_f32": [_P, _P, _I, _I, _I, _I, _P],
     "rt_attention_int8": [_P, _P, _I, _I, _I, _I, _P],

@@ -153,8 +153,8 @@ __device__ __forceinline__ int copy_bytes(int8_t* dst, const int8_t* src, size_t
 }
 
 // ---------------------------------------------------------------------------
-// 3xTF32 (f32_gemm.cuh and attention_tf32.cuh; the error budget is in
-// f32_gemm.cuh's head)
+// 3xTF32 (f32_gemm.cuh, f32_wgmma.cuh, gemm_f32.cu's weight split and
+// attention_tf32.cuh; the error budget is in f32_gemm.cuh's head)
 // ---------------------------------------------------------------------------
 
 // x = big + small: big is x rounded to TF32 (10 explicit mantissa bits) to

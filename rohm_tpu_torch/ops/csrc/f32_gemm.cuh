@@ -1,7 +1,7 @@
-// The Hopper f32 GEMM main loop of the port, shared by gemm_f32.cu (the f32
-// inference layer's products) and gemm_train.cu (the f32 mode of the
-// training products): C tile [TB_M x TB_N] = op(A) . op(B) with f32-accurate
-// sums, then an epilogue that each caller supplies.
+// The f32 GEMM main loop of gemm_train.cu (the f32 mode of the training
+// products; the f32 inference layer's gemm_f32.cu runs the wgmma loop of
+// f32_wgmma.cuh, with the same arithmetic): C tile [TB_M x TB_N] = op(A) .
+// op(B) with f32-accurate sums, then an epilogue that the caller supplies.
 //
 // 3xTF32 on the tensor cores. Each operand element x is split in registers,
 // after its fragment is loaded from shared memory, into two TF32 operands:
@@ -24,14 +24,17 @@
 // products of one 32-deep k-step sum into a partial accumulator that
 // starts at zero, and each partial is added to the running sum rounded to
 // nearest (__fadd_rn). Against the gates of the callers (2e-5 sum|a||b|
-// for gemm_train, 1e-5 max|ref| + 1e-6 for gemm_f32) the products then
-// reach at most ~0.03 and ~0.14 at the layers' shapes; chip_smoke.py logs
-// each product's worst error as a fraction of its gate.
+// for gemm_train, 1e-5 max|ref| + 1e-6 for gemm_f32, whose wgmma loop
+// keeps this budget) the products then reach at most ~0.03 and ~0.14 at
+// the layers' shapes; chip_smoke.py logs each product's worst error as a
+// fraction of its gate.
 //
-// Why mma.sync and not wgmma: wgmma takes tf32 operands only as K-major
-// tiles in shared memory, and two of the three training layouts have an
-// MN-major operand (dY.W: B stored [K, N]; dY^T.X: A stored [K, M], B
-// stored [K, N]). Fragments in registers take either layout.
+// Why mma.sync and not wgmma, for the training layouts: wgmma takes tf32
+// operands only K-major (B in shared memory, A there or in registers), and
+// two of the three training layouts have an MN-major operand (dY.W: B
+// stored [K, N]; dY^T.X: A stored [K, M], B stored [K, N]). Fragments in
+// registers take either layout. gemm_f32's products (A [M, K], W [N, K])
+// are K-major on both sides, so they run on wgmma.
 //
 // Operands come through a ring of STAGES shared-memory stages filled by
 // cp.async 16-byte copies, each operand in its stored layout:
@@ -51,11 +54,12 @@
 //
 // 32 x 32 outputs per warp (2 x 4 mma tiles of 16 x 8), 64 x 64 tiles of 4
 // warps in 3 stages (55 KB, 124 registers): four blocks per SM. On the
-// card the f32 layer's products took 1.10x as long on 128 x 64 tiles (2
-// per SM), 1.30x on 128 x 128 (1 per SM), 1.00x and 1.28x in 4 and 2
-// stages (rohm_tpu_torch/scripts/f32_gemm_variants.py measures each
-// choice; transformer_layer_train.GEMM_TILES[False] repeats the tile for
-// the split-K plan).
+// card the f32 inference layer's products (which this loop ran before
+// f32_wgmma.cuh) took 1.10x as long on 128 x 64 tiles (2 per SM), 1.30x on
+// 128 x 128 (1 per SM), 1.00x and 1.28x in 4 and 2 stages
+// (rohm_tpu_torch/scripts/f32_gemm_variants.py measures each choice;
+// transformer_layer_train.GEMM_TILES[False] repeats the tile for the
+// split-K plan).
 // When the main loop is done the tile is staged in shared memory (the ring
 // is free by then) and the epilogue runs as one rolled loop over float4
 // rows of it: epi(m, n, v) for each in-bounds m and n = 4i (N % 4 == 0),

@@ -20,6 +20,8 @@ live here; the residual LayerNorm is shared (ops/kernel_common.py).
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
@@ -61,6 +63,49 @@ def gemm_f32_plain(a, w, bias, mode: str, scale: float = 1.0, scale_cols: int = 
     raise ValueError(f"gemm_f32: unknown mode {mode!r}")
 
 
+def split_tf32_plain(w: torch.Tensor) -> torch.Tensor:
+    """w f32 -> [2, *w.shape]: its TF32 halves, big = w rounded to TF32 (10
+    explicit mantissa bits) to nearest, ties away from zero, and small = w -
+    big (exact in f32), as rohm::split computes them."""
+    big = ((w.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.stack([big, w - big])
+
+
+_HALVES: dict[int, tuple] = {}  # id(w) -> (weakref to w, w's state, its halves)
+
+
+def split_tf32(w: torch.Tensor) -> torch.Tensor:
+    """The TF32 halves [2, N, K] of a weight w [N, K] f32, as gemm_f32
+    takes it: split once and kept while w lives and is unchanged (the same
+    storage and version counter: every in-place update moves the counter,
+    so an updated weight is split again before its next product; a write
+    through `w.data` does not, and is not seen). An inference tensor has no
+    counter, and a split inside a CUDA graph's capture runs at each replay:
+    both are split at every call. CUDA: split_tf32_kernel in
+    csrc/gemm_f32.cu, elementwise."""
+    uncached = w.is_inference()
+    state = None if uncached else (w._version, w.data_ptr(), w.shape, w.device)
+    hit = _HALVES.get(id(w))
+    if state is not None and hit is not None and hit[0]() is w and hit[1] == state:
+        return hit[2]
+    if w.device.type == "cpu":
+        halves = split_tf32_plain(w)
+    else:
+        uncached = uncached or torch.cuda.is_current_stream_capturing()
+        check_cuda(w, torch.float32, 2, "w")
+        halves = torch.empty((2, *w.shape), dtype=torch.float32, device=w.device)
+        launch("rt_split_tf32", ptr(w), ptr(halves), w.numel(), stream())
+        split_tf32.launches += 1
+    if not uncached:
+        if hit is None or hit[0]() is not w:
+            weakref.finalize(w, _HALVES.pop, id(w), None)
+        _HALVES[id(w)] = (weakref.ref(w), state, halves)
+    return halves
+
+
+split_tf32.launches = 0
+
+
 def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str,
              scale: float = 1.0, scale_cols: int = 0) -> torch.Tensor:
     """a [M, K] f32 @ w [N, K] f32 (a Linear weight) ^T with f32-accurate
@@ -68,15 +113,15 @@ def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str,
     columns < scale_cols times `scale`; "gelu": + bias, exact-erf gelu.
 
     Replaces the dense products of _layer_kernel. CUDA: csrc/gemm_f32.cu on
-    the f32 main loop of csrc/f32_gemm.cuh: 3xTF32 on the tensor cores
-    (each operand split into two TF32 values, three mma.sync products, the
-    small terms first), fed by a cp.async ring. Error budget: the dropped
-    terms are <= ~3 2^-21 |a||b| per product, and each 32-deep k-step's
-    partial sum is added to the running one rounded to nearest, within
-    chip_smoke.py's gate of 1e-5 max|ref| + 1e-6 against torch's f32
+    the main loop of csrc/f32_wgmma.cuh: 3xTF32 on wgmma (a split into two
+    TF32 values in registers, w into its halves once, by `split_tf32`;
+    three products, the small terms first), fed by TMA. Error budget: the
+    dropped terms are <= ~3 2^-21 |a||b| per product, and each 32-deep
+    k-step's partial sum is added to the running one rounded to nearest,
+    within chip_smoke.py's gate of 1e-5 max|ref| + 1e-6 against torch's f32
     product (tests/test_torch_gemm_f32_numerics.py emulates it). Bound by
     its operations: three TF32 passes, 165 TFLOP/s on an H100. N and K
-    multiples of 4."""
+    multiples of 4. One launch per call, besides a weight's first split."""
     if a.device.type == "cpu":
         return gemm_f32_plain(a, w, bias, mode, scale, scale_cols)
     if mode not in GEMM_F32_MODES:
@@ -88,8 +133,9 @@ def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mode: str,
     n = w.shape[0]
     if w.shape[1] != k or bias.shape[0] != n or n % 4 or k % 4:
         raise ValueError(f"gemm_f32: shapes {tuple(a.shape)} @ {tuple(w.shape)}^T unsupported")
+    halves = split_tf32(w)
     out = torch.empty(m, n, dtype=torch.float32, device=a.device)
-    launch("rt_gemm_f32", ptr(a), ptr(w), ptr(bias), ptr(out), m, n, k, GEMM_F32_MODES[mode],
+    launch("rt_gemm_f32", ptr(a), ptr(halves), ptr(bias), ptr(out), m, n, k, GEMM_F32_MODES[mode],
            scale, scale_cols, stream())
     gemm_f32.launches += 1
     return out

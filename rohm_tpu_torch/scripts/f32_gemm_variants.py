@@ -1,31 +1,47 @@
-"""Variants of the f32 GEMM main loop (csrc/f32_gemm.cuh) against the shipped one, on one card.
+"""Variants of the f32 GEMM main loops against the shipped ones, on one card.
 
     python -m rohm_tpu_torch.scripts.f32_gemm_variants [--seed 0] [--only NAME ...]
 
 Builds the shipped kernel library, then each variant: a copy of
-`rohm_tpu_torch/ops/csrc/` with one design choice edited (the tile, the
+`rohm_tpu_torch/ops/csrc/` with one design choice edited, compiled with the
+library's own nvcc flags into a library of its own under
+`rohm_tpu_torch/_build/variants/`. Variants of `gemm_f32`'s wgmma loop
+(csrc/f32_wgmma.cuh; its shape is set in csrc/gemm_f32.cu): the tiles
+(128 x 128 on a persistent grid for N above 1024, 128 x 64 one per block
+up to it, shipped; either throughout, with or without the persistent
+grid), the ring's depth, where W is split (route (a), shipped: once per
+weight, outside the product; route (b): in shared memory, each landed
+stage), and the mma.sync loop that `gemm_f32` ran before it
+(csrc/f32_gemm.cuh on the raw weight). Variants
+of `gemm_train`'s f32 mma.sync loop (csrc/f32_gemm.cuh): the tile, the
 ring's depth, how an operand is split into TF32 halves, the partial sums,
-the split-K plan), compiled with the library's own nvcc flags into a
-library of its own under `rohm_tpu_torch/_build/variants/`. The wrappers
-then launch each library in turn in this one process, on the same inputs:
-the four products of an f32 inference layer (`gemm_f32`, 32 x 144 tokens,
-D = 512, F = 1024, weights at a Linear layer's scale) and the 12 layouts
-of an f32 training layer (`gemm_train`, 64 x 145 rows, no epilogue). For
-each it prints the time on the card alone with a cold L2 (`card_ms`) and
-the worst error as a fraction of `chip_smoke.py`'s gates (1e-5 max|ref| +
-1e-6; 2e-5 sum|a||b|). A microbenchmark first measures what `mma.sync`
-m16n8k8 tf32 issues alone (8 independent accumulators a warp, 3 products
-each step) and with 16 operand splits per 24 products, by `cvt.rna` and by
-integer rounding. The card's name and power limit head the output. It
-runs only on a CUDA device.
+the split-K plan. Each library is then measured in a process of its own
+(a variant that faults costs only its own line), on the same inputs from
+the seed: the four products of an f32 inference
+layer (`gemm_f32` at 32 x 144 and at 64 x 145 tokens, D = 512, F = 1024,
+weights at a Linear layer's scale) and the 12 layouts of an f32 training
+layer (`gemm_train`, 64 x 145 rows, no epilogue). For each it prints the
+time on the card alone with a cold L2 (`card_ms`) beside the bound of the
+four inference products (three TF32 passes at 165 TFLOP/s) and the worst
+error as a fraction of `chip_smoke.py`'s gates (1e-5 max|ref| + 1e-6;
+2e-5 sum|a||b|), and `torch.matmul` at the same shapes with TF32 off and
+on (one pass: the one-pass yardstick, which the port never calls). A
+microbenchmark first measures what `mma.sync` m16n8k8 tf32 issues alone
+(8 independent accumulators a warp, 3 products each step) and with 16
+operand splits per 24 products, by `cvt.rna` and by integer rounding. The
+card's name and power limit head the output. It runs only on a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
+import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
@@ -36,7 +52,8 @@ from rohm_tpu_torch.ops import transformer_layer_train as lt
 from rohm_tpu_torch.scripts.ab_train_kernels import card_ms
 
 D, F, H = 512, 1024, 4
-ROWS_INF, ROWS_TRAIN = 32 * 144, 64 * 145
+ROWS_INF, ROWS_TRAIN = (32 * 144, 64 * 145), 64 * 145
+PEAK_F32 = 495e12 / 3  # three TF32 passes on an H100 SXM
 
 # the shipped split, and its alternatives
 SPLIT = """  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
@@ -58,8 +75,34 @@ def _tile(m: int, n: int, stages: int) -> list:
     return [("f32_gemm.cuh", SHIPPED_TILE, f"TB_M = {m}, TB_N = {n}, TB_K = 32, STAGES = {stages};")]
 
 
+SHIPPED_SHAPE = "constexpr int NARROW_BN = 64, WIDE_ABOVE = 1024, STAGES = 3;\nconstexpr bool WIDE_PERSIST = true;"
+
+
+def _wgmma(narrow_bn: int = 64, wide_above: int = 1024, stages: int = 3, wide_persist: bool = True) -> list:
+    return [("gemm_f32.cu", SHIPPED_SHAPE,
+             f"constexpr int NARROW_BN = {narrow_bn}, WIDE_ABOVE = {wide_above}, STAGES = {stages};\n"
+             f"constexpr bool WIDE_PERSIST = {str(wide_persist).lower()};")]
+
+
+SPLIT_B = [("gemm_f32.cu", "f32g::launch<128, STAGES, WIDE_PERSIST, false>", "f32g::launch<128, STAGES, WIDE_PERSIST, true>"),
+           ("gemm_f32.cu", "f32g::launch<NARROW_BN, STAGES, false, false>", "f32g::launch<NARROW_BN, STAGES, false, true>")]
+MMA_SYNC = [("gemm_f32.cu", '#include "f32_wgmma.cuh"', '#include "f32_gemm.cuh"'),
+            ("gemm_f32.cu", "f32g::launch<128, STAGES, WIDE_PERSIST, false>(A, W2, M, N, K, epi, s)",
+             "f32g::launch<false, true>(A, W2, M, N, K, 1, K, epi, s)"),
+            ("gemm_f32.cu", "f32g::launch<NARROW_BN, STAGES, false, false>(A, W2, M, N, K, epi, s)",
+             "f32g::launch<false, true>(A, W2, M, N, K, 1, K, epi, s)")]
+NO_WIDE = 1 << 30  # every product on the narrow tiles
+
 # name -> [(file, text, replacement)]
 VARIANTS = {
+    "wgmma 128x128 persistent throughout": _wgmma(wide_above=0),
+    "wgmma 128x128 one tile per block throughout": _wgmma(wide_above=0, wide_persist=False),
+    "wgmma 128x64 throughout": _wgmma(wide_above=NO_WIDE),
+    "wgmma 128x64 persistent throughout": [*_wgmma(wide_above=0), (
+        "gemm_f32.cu", "f32g::launch<128, STAGES, WIDE_PERSIST, false>", "f32g::launch<64, STAGES, WIDE_PERSIST, false>")],
+    "wgmma 2 stages": _wgmma(stages=2),  # 4 do not fit beside the persistent grid's staging tile
+    "wgmma route (b): W split in smem": SPLIT_B,
+    "mma.sync loop (before wgmma)": MMA_SYNC,
     "tile 128x64, 4 stages": _tile(128, 64, 4),
     "tile 128x128, 4 stages": _tile(128, 128, 4),
     "tile 64x128, 4 stages": _tile(64, 128, 4),
@@ -72,6 +115,8 @@ VARIANTS = {
     "one TF32 pass": [("f32_gemm.cuh", "          mma_tf32(part[i][j], as[i], bb[0], bb[1]);\n"
                                        "          mma_tf32(part[i][j], ab[i], bs[0], bs[1]);\n", "")],
 }
+# the variants whose gemm_f32 reads the weight as it is stored, not its halves
+RAW_WEIGHT = {"wgmma route (b): W split in smem", "mma.sync loop (before wgmma)"}
 
 PEAK_SRC = r"""
 #include <cuda_runtime.h>
@@ -163,14 +208,22 @@ def _load(path: Path, entries: tuple) -> ctypes.CDLL:
     return lib
 
 
+ENTRIES = ("rt_gemm_f32", "rt_split_tf32", "rt_gemm_train")
+MODULE = "rohm_tpu_torch.scripts.f32_gemm_variants"
+SPLIT_K_4 = "split-K for four blocks per SM"  # the shipped library, the weight gradients split for 4 blocks per SM
+
+
+def variant_dir(name: str) -> Path:
+    return _build.BUILD_ROOT / "variants" / name.replace(" ", "_").replace(",", "").replace(".", "")
+
+
 def build_libraries(edits: dict, sources: tuple, entries: tuple) -> dict:
     """name -> loaded library of `sources` (and errors.cu) compiled from a
     copy of csrc/ with that name's edits [(file, text, replacement)], whose
     C `entries` the wrappers call; all nvcc processes run at once."""
-    root = _build.BUILD_ROOT / "variants"
     jobs = []
     for name, edit in edits.items():
-        d = root / name.replace(" ", "_").replace(",", "").replace(".", "")
+        d = variant_dir(name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
         for fname, text, repl in edit:
@@ -187,8 +240,9 @@ def build_libraries(edits: dict, sources: tuple, entries: tuple) -> dict:
     for name, d, objs, procs in jobs:
         outs = [p.communicate()[0] for p in procs]
         (d / "build.log").write_text("\n".join(outs))
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"variant {name!r} failed to build:\n" + "\n".join(outs)[-3000:])
+        failed = [out for p, out in zip(procs, outs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"variant {name!r} failed to build:\n" + failed[0][-3000:])
         _nvcc(["-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(d / "lib.so"),
                *(str(o) for o in objs)], name)
         libs[name] = _load(d / "lib.so", entries)
@@ -197,8 +251,7 @@ def build_libraries(edits: dict, sources: tuple, entries: tuple) -> dict:
 
 def build_variants(names: list) -> dict:
     """name -> loaded library of the GEMM variant."""
-    return build_libraries({name: VARIANTS[name] for name in names}, ("gemm_f32.cu", "gemm_train.cu"),
-                           ("rt_gemm_f32", "rt_gemm_train"))
+    return build_libraries({name: VARIANTS[name] for name in names}, ("gemm_f32.cu", "gemm_train.cu"), ENTRIES)
 
 
 def mma_peak() -> dict:
@@ -214,8 +267,9 @@ def mma_peak() -> dict:
 
 
 def workload(seed: int) -> tuple:
-    """The four inference products (name, a, w, bias, mode) and the 12
-    training layouts (name, gemm_train kwargs)."""
+    """The four inference products (name, a, w, bias, mode) at each of
+    ROWS_INF, {rows: [...]}, and the 12 training layouts (name, gemm_train
+    kwargs)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -224,9 +278,11 @@ def workload(seed: int) -> tuple:
     def linear(n, k):  # a Linear weight [out, in] at its init scale
         return (2 * torch.rand(n, k, generator=g, device="cuda") - 1) * k ** -0.5
 
-    inference = [(name, randn(ROWS_INF, k), linear(n, k), 0.1 * randn(n), mode)
-                 for name, k, n, mode in (("qkv", D, 3 * D, "qkv"), ("out", D, D, "bias"),
-                                          ("ff1", D, F, "gelu"), ("ff2", F, D, "bias"))]
+    weights = {name: (linear(n, k), 0.1 * randn(n))
+               for name, k, n in (("qkv", D, 3 * D), ("out", D, D), ("ff1", D, F), ("ff2", F, D))}
+    inference = {rows: [(name, randn(rows, w.shape[1]), w, bias, mode)
+                        for (name, (w, bias)), mode in zip(weights.items(), ("qkv", "bias", "gelu", "bias"))]
+                 for rows in ROWS_INF}
     r = ROWS_TRAIN
     x, attn, y1, gld = randn(r, D), randn(r, D), randn(r, D), randn(r, F)
     df, dh1, do, dqkv = randn(r, D), randn(r, F), randn(r, D), randn(r, 3 * D)
@@ -240,15 +296,25 @@ def workload(seed: int) -> tuple:
     return inference, training
 
 
-def measure(inference: list, training: list) -> dict:
-    """Card time and worst error / gate of the four and of the 12 products
-    with whichever library `_build.library` returns."""
+def inference_bound_ms(products: list) -> float:
+    """The least time of the four products at the 3xTF32 peak."""
+    return sum(2.0 * a.shape[0] * a.shape[1] * w.shape[0] for _, a, w, _, _ in products) / PEAK_F32 * 1e3
+
+
+def measure(inference: dict, training: list) -> dict:
+    """Card time and worst error / gate of the four products at each row
+    count and of the 12 training products with whichever library
+    `_build.library` returns."""
     scale = (D // H) ** -0.5
-    res = {"inf_ms": 0.0, "inf_gate": 0.0, "train_ms": 0.0, "train_gate": 0.0}
-    for _, a, w, bias, mode in inference:
-        got, ref = l32.gemm_f32(a, w, bias, mode, scale, D), l32.gemm_f32_plain(a, w, bias, mode, scale, D)
-        res["inf_gate"] = max(res["inf_gate"], (got - ref).abs().max().item() / (1e-5 * ref.abs().max().item() + 1e-6))
-        res["inf_ms"] += card_ms(lambda: l32.gemm_f32(a, w, bias, mode, scale, D))
+    res = {"train_ms": 0.0, "train_gate": 0.0}
+    for rows, products in inference.items():
+        res[f"inf_ms {rows}"], res[f"inf_gate {rows}"] = 0.0, 0.0
+        for name, a, w, bias, mode in products:
+            got, ref = l32.gemm_f32(a, w, bias, mode, scale, D), l32.gemm_f32_plain(a, w, bias, mode, scale, D)
+            res[f"inf_gate {rows}"] = max(res[f"inf_gate {rows}"], (got - ref).abs().max().item()
+                                          / (1e-5 * ref.abs().max().item() + 1e-6))
+            res[f"{name} {rows}"] = card_ms(lambda: l32.gemm_f32(a, w, bias, mode, scale, D))
+            res[f"inf_ms {rows}"] += res[f"{name} {rows}"]
     for _, kw in training:
         got, ref = lt.gemm_train(**kw), lt.gemm_train_plain(**kw)
         absprod = lt.gemm_train_plain(kw["a"].abs(), kw["b"].abs(), kw.get("a_t", False), kw.get("b_t", False))
@@ -257,13 +323,50 @@ def measure(inference: list, training: list) -> dict:
     return res
 
 
+def build_report(libs: dict) -> None:
+    """Each library's registers and spills, from its build log (ptxas -v)."""
+    for name in libs:
+        log_path = (_build.BUILD_ROOT / _build.source_hash() if name == "shipped" else variant_dir(name)) / "build.log"
+        if not log_path.exists():
+            continue
+        text = log_path.read_text().splitlines()
+        # ptxas names each function, then prints its registers, on the next lines
+        for i, line in enumerate(text):
+            if "Compiling entry function" in line and "f32g" in line and "gemm_kernel" in line:
+                usage = next((t.strip() for t in text[i + 1:i + 5] if "registers" in t), "")
+                spill = next((t.strip() for t in text[i + 1:i + 5] if "spill" in t), "")
+                args = re.search(r"gemm_kernelI(\w{0,48})", line)
+                print(f"  {name} [{args.group(1) if args else ''}]: {usage} {spill}".rstrip(), flush=True)
+        serial = [t.strip() for t in text if "serialized" in t]
+        if serial:
+            print(f"  {name}: {serial[0]}", flush=True)
+
+
+def measure_one(name: str, seed: int) -> dict:
+    """`measure` with one library (built already), in this process."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
+    if name not in ("shipped", SPLIT_K_4):
+        lib = _load(variant_dir(name) / "lib.so", ENTRIES)
+        _build.library = lambda: lib
+    if name == SPLIT_K_4:
+        shipped_plan = lt.plan_splits
+        lt.plan_splits = lambda m, n, k, tile, sms: shipped_plan(m, n, k, tile, 2 * sms)
+    if name in RAW_WEIGHT:
+        l32.split_tf32 = lambda w: w
+    return measure(*workload(seed))
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", nargs="*", choices=sorted(VARIANTS), help="these variants (default: all)")
+    parser.add_argument("--measure", help=argparse.SUPPRESS)  # one built library, in a process of its own
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the variants are measured on the card")
+    if args.measure:
+        print("RESULT " + json.dumps(measure_one(args.measure, args.seed)), flush=True)
+        return {}
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -271,31 +374,50 @@ def main(argv=None) -> dict:
     for label, tflops in mma_peak().items():
         print(f"mma.sync m16n8k8 tf32, {label}: {tflops:.1f} TFLOP/s", flush=True)
     _build.library()
-    libs = {"shipped": _build.library(), **build_variants(args.only or list(VARIANTS))}
-    inference, training = workload(args.seed)
-    shipped_library, shipped_plan = _build.library, lt.plan_splits
+    names = args.only if args.only is not None else list(VARIANTS)
+    libs = {"shipped": _build.library(), **build_variants(names)}
+    print("registers of the f32g::gemm_kernel instances (ptxas):", flush=True)
+    build_report(libs)
+    # each library in a process of its own, so that a variant that faults
+    # costs its own line and not the others'
     runs = {}
-    try:
-        for name, lib in [*libs.items(), ("split-K for four blocks per SM", libs["shipped"])]:
-            _build.library = lambda lib=lib: lib
-            if name.startswith("split-K"):  # the weight gradients split for 4 blocks per SM, not 2
-                lt.plan_splits = lambda m, n, k, tile, sms: shipped_plan(m, n, k, tile, 2 * sms)
-            runs[name] = measure(inference, training)
-            lt.plan_splits = shipped_plan
-    finally:
-        _build.library, lt.plan_splits = shipped_library, shipped_plan
-    matmul_inf = sum(card_ms(lambda: torch.matmul(a, w.t())) for _, a, w, _, _ in inference)
+    for name in [*libs, SPLIT_K_4]:
+        proc = subprocess.run([sys.executable, "-m", MODULE, "--measure", name, "--seed", str(args.seed)],
+                              capture_output=True, text=True, timeout=900)
+        line = next((t for t in proc.stdout.splitlines() if t.startswith("RESULT ")), None)
+        if proc.returncode or line is None:
+            print(f"{name}: failed (exit {proc.returncode}): {(proc.stdout + proc.stderr)[-1500:]}", flush=True)
+            continue
+        runs[name] = json.loads(line[len("RESULT "):])
+        print(f"{name}: measured", flush=True)
+    inference, training = workload(args.seed)
+    matmul = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        matmul[tf32] = {rows: sum(card_ms(lambda: torch.matmul(a, w.t())) for _, a, w, _, _ in products)
+                        for rows, products in inference.items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     def op(t, trans):
         return t.t() if trans else t
 
     matmul_train = sum(card_ms(lambda: torch.matmul(op(kw["a"], kw.get("a_t", False)), op(kw["b"], kw.get("b_t", False))))
                        for _, kw in training)
-    print(f"{card}; ms on the card (cold L2) of the four f32 inference products / the 12 f32 training products, "
-          f"and the worst error as a fraction of gemm_f32's / gemm_train's gate", flush=True)
+    bounds = {rows: inference_bound_ms(products) for rows, products in inference.items()}
+    print(f"{card}; ms on the card (cold L2) of the four f32 inference products at "
+          + " and ".join(f"{rows} rows (bound {b:.4f} ms)" for rows, b in bounds.items())
+          + " / the 12 f32 training products, and the worst error as a fraction of gemm_f32's / gemm_train's gate",
+          flush=True)
     for name, r in runs.items():
-        print(f"{name:34s} {r['inf_ms']:.4f} / {r['train_ms']:.4f} ms   {r['inf_gate']:.3f} / {r['train_gate']:.3f}")
-    print(f"{'torch.matmul (TF32 off)':34s} {matmul_inf:.4f} / {matmul_train:.4f} ms")
+        inf = "  ".join(f"{r[f'inf_ms {rows}']:.4f} ({100 * bounds[rows] / r[f'inf_ms {rows}']:.1f} % of bound)"
+                        for rows in inference)
+        gates = " ".join(f"{r[f'inf_gate {rows}']:.3f}" for rows in inference)
+        print(f"{name:34s} {inf} / {r['train_ms']:.4f} ms   {gates} / {r['train_gate']:.3f}")
+        print(" " * 35 + "; ".join(f"{rows}: " + ", ".join(f"{p} {r[f'{p} {rows}']:.4f}" for p, *_ in inference[rows])
+                                   for rows in inference))
+    for tf32, label in ((False, "torch.matmul (TF32 off)"), (True, "torch.matmul (TF32 on, one pass)")):
+        inf = "  ".join(f"{matmul[tf32][rows]:.4f}" for rows in inference)
+        print(f"{label:34s} {inf}" + (f" / {matmul_train:.4f} ms" if not tf32 else " ms"))
     return runs
 
 

@@ -461,31 +461,67 @@ def test_gemm_bf16_shapes_on_cuda(m, k, n, mode):
 
 
 # (M, K, N): the four products of an f32 layer at 32 x 144 tokens (qkv, out,
-# FF1, FF2), ragged rows, and the smallest N and K the kernel takes (4: its
-# 16-byte copies) with N and K off its 64 x 64 x 32 tiles
+# FF1, FF2), ragged rows, the smallest N and K the kernel takes (4: TMA's
+# 16-byte row pitch) with N and K off its 128 x BN x 32 tiles, and the four
+# products at the f32 benchmark cell's 64 x 145 rows
 GEMM_F32_SHAPES = [(4608, 512, 1536), (4608, 512, 512), (4608, 512, 1024), (4608, 1024, 512),
                    (288, 512, 1536), (4608 + 37, 1024, 512), (4608 + 37, 512, 1024), (300, 4, 4),
-                   (37, 4, 68), (300, 36, 4)]
+                   (37, 4, 68), (300, 36, 4),
+                   (9280, 512, 1536), (9280, 512, 512), (9280, 512, 1024), (9280, 1024, 512)]
 
 
 @pytest.mark.parametrize("m,k,n", GEMM_F32_SHAPES)
 @pytest.mark.parametrize("mode", ["bias", "qkv", "gelu"])
 def test_gemm_f32_shapes_on_cuda(m, k, n, mode):
-    """gemm_f32 (3xTF32 on the tensor cores) in each epilogue mode at the
-    layer's four shapes, at ragged M (288, 4608 + 37) and at the smallest N
-    and K it takes, against its plain version under chip_smoke.py's gate,
-    1e-5 max|ref| + 1e-6; each call adds one launch."""
+    """gemm_f32 (3xTF32 on wgmma) in each epilogue mode at the layer's four
+    shapes, at ragged M (288, 4608 + 37) and at the smallest N and K it
+    takes, against its plain version under chip_smoke.py's gate, 1e-5
+    max|ref| + 1e-6; each call adds exactly one launch of the product, and
+    the first call on a weight one split."""
     g = torch.Generator(device="cuda").manual_seed(m + k + n)
     a = torch.randn(m, k, device="cuda", generator=g)
     w = (2 * torch.rand(n, k, device="cuda", generator=g) - 1) * k ** -0.5  # a Linear weight [out, in]
     bias = 0.1 * torch.randn(n, device="cuda", generator=g)
     scale, scale_cols = 128 ** -0.5, n // 3
-    before = l32.gemm_f32.launches
-    got = l32.gemm_f32(a, w, bias, mode, scale, scale_cols)
-    assert l32.gemm_f32.launches == before + 1
     ref = l32.gemm_f32_plain(a, w, bias, mode, scale, scale_cols)
-    assert got.shape == ref.shape and got.dtype == torch.float32
-    assert ((got - ref).abs() <= 1e-5 * ref.abs().max() + 1e-6).all()
+    for splits in (1, 0):  # the weight's first product splits it; the second reuses the halves
+        before, split_before = l32.gemm_f32.launches, l32.split_tf32.launches
+        got = l32.gemm_f32(a, w, bias, mode, scale, scale_cols)
+        assert l32.gemm_f32.launches == before + 1
+        assert l32.split_tf32.launches == split_before + splits
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        assert ((got - ref).abs() <= 1e-5 * ref.abs().max() + 1e-6).all()
+
+
+def test_gemm_f32_weight_updated_in_place_on_cuda():
+    """The weight's TF32 halves are split once, equal split_tf32_plain's bit
+    for bit, and are split again after the weight is updated in place
+    (copy_, mul_ under no_grad: its version counter moves), before the next
+    product, which then matches the plain product of the new weight."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.randn(300, 512, device="cuda", generator=g)
+    w = torch.nn.Parameter((2 * torch.rand(1024, 512, device="cuda", generator=g) - 1) * 512 ** -0.5)
+    bias = 0.1 * torch.randn(1024, device="cuda", generator=g)
+
+    def product_within_gate():
+        got, ref = l32.gemm_f32(a, w, bias, "gelu"), l32.gemm_f32_plain(a, w, bias, "gelu")
+        assert ((got - ref).abs() <= 1e-5 * ref.abs().max() + 1e-6).all()
+
+    before = l32.split_tf32.launches
+    product_within_gate()
+    halves = l32.split_tf32(w)
+    assert l32.split_tf32.launches == before + 1
+    assert torch.equal(halves, l32.split_tf32_plain(w.detach()))
+    with torch.no_grad():
+        w.copy_((2 * torch.rand(1024, 512, device="cuda", generator=g) - 1) * 512 ** -0.5)
+    product_within_gate()
+    assert l32.split_tf32.launches == before + 2
+    with torch.no_grad():
+        w.mul_(-3.0)
+    product_within_gate()
+    product_within_gate()
+    assert l32.split_tf32.launches == before + 3
+    assert torch.equal(l32.split_tf32(w), l32.split_tf32_plain(w.detach()))
 
 
 @pytest.mark.parametrize("s", [1, 15, 16, 17, 143, 144, 145])

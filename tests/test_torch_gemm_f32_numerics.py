@@ -1,7 +1,18 @@
-"""The error budget of the port's f32 GEMM main loop (3xTF32 on the tensor
-cores, rohm_tpu_torch/ops/csrc/f32_gemm.cuh), emulated on the CPU.
+"""The error budget of the port's f32 GEMM main loops (3xTF32 on the tensor
+cores: gemm_train's mma.sync loop, rohm_tpu_torch/ops/csrc/f32_gemm.cuh, and
+gemm_f32's wgmma loop, csrc/f32_wgmma.cuh), emulated on the CPU.
 
-The kernel splits each operand element x in registers into two TF32 values,
+The two loops issue the same arithmetic in the same order: the same split,
+the same three products per k8 slice in the same order (a wgmma m64nNk8 is
+as deep as an mma.sync m16n8k8), the same 32-deep partial sums. gemm_f32
+splits its weight once, outside the product (`split_tf32`, held here to the
+emulation's split), where the mma.sync loop splits it in registers: the
+halves are the same values. So one emulation serves both. What differs is
+inside the tensor cores, which round their f32 sums their own way (below):
+on the card the two loops' worst errors at chip_smoke.py's 32 x 144 shapes
+differ by at most 0.04 of gemm_f32's gate, both under 0.14 of it.
+
+The kernel splits each operand element x into two TF32 values,
 big = rna(x) (round to 10 explicit mantissa bits, ties away from zero: the
 bits of cvt.rna.tf32.f32) and small = x - big, which the tensor cores cut
 to TF32 toward zero as they read it, and issues three products per fragment
@@ -21,6 +32,7 @@ tile.
 import pytest
 import torch
 
+from rohm_tpu_torch.ops import transformer_layer as l32
 from rohm_tpu_torch.ops import transformer_layer_train as lt
 
 TB_K, MMA_K = 32, 8  # the main loop's k-step, one mma.sync's depth
@@ -91,6 +103,27 @@ def test_tf32_split_error_budget():
     # ties go away from zero: 1 + 2^-11 is halfway between two TF32 values
     half = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
     assert tf32_rna(half).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+
+
+def test_split_tf32_halves_and_their_cache():
+    """gemm_f32's weight split (split_tf32, its plain version on the CPU):
+    big is the emulation's tf32_rna bit for bit, small = w - big exactly (the
+    tensor cores cut it to TF32 as they read it, as in the emulation); the
+    halves are kept while the weight is unchanged and split again once it
+    is updated in place."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.nn.Parameter(torch.randn(96, 64, generator=g) * 10.0 ** torch.randint(-3, 3, (96, 64), generator=g))
+    halves = l32.split_tf32(w)
+    big, small = split(w.detach())
+    assert halves.shape == (2, 96, 64)
+    assert torch.equal(halves[0], big) and torch.equal(tf32_cut(halves[1]), small)
+    assert torch.equal(halves[1], w.detach() - big)
+    assert l32.split_tf32(w) is halves
+    with torch.no_grad():
+        w.mul_(-0.5)
+    again = l32.split_tf32(w)
+    assert again is not halves and torch.equal(again[0], tf32_rna(w.detach()))
+    assert l32.split_tf32(w) is again
 
 
 @pytest.mark.parametrize("k", [512, 1024, 9280])
