@@ -1,0 +1,12 @@
+"""The median device duration, in ms, of the `guidance.term` spans with
+`term` "proj2d" (the 2-D keypoint reprojection loss through SMPL-X and the
+pinhole cameras, and its autograd) in the traced batches
+(harness/guided.py); nothing where a guided step lacks one."""
+
+from harness.guided import term_spans
+from harness.spans import median_ms
+
+
+def read(ctx: dict):
+    spans = term_spans(ctx, "proj2d")
+    return None if spans is None else median_ms([s["device_ns"] for s in spans])

@@ -11,8 +11,10 @@ Each `GuidanceSpec` adds `weight * posterior_variance[t] * (-grad loss(pred_x0))
 to the posterior mean, the gradient taken with torch.autograd.grad on a
 detached copy of pred_x0.
 
-Each step of p_sample_loop is a `step` span (utils/profiling.py), and the
-guidance at a step where a term applies a `guidance` span inside it. After
+Each step of p_sample_loop is a `step` span (utils/profiling.py), the
+guidance at a step where a term applies a `guidance` span inside it, and
+each applied term's loss and autograd a `guidance.term` span (attribute
+`term`, the spec's `name`) inside that. After
 each step's posterior step, every callable in `step_observers` is called
 with (sched, t, x_t, x_{t-1}, pred_x0 if the step was guided else None).
 """
@@ -39,12 +41,14 @@ class GuidanceSpec:
 
     loss_fn(x [*shape]) -> scalar; differentiated wrt the model's pred_x0.
     grad_mask zeroes protected dims (traj + contact labels in RoHM).
+    name labels the term's `guidance.term` span.
     """
 
     loss_fn: Callable[[torch.Tensor], torch.Tensor]
     weight: float
     t_threshold: int
     grad_mask: torch.Tensor | None = None
+    name: str = "unnamed"
 
 
 def _guidance_shift(guidance, pred_x0: torch.Tensor, t: int, var: torch.Tensor):
@@ -57,9 +61,10 @@ def _guidance_shift(guidance, pred_x0: torch.Tensor, t: int, var: torch.Tensor):
         for spec in guidance:
             if t > spec.t_threshold:
                 continue
-            x0 = pred_x0.detach().requires_grad_()
-            with torch.enable_grad():
-                (grad,) = torch.autograd.grad(spec.loss_fn(x0), x0)
+            with span("guidance.term", "term", spec.name):
+                x0 = pred_x0.detach().requires_grad_()
+                with torch.enable_grad():
+                    (grad,) = torch.autograd.grad(spec.loss_fn(x0), x0)
             g = -grad
             if spec.grad_mask is not None:
                 g = g * spec.grad_mask

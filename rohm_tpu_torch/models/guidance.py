@@ -8,6 +8,10 @@ posenet.py:251-252, 313-314). Weights and thresholds
 t <= 50; 'prox' (PROX and EgoBody) -> 2-D keypoint reprojection 3e5 plus
 skating 1e5, both at t <= 100.
 
+The reprojection takes one camera for the batch (cam_r [3, 3], cam_t
+[3], as the CLI gives one recording's) or one camera per row (cam_r
+[B, 3, 3], cam_t [B, 3]: windows of several recordings in one batch).
+
 Under a data-parallel mesh x holds this rank's rows and each loss is the
 global batch's: the skating loss through its global sums, the
 reprojection mean as this rank's sum over the global count (the other
@@ -69,10 +73,11 @@ def perspective_projection(points: torch.Tensor, focal_length: torch.Tensor,
 
 
 def camera_inverses(transf_matrix: torch.Tensor, cam_r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cano -> scene transforms [B, 4, 4], scene -> camera rotation [3, 3]):
-    the inverses of a batch's canonicalization transforms and of its camera
-    rotation basis. They do not depend on x, so they are computed once per
-    batch, not in every guided step."""
+    """(cano -> scene transforms [B, 4, 4], scene -> camera rotation [3, 3]
+    or, for one camera per row, [B, 3, 3]): the inverses of a batch's
+    canonicalization transforms and of its camera rotation bases. They do
+    not depend on x, so they are computed once per batch, not in every
+    guided step."""
     return torch.linalg.inv(transf_matrix), torch.linalg.inv(cam_r)
 
 
@@ -82,8 +87,8 @@ def projection_2d_loss_fn(
     std: torch.Tensor,
     body_model: SmplxModel,
     cano_to_scene: torch.Tensor,  # [B, 4, 4] inverse of the scene->canonical transform
-    cam_r_inv: torch.Tensor,  # [3, 3] inverse of the scene->camera rotation basis
-    cam_t: torch.Tensor,  # [3] camera origin in scene coords
+    cam_r_inv: torch.Tensor,  # [3, 3] or [B, 3, 3] inverse of the scene->camera rotation basis
+    cam_t: torch.Tensor,  # [3] or [B, 3] camera origin in scene coords
     focal_length: torch.Tensor,  # [B, 2]
     camera_center: torch.Tensor,  # [B, 2]
     keypoints_2d: torch.Tensor,  # [B, T, 22, 3] (u, v, confidence)
@@ -96,7 +101,9 @@ def projection_2d_loss_fn(
     -> camera (cam_R^-1 (p - cam_t)) -> pixels (posenet.py:284-309), in the
     JAX package's order of operations (it divides by the camera depth last,
     so both packages agree on near-zero depths). The inverses come from
-    `camera_inverses`.
+    `camera_inverses`; a batched cam_r_inv with its [B, 3] cam_t puts each
+    row in its own camera, and a single one is taken as that camera on
+    every row. The loss is the mean over the whole batch.
     """
     dn = x * std + mean
     d = split_repr(dn)
@@ -105,7 +112,9 @@ def projection_2d_loss_fn(
     r = cano_to_scene[:, :3, :3]
     t = cano_to_scene[:, :3, 3]
     scene = torch.einsum("bij,btnj->btni", r, joints) + t[:, None, None, :]
-    cam = torch.einsum("ij,btnj->btni", cam_r_inv, scene - cam_t)
+    # one camera for the batch is that camera on every row (views, no copy)
+    cam_r_inv = cam_r_inv.expand(scene.shape[0], 3, 3)
+    cam = torch.einsum("bij,btnj->btni", cam_r_inv, scene - cam_t.reshape(-1, 1, 1, 3))
     proj = perspective_projection(cam, focal_length[:, None, :], camera_center[:, None, :])
 
     seq_len = joints.shape[-3]
@@ -123,6 +132,7 @@ def amass_guidance(mean, std, body_model, mesh: DataMesh | None = None) -> tuple
             weight=AMASS_SKATING_WEIGHT,
             t_threshold=AMASS_SKATING_T_THRESH,
             grad_mask=guidance_grad_mask(mean.device),
+            name="skating",
         ),
     )
 
@@ -130,8 +140,13 @@ def amass_guidance(mean, std, body_model, mesh: DataMesh | None = None) -> tuple
 def prox_guidance(mean, std, body_model, transf_matrix, cam_r, cam_t, focal_length,
                   camera_center, keypoints_2d, mesh: DataMesh | None = None) -> tuple[GuidanceSpec, ...]:
     """Guidance stack for PROX/EgoBody (2-D reprojection + skating); the
-    camera inverses are taken here, once per batch. Under a mesh the
-    batch-leading inputs are this rank's rows."""
+    camera inverses are taken here, once per batch. The camera is cam_r
+    [3, 3] with cam_t [3] for the whole batch, or cam_r [B, 3, 3] with
+    cam_t [B, 3], one per row. Under a mesh the batch-leading inputs
+    (a per-row camera too) are this rank's rows."""
+    if cam_r.dim() not in (2, 3) or cam_t.dim() != cam_r.dim() - 1:
+        raise ValueError(f"cam_r {tuple(cam_r.shape)} with cam_t {tuple(cam_t.shape)}: expected [3, 3] with [3] "
+                         "or [B, 3, 3] with [B, 3]")
     mask = guidance_grad_mask(mean.device)
     cano_to_scene, cam_r_inv = camera_inverses(transf_matrix, cam_r)
     joint_index = torch.as_tensor(GUIDANCE_2D_JOINTS, device=mean.device)
@@ -144,11 +159,13 @@ def prox_guidance(mean, std, body_model, transf_matrix, cam_r, cam_t, focal_leng
             weight=PROX_PROJ2D_WEIGHT,
             t_threshold=PROX_T_THRESH,
             grad_mask=mask,
+            name="proj2d",
         ),
         GuidanceSpec(
             loss_fn=lambda x: skating_loss_fn(x, mean, std, body_model, mesh),
             weight=PROX_SKATING_WEIGHT,
             t_threshold=PROX_T_THRESH,
             grad_mask=mask,
+            name="skating",
         ),
     )

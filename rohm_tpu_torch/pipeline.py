@@ -56,9 +56,11 @@ PRESET_NOISE_KEYS = ("traj_init", "traj_step", "pose_init", "pose_step")
 # the per-batch inputs of the 'prox' guidance
 GUIDANCE_DATA_KEYS = ("transf_matrix", "cam_r", "cam_t", "focal_length", "camera_center", "keypoints_2d")
 # the batch axis of each preset_noise entry ([iter, (step,) B, ...]) and of
-# the guidance inputs that have one (the camera pose cam_r, cam_t has none)
+# the guidance inputs that have one; the camera pose (cam_r, cam_t) has one
+# only when given per row, at these ranks ([B, 3, 3], [B, 3])
 PRESET_NOISE_BATCH_AXIS = {"traj_init": 1, "traj_step": 2, "pose_init": 1, "pose_step": 2}
 GUIDANCE_BATCH_KEYS = ("transf_matrix", "focal_length", "camera_center", "keypoints_2d")
+CAMERA_ROW_RANKS = {"cam_r": 3, "cam_t": 2}
 
 
 def traj_to_pose_bridge(
@@ -127,6 +129,14 @@ def amass_eval_pose_mask(
         raise ValueError(f"bad mask_scheme {mask_scheme}")
     vis[..., -4:] = 0.0
     return vis.astype(np.float32)
+
+
+def shard_guidance_data(guidance_data: dict, mesh: DataMesh | None) -> dict:
+    """This rank's rows of the 'prox' guidance inputs that carry the batch
+    axis (GUIDANCE_BATCH_KEYS, and the camera pose where given per row);
+    the others whole."""
+    return {k: shard_rows(v, mesh) if k in GUIDANCE_BATCH_KEYS or v.dim() == CAMERA_ROW_RANKS.get(k) else v
+            for k, v in guidance_data.items()}
 
 
 def _full_f32() -> None:
@@ -316,11 +326,12 @@ class RohmPipeline:
         """One batch; array arguments as numpy arrays or tensors. `generator`
         draws all noise that `preset_noise` does not replay (see _run).
         guidance_data carries the 'prox' guidance's per-batch inputs
-        (GUIDANCE_DATA_KEYS: transf_matrix [B,4,4], cam_r [3,3], cam_t [3],
-        focal_length [B,2], camera_center [B,2], keypoints_2d [B,T,22,3]);
-        they move to the pipeline's device once per batch. Under a mesh
-        every argument is the global batch and so are the outputs. The
-        whole call is the root span `batch`."""
+        (GUIDANCE_DATA_KEYS: transf_matrix [B,4,4], cam_r [3,3] with cam_t
+        [3] for one camera, or cam_r [B,3,3] with cam_t [B,3] for one per
+        row, focal_length [B,2], camera_center [B,2], keypoints_2d
+        [B,T,22,3]); they move to the pipeline's device once per batch.
+        Under a mesh every argument is the global batch and so are the
+        outputs. The whole call is the root span `batch`."""
         with span("batch", root=True):
             _full_f32()  # again per batch: a resident pipeline outlives the switches its process set
             dev = self.device
@@ -345,7 +356,7 @@ class RohmPipeline:
             mesh = self.mesh
             if mesh is not None:  # this rank's rows; the mask's batch axis is 1
                 pn = {k: shard_rows(v, mesh, PRESET_NOISE_BATCH_AXIS[k]) for k, v in pn.items()}
-                gd = {k: shard_rows(v, mesh) if k in GUIDANCE_BATCH_KEYS else v for k, v in gd.items()}
+                gd = shard_guidance_data(gd, mesh)
                 pm = shard_rows(pm, mesh, 1)
             rows = [shard_rows(as_t(a), mesh) for a in (traj_cond, traj_clean, pose_noisy)]
             pose, traj = self._run(*rows, pm, shard_rows(as_t(traj_mask), mesh), generator, gd, pn)

@@ -10,7 +10,7 @@
 
 Spans. Off (no profile recording) entering a span is one flag read and a
 shared no-op context. While a profile records, each span keeps its name,
-its parent's and its root's index in the log, one int attribute, and its
+its parent's and its root's index in the log, one int or str attribute, and its
 host start and end from time.time_ns() (the clock the profiler's events
 are placed on). Under a root span (span(..., root=True)) on a process
 whose CUDA is initialised, each span also records a CUDA event on the
@@ -99,9 +99,10 @@ _OPEN: list[int] = []  # the indices of the spans open now, innermost last
 _OFF = contextlib.nullcontext()
 
 
-def span(name: str, attr: str | None = None, value: int = 0, root: bool = False):
+def span(name: str, attr: str | None = None, value: int | str = 0, root: bool = False):
     """A context manager that records the block as a span named `name`,
-    with the int attribute `attr` = `value` where `attr` is given, while a
+    with the attribute `attr` = `value` (an int, or a str kept as it is)
+    where `attr` is given, while a
     torch.profiler profile records; otherwise it does nothing. A root span
     (one batch) anchors its spans' device stamps to the host clock and
     counts its host-device synchronisations (see the module docstring)."""
@@ -145,9 +146,9 @@ class _Span:
     __slots__ = ("name", "attrs", "is_root", "parent", "root", "host_start", "host_end", "device_start",
                  "device_end", "syncs", "anchor", "anchor_ns", "_ev_start", "_ev_end", "_range", "_counter")
 
-    def __init__(self, name: str, attr: str | None, value: int, root: bool):
+    def __init__(self, name: str, attr: str | None, value: int | str, root: bool):
         self.name, self.is_root = name, root
-        self.attrs = {} if attr is None else {attr: int(value)}
+        self.attrs = {} if attr is None else {attr: value if isinstance(value, str) else int(value)}
         self.host_end = self.device_start = self.device_end = self.syncs = None
         self.anchor = self.anchor_ns = self._ev_start = self._ev_end = self._counter = None
 

@@ -36,9 +36,16 @@ from rohm_tpu.reprs import get_repr as jax_get_repr
 from rohm_tpu.train import create_train_state as jax_create_train_state
 from rohm_tpu.train import make_posenet_grads_fn as jax_make_posenet_grads_fn
 from rohm_tpu_torch.body import synthetic_model
-from rohm_tpu_torch.models.guidance import GUIDANCE_2D_JOINTS, camera_inverses, projection_2d_loss_fn, skating_loss_fn
+from rohm_tpu_torch.models.guidance import (
+    GUIDANCE_2D_JOINTS,
+    camera_inverses,
+    projection_2d_loss_fn,
+    prox_guidance,
+    skating_loss_fn,
+)
 from rohm_tpu_torch.models.losses import foot_skating_loss, posenet_losses
 from rohm_tpu_torch.parallel import DataMesh, spawn
+from rohm_tpu_torch.pipeline import GUIDANCE_DATA_KEYS
 from rohm_tpu_torch.reprs.schema import FOOT_JOINT_INDEX
 from rohm_tpu_torch.utils.convert_flax import posenet_state_dict, trajnet_state_dict
 
@@ -235,6 +242,41 @@ def test_global_reductions_over_two_ranks(tmp_path):
     j_losses = jax.jit(lambda o, c: jax_posenet_losses(o, c, mean, std, jbody, WEIGHTS))(put(out), put(clean))
     for k, v in j_losses.items():
         np.testing.assert_allclose(res[0]["losses"][k], float(v), rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def _cameras_per_row(joints, cameras: dict) -> dict:
+    """The case's cameras with one camera per clip: a rotation of its own,
+    the clip's scene-coord center 3.5 m along its z."""
+    rng = np.random.default_rng(11)
+    b = len(joints)
+    cam_r = R.from_rotvec(rng.normal(scale=0.4, size=(b, 3))).as_matrix()
+    centers = [(np.linalg.inv(cameras["transf_matrix"][i]) @ np.r_[joints[i, :, 0].mean(0), 1.0])[:3]
+               for i in range(b)]
+    cam_t = np.stack([c - r @ np.array([0.0, 0.0, 3.5]) for c, r in zip(centers, cam_r)])
+    return dict(cameras, cam_r=cam_r.astype(np.float32), cam_t=cam_t.astype(np.float32))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_prox_terms_over_two_ranks(tmp_path, per_row):
+    """Both 'prox' guidance terms with their inputs sharded as
+    RohmPipeline.run_batch shards them, the camera given once ([3, 3],
+    [3]) or one per clip ([4, 3, 3], [4, 3], four distinct cameras): each
+    rank's gathered row gradient is the single-process gradient (1e-5 of
+    its largest entry, as above)."""
+    _, joints, _, x, mean, std, cameras = _guidance_case()
+    if per_row:
+        cameras = _cameras_per_row(joints, cameras)
+    res = ranks(tmp_path, workers.prox_terms, 2, x, mean, std, cameras)
+    body = synthetic_model(num_verts=64, seed=3)
+    specs = prox_guidance(_t(mean), _t(std), body, *(_t(cameras[k]) for k in GUIDANCE_DATA_KEYS))
+    assert [s.name for s in specs] == ["proj2d", "skating"]
+    for spec in specs:
+        leaf = _t(x).requires_grad_()
+        (ref,) = torch.autograd.grad(spec.loss_fn(leaf), leaf)
+        ref = ref.numpy()
+        assert np.abs(ref).max() > 0, spec.name
+        for r in res:
+            np.testing.assert_allclose(r[spec.name][1], ref, atol=1e-5 * np.abs(ref).max(), rtol=0, err_msg=spec.name)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from rohm_tpu_torch.diffusion import sampler
-from rohm_tpu_torch.models.guidance import AMASS_SKATING_T_THRESH
+from rohm_tpu_torch.models.guidance import AMASS_SKATING_T_THRESH, PROX_T_THRESH
 from rohm_tpu_torch.utils import profiling
 
 BENCH = Path(__file__).resolve().parents[1] / "port_bench"
@@ -74,7 +74,7 @@ def test_span_tree_of_a_batch(tiny_cell, runs):
     guided = min(AMASS_SKATING_T_THRESH, pose_steps - 1) + 1
     assert Counter(s["name"] for s in log) == {
         "batch": 1, "chain.traj": iters, "chain.pose": iters, "bridge": iters,
-        "step": iters * (traj_steps + pose_steps), "guidance": iters * guided}
+        "step": iters * (traj_steps + pose_steps), "guidance": iters * guided, "guidance.term": iters * guided}
     assert log[0]["name"] == "batch" and log[0]["parent"] is None
     assert all(s["root"] == 0 for s in log)
     top = [(s["name"], s["attrs"]) for s in log if s["parent"] == 0]
@@ -90,7 +90,9 @@ def test_span_tree_of_a_batch(tiny_cell, runs):
         if s["name"] == "step":
             guides = log[s["parent"]]["name"] == "chain.pose" and s["attrs"]["t"] <= AMASS_SKATING_T_THRESH
             assert [k["name"] for k in kids] == (["guidance"] if guides else [])
-        if s["name"] in ("guidance", "bridge"):
+        if s["name"] == "guidance":
+            assert [(k["name"], k["attrs"]) for k in kids] == [("guidance.term", {"term": "skating"})]
+        if s["name"] in ("guidance.term", "bridge"):
             assert kids == []
         if s["parent"] is not None:
             p = log[s["parent"]]
@@ -98,6 +100,53 @@ def test_span_tree_of_a_batch(tiny_cell, runs):
         # no card here: host stamps only, and no sync counter
         assert s["host_ns"] == s["host_end_ns"] - s["host_start_ns"] >= 0
         assert s["device_start_ns"] is s["device_end_ns"] is s["device_ns"] is s["syncs"] is None
+
+
+def test_span_tree_of_a_prox_batch():
+    """One batch of the PROX cell's tiny preset (PoseNet schedule of 105
+    steps, early stop at t = 20): every PoseNet step t = 104..20, a
+    `guidance` span in each of t = 100..20 holding the two terms'
+    `guidance.term` spans, reprojection then skating."""
+    from test_torch_prox_reference import CPU, SEED, prox_tiny
+
+    cell, drv = prox_tiny()
+    cfg = cell["config"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        body, stats, batches = drv.make_inputs(cfg, cell["traffic"], SEED, CPU)
+        prog = drv.Program(cfg, body, stats["mean"], stats["std"], SEED, CPU)
+        profiling.take_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            prog.run_batch(batches[0], torch.Generator().manual_seed(7))
+        log = profiling.take_spans()
+    finally:
+        torch.set_num_threads(n)
+    traj_steps, iters = cfg["diffusion_steps_trajnet"], cfg["sample_iter"]
+    pose_ts = list(range(cfg["diffusion_steps_posenet"] - 1, cfg["early_stop_steps"] - 1, -1))
+    guided_ts = [t for t in pose_ts if t <= PROX_T_THRESH]
+    assert pose_ts[-1] == 20 and guided_ts[0] == 100 and len(guided_ts) == 81
+    assert Counter(s["name"] for s in log) == {
+        "batch": 1, "chain.traj": iters, "chain.pose": iters, "bridge": iters,
+        "step": iters * (traj_steps + len(pose_ts)), "guidance": iters * len(guided_ts),
+        "guidance.term": 2 * iters * len(guided_ts)}
+    children = {i: [] for i in range(len(log))}
+    for i, s in enumerate(log):
+        if s["parent"] is not None:
+            children[s["parent"]].append(i)
+    for i, s in enumerate(log):
+        kids = [log[k] for k in children[i]]
+        if s["name"] == "chain.pose":
+            assert [k["attrs"] for k in kids] == [{"t": t} for t in pose_ts]
+            guides = [log[k]["attrs"]["t"] for k in children[i] if children[k]]
+            assert guides == guided_ts
+        if s["name"] == "guidance":
+            assert log[s["parent"]]["attrs"]["t"] in guided_ts
+            assert [(k["name"], k["attrs"]) for k in kids] == [("guidance.term", {"term": "proj2d"}),
+                                                               ("guidance.term", {"term": "skating"})]
+        if s["name"] == "guidance.term":
+            assert kids == []
+            assert log[s["parent"]]["host_start_ns"] <= s["host_start_ns"] <= s["host_end_ns"]
 
 
 def test_unrecorded_batch_records_nothing_and_gives_the_same_outputs(runs):

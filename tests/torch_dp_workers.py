@@ -17,7 +17,13 @@ import torch
 from rohm_tpu_torch.body import synthetic_model
 from rohm_tpu_torch.diffusion import make_schedule
 from rohm_tpu_torch.models import PoseNet, TrajNet
-from rohm_tpu_torch.models.guidance import GUIDANCE_2D_JOINTS, camera_inverses, projection_2d_loss_fn, skating_loss_fn
+from rohm_tpu_torch.models.guidance import (
+    GUIDANCE_2D_JOINTS,
+    camera_inverses,
+    projection_2d_loss_fn,
+    prox_guidance,
+    skating_loss_fn,
+)
 from rohm_tpu_torch.models.losses import foot_skating_loss, posenet_losses
 from rohm_tpu_torch.parallel import (
     barrier,
@@ -29,7 +35,7 @@ from rohm_tpu_torch.parallel import (
     shard_rows,
     sum_gradients,
 )
-from rohm_tpu_torch.pipeline import RohmPipeline
+from rohm_tpu_torch.pipeline import GUIDANCE_DATA_KEYS, RohmPipeline, shard_guidance_data
 from rohm_tpu_torch.train.state import create_train_state
 from rohm_tpu_torch.train.steps import make_posenet_grads_fn, make_trajnet_grads_fn
 
@@ -93,6 +99,22 @@ def guidance_terms(mesh, joints, contact, x, mean, std, cameras: dict, out, clea
     (g,) = torch.autograd.grad(losses["loss"], o)
     res["losses"] = {k: float(v.detach()) for k, v in losses.items()}
     res["losses_grad"] = _np(gather_rows(g, mesh))
+    return res
+
+
+def prox_terms(mesh, x, mean, std, guidance_data: dict) -> dict:
+    """Both 'prox' guidance terms on this rank's rows, their inputs sharded
+    as RohmPipeline.run_batch shards them (a per-row camera too): per term
+    name, the loss and the gathered row gradient."""
+    torch.set_num_threads(1)
+    body = synthetic_model(num_verts=64, seed=3)
+    gd = shard_guidance_data({k: _t(v) for k, v in guidance_data.items()}, mesh)
+    res = {}
+    for spec in prox_guidance(_t(mean), _t(std), body, *(gd[k] for k in GUIDANCE_DATA_KEYS), mesh=mesh):
+        xr = shard_rows(_t(x), mesh).requires_grad_()
+        loss = spec.loss_fn(xr)
+        (g,) = torch.autograd.grad(loss, xr)
+        res[spec.name] = (_np(loss), _np(gather_rows(g, mesh)))
     return res
 
 
